@@ -7,12 +7,13 @@ Needs one CUDA card, ``nvcc`` and the repository's ``src/`` beside this
 file; exits non-zero, printing no result, without them. Phases, one line
 each, every mismatch fatal:
 
-1. build     — the CUDA kernels, from the sources in the checkout;
-2. kernels   — each kernel against its plain torch version on the card,
-               bit for bit, at the executor's shapes; device times (a CUDA
-               graph of 20 launches, replayed 20 times, median) beside the
-               plain version's, the memory-rate bound and the time of one
-               call with the host's launch (CUDA events, median of 20);
+1. build     — the three CUDA libraries (rowops, pim_matmul, flash_attn),
+               one nvcc per source, all started together;
+2. kernels   — each row kernel against its plain torch version on the
+               card, bit for bit, at the executor's shapes; device times (a
+               CUDA graph of 20 launches, replayed 20 times, median) beside
+               the plain version's, the memory-rate bound and the time of
+               one call with the host's launch (CUDA events, median of 20);
 3. subarray  — recorded programs through ``execute()`` at the paper's
                512 x 2,048 geometry, held exactly against the port's eager
                ISA on the card and ``execute()`` on the CPU;
@@ -21,8 +22,21 @@ each, every mismatch fatal:
                host writes and reads, a cross-bank COPY drain, two async
                steps (the second also refreshed), held exactly against the
                CPU run;
-5. launches  — kernel launches over the main path of phases 3-4 (counts
-               reset just before, read just after); each kernel must run.
+5. launches  — kernel launches over the PIM path of phases 3-4 (counts
+               reset just before, read just after); each kernel must run;
+6. lm kernels — pim_matmul (M 4 and 512, K x N 2560 x 9728 and 9728 x
+               2560, both modes, 4 and 8 bits) and flash_attn (Qwen3-4B's
+               heads at prefill and decode) against their plain versions on
+               the card, with device and per-call times, bound and the time
+               of one PyTorch library call;
+7. serve     — the LM serving path: ``greedy_generate`` on Qwen3-4B
+               (pim_w4, shift_add) at full width and depth, weights from a
+               seed, batch 4, prompt 128, 16 new tokens (launch counts reset
+               just before, read just after, each kernel must run); ms of
+               prefill and per decode token, GB on the card, decode against
+               prefill, the busy share of one prefill and one decode step;
+8. lm parity — the same model at 2 layers, on the card (kernels) and on the
+               CPU (plain versions), logits compared step by step.
 
 Then the kernel table as JSON, the card's name and power limit, and the
 result line. Nanoseconds and nanojoules of the DDR3 meter are outputs of
@@ -44,12 +58,42 @@ sys.path.insert(0, str(ROOT / "src"))
 
 H100_BYTES_PER_S = 3.35e12       # HBM3, NVIDIA's data sheet (SXM)
 H100_F32_OPS_PER_S = 67e12       # float32 outside the tensor cores
-KERNEL_SOURCE = "src/repro_torch/kernels/rowops/csrc/rowops.cu"
+H100_BF16_OPS_PER_S = 989e12     # bf16 tensor cores, dense
+SOURCES = {
+    "rowops": "src/repro_torch/kernels/rowops/csrc/rowops.cu",
+    "pim_matmul": "src/repro_torch/kernels/pim_matmul/csrc/pim_matmul.cu",
+    "flash_attn": "src/repro_torch/kernels/flash_attn/csrc/flash_attn.cu",
+}
 REPLACES = {
     "shift_cols": "src/repro/kernels/rowops/rowops.py:137",
     "bitwise": "src/repro/kernels/rowops/rowops.py:120",
     "meter_fold": "src/repro/core/pim/compile.py:247",
+    "pim_matmul": "src/repro/kernels/pim_matmul/pim_matmul.py:61",
+    "flash_attn": "src/repro/kernels/flash_attn/flash_attn.py:75",
 }
+# Tolerances of the LM phases. pim_matmul: the kernel and its plain version
+# compute the same float32 function (exact products, sums over K <= 9,728
+# in another order), so max |kernel - plain| <= 1e-4 of max |plain|.
+# flash_attn: the reference tests' bounds, abs 0.05 for bf16 tensors (the
+# outputs round to bf16 after float32 sums in another order) and 2e-5 for
+# float32. The model's logits, card against CPU and decode against prefill:
+# 2e-2 of max |logit|, the bound the port's CPU tests hold the bf16 model to
+# against the reference (bf16 rounds in other places on either side).
+PIM_REL = 1e-4
+FLASH_BF16_ABS = 0.05
+FLASH_F32_ABS = 2e-5
+LOGITS_REL = 2e-2
+LM_ARCH = ("qwen3-4b", {"quant": "pim_w4", "quant_mode": "shift_add"})
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 128, 16
+# (M, K, N) of the serving path's FFN linears at decode (M = batch) and at
+# prefill (M = batch x prompt); the first is the table's row
+PIM_SHAPES = ((4, 2560, 9728), (4, 9728, 2560), (512, 2560, 9728),
+              (512, 9728, 2560))
+# flash_attn at Qwen3-4B's heads: (B, KV, G, dh, Sq, Sk, first query
+# position); at decode the slots after the query's position hold kpos -1
+FLASH_SHAPES = {"prefill": (4, 8, 4, 128, 128, 128, 0),
+                "decode": (4, 8, 4, 128, 1, 144, 135)}
+PARITY_LAYERS, PARITY_BATCH, PARITY_PROMPT, PARITY_NEW = 2, 2, 32, 4
 SHIFT_KS = (1, -1, 31, 32, 33, -33, 999, -999, 65535, 65536, 70000)
 OPS = ("not", "and", "or", "xor", "maj")
 
@@ -433,6 +477,321 @@ def device_share(torch, fn) -> dict:
                     for k in kernels[:6]]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the LM kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def _kernel_row(torch, kernel, plain, library, nbytes, nops, shape, err,
+                per_graph=5, reps=5):
+    """Times of one kernel call (device and per call), its plain version and
+    its library call, in ms, and its bound from ``nbytes`` and ``nops``."""
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = nops / H100_BF16_OPS_PER_S * 1e3
+    return dict(
+        ms=device_us(kernel, torch, per_graph, reps) / 1e3,
+        call_ms=event_us(kernel, torch, reps=reps) / 1e3,
+        plain_ms=device_us(plain, torch, per_graph, reps) / 1e3,
+        library_ms=device_us(library, torch, per_graph, reps) / 1e3,
+        bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bytes=nbytes, ops=nops, shape=shape, max_abs_err=err)
+
+
+def _say_row(name, r):
+    say(f"kernel {name} {r['shape']}: kernel {r['ms'] * 1e3:.2f} us "
+        f"({r['call_ms'] * 1e3:.2f} us per call with the host's launch), "
+        f"plain {r['plain_ms'] * 1e3:.2f} us, library "
+        f"{r['library_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.3f} us "
+        f"({r['bound_by']}), max_abs_err {r['max_abs_err']:.3e}")
+
+
+def phase_lm_kernels(torch, device):
+    """pim_matmul and flash_attn at the serving path's shapes, each against
+    its plain version on the same tensors; name -> row."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attn import ops as fa
+    from repro_torch.kernels.flash_attn import ref as fref
+    from repro_torch.kernels.pim_matmul import ops as pm
+    from repro_torch.kernels.pim_matmul import ref as pref
+
+    gen = torch.Generator(device=device).manual_seed(11)
+    rows = {}
+    for m, k, n in PIM_SHAPES:
+        x = torch.randn((m, k), generator=gen, device=device).to(
+            torch.bfloat16)
+        w = torch.randn((k, n), generator=gen, device=device)
+        for bits in (4, 8):
+            w_int, scales = pm.quantize(w, bits)
+            w_deq = pref.ref_dequant(w_int, scales, bits).to(
+                torch.bfloat16)
+            for mode in ("shift_add", "dequant"):
+                def kernel(x=x, w_int=w_int, scales=scales, mode=mode,
+                           bits=bits):
+                    return pm.pim_matmul(x, w_int, scales, mode=mode,
+                                         bits=bits)
+
+                def plain(x=x, w_int=w_int, scales=scales, mode=mode,
+                          bits=bits):
+                    return pref.ref_pim_matmul_raw(
+                        x, w_int, mode=mode, bits=bits) * scales[None, :]
+
+                got, exp = kernel(), plain()
+                torch.cuda.synchronize()
+                err = max_abs_err(got, exp)
+                top = float(exp.abs().max())
+                if not (torch.isfinite(got).all() and err <= PIM_REL * top):
+                    raise AssertionError(
+                        f"pim_matmul {mode} w{bits} ({m}, {k}, {n}): "
+                        f"max abs err {err} > {PIM_REL} x {top}")
+                name = f"pim_matmul[{mode},w{bits}] ({m},{k})@({k},{n})"
+                rows[name] = _kernel_row(
+                    torch, kernel, plain,
+                    lambda x=x, w_deq=w_deq: torch.matmul(x, w_deq),
+                    2 * m * k + k * n + 4 * n + 4 * m * n, 2 * m * k * n,
+                    f"x ({m}, {k}) bf16, w ({k}, {n}) int{bits}", err)
+                _say_row(name, rows[name])
+                del got, exp
+    for phase, (B, KV, G, dh, sq, sk, pq0) in FLASH_SHAPES.items():
+        q = torch.randn((B, sq, KV, G, dh), generator=gen, device=device)
+        k = torch.randn((B, sk, KV, dh), generator=gen, device=device)
+        v = torch.randn((B, sk, KV, dh), generator=gen, device=device)
+        pos_q = torch.arange(pq0, pq0 + sq, dtype=torch.int32, device=device)
+        pos_k = torch.arange(sk, dtype=torch.int32, device=device).repeat(
+            B, 1)
+        if phase == "decode":        # slots not yet written: kpos = -1
+            pos_k[:, pq0 + 1:] = -1
+            v[:, pq0 + 1:] = 1e4     # and poisoned: they must weigh 0
+        for dt, bound in ((torch.float32, FLASH_F32_ABS),
+                          (torch.bfloat16, FLASH_BF16_ABS)):
+            got = fa.flash_attention(q.to(dt), k.to(dt), v.to(dt), pos_q,
+                                     pos_k)
+            exp = fref.ref_flash_attention(q.to(dt), k.to(dt), v.to(dt),
+                                           pos_q, pos_k)
+            torch.cuda.synchronize()
+            err = max_abs_err(got.float(), exp.float())
+            if not (torch.isfinite(got.float()).all() and err < bound):
+                raise AssertionError(f"flash_attn {phase} {dt}: max abs err "
+                                     f"{err} >= {bound}")
+        qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+        qt = qb.reshape(B, sq, KV * G, dh).transpose(1, 2).contiguous()
+        kt, vt = (t.transpose(1, 2).contiguous() for t in (kb, vb))
+        seen = ((pos_k[:, None, :] >= 0)
+                & (pos_k[:, None, :] <= pos_q[None, :, None]))  # (B, Sq, Sk)
+        mask = seen[:, None]
+        pairs = int(seen.sum())
+        name = f"flash_attn[{phase}]"
+        rows[name] = _kernel_row(
+            torch,
+            lambda: fa.flash_attention(qb, kb, vb, pos_q, pos_k),
+            lambda: fref.ref_flash_attention(qb, kb, vb, pos_q, pos_k),
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True),
+            2 * (2 * qb.numel() + kb.numel() + vb.numel())
+            + 4 * (pos_q.numel() + pos_k.numel()),
+            4 * dh * KV * G * pairs,
+            f"q ({B}, {sq}, {KV}, {G}, {dh}), k/v ({B}, {sk}, {KV}, {dh}) "
+            f"bf16, {pairs} seen (query, key) pairs", err, per_graph=10,
+            reps=10)
+        _say_row(name, rows[name])
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phases 7-8: the LM serving path
+# ---------------------------------------------------------------------------
+
+def lm_config(**overrides):
+    from repro_torch.configs import get_config
+    arch, quant = LM_ARCH
+    return get_config(arch, **quant, **overrides)
+
+
+def prompt_tokens(torch, seed, batch, length, vocab, device):
+    import numpy as np
+    return torch.as_tensor(np.random.default_rng(seed).integers(
+        0, vocab, (batch, length)), dtype=torch.int32, device=device)
+
+
+def rel_err(torch, a, b) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).abs().max() / (b.abs().max() + 1e-9))
+
+
+def teacher_forced(cfg, model, prompt, tokens, device):
+    """Prefill logits, then one decode step per generated token but the
+    last, fed ``tokens``: a list of (B, 1, V) float32 logits."""
+    from repro_torch.models import decode_step, prefill
+    s, n = prompt.shape[1], tokens.shape[1]
+    logits, caches = prefill(cfg, model, {"tokens": prompt}, s + n,
+                             device=device)
+    out = [logits]
+    for t in range(n - 1):
+        logits, caches = decode_step(cfg, model,
+                                     {"tokens": tokens[:, t:t + 1]}, s + t,
+                                     caches, device=device)
+        out.append(logits)
+    return out
+
+
+def run_serve(torch, device):
+    """The serving path at full width and depth. Returns (record, launches
+    over the ``greedy_generate`` run)."""
+    from repro_torch.kernels.flash_attn import ops as fa
+    from repro_torch.kernels.pim_matmul import ops as pm
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.serve.engine import greedy_generate
+
+    cfg = lm_config()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    model = init_params(cfg, 0, device=device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    weights_gb = (torch.cuda.memory_allocated() - base) / 1e9
+    prompt = prompt_tokens(torch, 12, SERVE_BATCH, SERVE_PROMPT,
+                           cfg.vocab_size, device)
+    batch = {"tokens": prompt}
+    torch.cuda.reset_peak_memory_stats()
+
+    pm.reset_launches()
+    fa.reset_launches()
+    t = time.perf_counter()
+    out = greedy_generate(cfg, model, batch, max_new_tokens=SERVE_NEW)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    launches = {"pim_matmul": pm.LAUNCHES["pim_matmul"],
+                "flash_attn": fa.LAUNCHES["flash_attn"]}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    L, V = cfg.n_layers, cfg.vocab_size
+    if tuple(out.shape) != (SERVE_BATCH, SERVE_NEW) \
+            or out.dtype != torch.int32 or int(out.min()) < 0 \
+            or int(out.max()) >= V:
+        raise AssertionError(f"greedy_generate gave {tuple(out.shape)} "
+                             f"{out.dtype} tokens in [{int(out.min())}, "
+                             f"{int(out.max())}]")
+    expected = {"pim_matmul": 3 * L * SERVE_NEW, "flash_attn": L * SERVE_NEW}
+    if launches != expected:
+        raise AssertionError(f"serving launches {launches}, expected "
+                             f"{expected}")
+
+    max_len = SERVE_PROMPT + SERVE_NEW
+    logits, _ = prefill(cfg, model, batch, max_len)
+    if not (torch.isfinite(logits).all()
+            and torch.equal(out[:, 0], torch.argmax(logits[:, 0], -1).int())):
+        raise AssertionError("the first generated token is not the argmax "
+                             "of the prefill logits")
+    _, caches = prefill(cfg, model, {"tokens": prompt[:, :-1]}, max_len)
+    dec, _ = decode_step(cfg, model, {"tokens": prompt[:, -1:]},
+                         SERVE_PROMPT - 1, caches)
+    dvp = rel_err(torch, dec, logits)
+    if not dvp < LOGITS_REL:
+        raise AssertionError(f"decode vs prefill logits: rel {dvp} >= "
+                             f"{LOGITS_REL}")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    prefill_ms = statistics.median(
+        timed(lambda: prefill(cfg, model, batch, max_len)) for _ in range(3))
+    per_token = []
+    for _ in range(2):
+        _, caches = prefill(cfg, model, batch, max_len)
+
+        def steps(caches=caches):
+            for t in range(SERVE_NEW - 1):
+                decode_step(cfg, model, {"tokens": out[:, t:t + 1]},
+                            SERVE_PROMPT + t, caches)
+
+        per_token.append(timed(steps) / (SERVE_NEW - 1))
+    decode_ms = statistics.median(per_token)
+    generate_ms = timed(lambda: greedy_generate(
+        cfg, model, batch, max_new_tokens=SERVE_NEW))
+
+    _, caches = prefill(cfg, model, batch, max_len)
+    shares = {
+        "prefill": device_share(torch, lambda: prefill(cfg, model, batch,
+                                                       max_len)),
+        "decode step": device_share(torch, lambda: decode_step(
+            cfg, model, {"tokens": out[:, :1]}, SERVE_PROMPT, caches)),
+    }
+    record = dict(
+        config=dict(arch=cfg.arch_id, quant=cfg.quant,
+                    quant_mode=cfg.quant_mode, n_layers=L,
+                    d_model=cfg.d_model, vocab=V, batch=SERVE_BATCH,
+                    prompt=SERVE_PROMPT, new_tokens=SERVE_NEW),
+        init_s=init_s, first_generate_s=first_s, weights_gb=weights_gb,
+        peak_gb=peak_gb, prefill_ms=prefill_ms, decode_ms_per_token=decode_ms,
+        generate_ms=generate_ms, decode_vs_prefill_rel=dvp,
+        tokens=out.cpu().tolist(), profile=shares)
+    say(f"serve {cfg.arch_id} {cfg.quant} {cfg.quant_mode} ({L} layers, "
+        f"d_model {cfg.d_model}): batch {SERVE_BATCH}, prompt "
+        f"{SERVE_PROMPT}, {SERVE_NEW} new tokens; prefill {prefill_ms:.2f} "
+        f"ms, decode {decode_ms:.2f} ms per token, greedy_generate "
+        f"{generate_ms:.2f} ms; {weights_gb:.2f} GB of weights on the card, "
+        f"peak {peak_gb:.2f} GB; decode vs prefill logits rel {dvp:.3e} "
+        f"(bound {LOGITS_REL}); launches {json.dumps(launches)}")
+    for name, sh in shares.items():
+        say_share(f"serve {name}", sh)
+    del model, caches
+    torch.cuda.empty_cache()
+    return record, launches
+
+
+def run_lm_parity(torch, device):
+    """Full width, PARITY_LAYERS layers: greedy_generate on the card, then
+    the same weights and tokens teacher-forced on the card and on the
+    CPU."""
+    from repro_torch.models import init_params
+    from repro_torch.serve.engine import greedy_generate
+
+    cfg = lm_config(n_layers=PARITY_LAYERS)
+    model = init_params(cfg, 1, device=device)
+    prompt = prompt_tokens(torch, 13, PARITY_BATCH, PARITY_PROMPT,
+                           cfg.vocab_size, device)
+    toks = greedy_generate(cfg, model, {"tokens": prompt},
+                           max_new_tokens=PARITY_NEW)
+    card = [lg.cpu() for lg in teacher_forced(cfg, model, prompt, toks,
+                                              device)]
+    if not torch.equal(toks[:, 0].cpu(), torch.argmax(card[0][:, 0], -1)
+                       .int()):
+        raise AssertionError("lm parity: first token is not the argmax")
+    model.to("cpu")
+    t = time.perf_counter()
+    cpu = teacher_forced(cfg, model, prompt.cpu(), toks.cpu(), "cpu")
+    cpu_s = time.perf_counter() - t
+    rels = [rel_err(torch, a, b) for a, b in zip(card, cpu)]
+    if not all(torch.isfinite(a).all() for a in card) \
+            or max(rels) >= LOGITS_REL:
+        raise AssertionError(f"lm parity: card vs CPU logits rel {rels} "
+                             f"(bound {LOGITS_REL})")
+    say(f"lm parity {cfg.arch_id} {cfg.quant} {cfg.quant_mode} at full "
+        f"width, {PARITY_LAYERS} layers, batch {PARITY_BATCH}, prompt "
+        f"{PARITY_PROMPT}, {PARITY_NEW} tokens: card (kernels) vs CPU (plain "
+        f"versions) logits rel per step "
+        + ", ".join(f"{r:.3e}" for r in rels)
+        + f" (bound {LOGITS_REL}); CPU run {cpu_s:.1f} s")
+    return {"rel_per_step": rels, "cpu_s": cpu_s,
+            "tokens": toks.cpu().tolist()}
+
+
+def say_share(name: str, sh: dict) -> None:
+    if sh["device_ms"] == 0.0:
+        say(f"profile {name}: device time not measured (the profiler "
+            "recorded no kernel time)")
+        return
+    say(f"profile {name}: {sh['wall_ms']:.2f} ms on the host clock, "
+        f"{sh['device_ms']:.3f} ms of kernels, busy share "
+        f"{sh['busy_share']:.3f}; top: "
+        + "; ".join(f"{k['name']} {k['ms']:.3f} ms x{k['count']}"
+                    for k in sh["top"][:3]))
+
+
 def card_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -456,14 +815,21 @@ def main() -> int:
     record = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda}
 
-    # 1. build
+    # 1. build: one nvcc per source, all started together
+    from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
-    _build.load("rowops")
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        list(pool.map(_build.build, SOURCES))
+    for name in SOURCES:
+        _build.load(name)
     build_s = time.perf_counter() - t0
     record["build_s"] = build_s
-    record["ptxas"] = _build.BUILD_LOG.get("rowops", "")
-    say(f"build rowops.cu: {build_s:.2f} s "
-        f"(nvcc {_build.BUILD_SECONDS.get('rowops', 0.0):.2f} s)")
+    record["ptxas"] = {name: _build.BUILD_LOG.get(name, "")
+                       for name in SOURCES}
+    for name, src in SOURCES.items():
+        say(f"build {Path(src).name}: {build_s:.2f} s for all "
+            f"{len(SOURCES)} in parallel (nvcc "
+            f"{_build.BUILD_SECONDS.get(name, 0.0):.2f} s)")
 
     # 2. kernels against their plain versions
     kernel_rows = phase_kernels(torch, device)
@@ -537,15 +903,7 @@ def main() -> int:
     }
     record["profile"] = shares
     for name, sh in shares.items():
-        if sh["device_ms"] == 0.0:
-            say(f"profile {name}: device time not measured (the profiler "
-                "recorded no kernel time)")
-            continue
-        say(f"profile {name}: {sh['wall_ms']:.2f} ms on the host clock, "
-            f"{sh['device_ms']:.3f} ms of kernels, busy share "
-            f"{sh['busy_share']:.3f}; top: "
-            + "; ".join(f"{k['name']} {k['ms']:.3f} ms x{k['count']}"
-                        for k in sh["top"][:3]))
+        say_share(name, sh)
 
     # 5. launches over the main path
     say("kernels " + json.dumps({**launches, **{f"bitwise[{k}]": v
@@ -558,15 +916,40 @@ def main() -> int:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
 
+    # 6. the LM kernels against their plain versions
+    lm_rows = phase_lm_kernels(torch, device)
+    record["lm_kernels"] = lm_rows
+
+    # 7. the serving path, with the launch counts reset just before it and
+    # read just after it (inside run_serve)
+    record["serve"], lm_launches = run_serve(torch, device)
+    say("kernels serve " + json.dumps(lm_launches))
+
+    # 8. card against CPU at full width, 2 layers
+    record["lm_parity"] = run_lm_parity(torch, device)
+
     table = []
     for name, r in kernel_rows.items():
         table.append({
-            "name": name, "route": "cuda", "source": KERNEL_SOURCE,
+            "name": name, "route": "cuda", "source": SOURCES["rowops"],
             "replaces": REPLACES[name.split("[")[0]],
             "launches": main_path[name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
+    # one row per LM kernel, at the shape that runs most often on the
+    # serving path (a decode step); every shape is in chip_smoke.json
+    m, k, n = PIM_SHAPES[0]
+    for kernel, row in (("pim_matmul",
+                         f"pim_matmul[shift_add,w4] ({m},{k})@({k},{n})"),
+                        ("flash_attn", "flash_attn[decode]")):
+        r = lm_rows[row]
+        table.append({
+            "name": row, "route": "cuda", "source": SOURCES[kernel],
+            "replaces": REPLACES[kernel], "launches": lm_launches[kernel],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     record["table"] = table
     out = ROOT / "chiprun_out"
     try:

@@ -1,7 +1,7 @@
-"""State carried between the JAX reference and the port.
+"""State and weights carried between the JAX reference and the port.
 
-The system has no weights; what crosses is device state and programs.
-State crosses as numpy arrays: the reference's uint32 rows become int32
+The PIM simulator has no weights; what crosses is device state and
+programs. State crosses as numpy arrays: the reference's uint32 rows become int32
 tensors by a dtype view (no value changes), meter fields float32/int32
 0-d or ``(n_slots,)`` tensors. Programs cross as ``pim-trace`` text
 (``PimProgram.to_trace()`` / ``to_trace_device()`` on one side,
@@ -74,3 +74,69 @@ def to_numpy(state) -> dict:
     for k in FLOAT_FIELDS + INT_FIELDS:
         out[k] = getattr(state.meter, k).cpu().numpy()
     return out
+
+
+# ---------------------------------------------------------------------------
+# LM weights
+# ---------------------------------------------------------------------------
+
+def _float(a, dtype, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":       # ml_dtypes' bfloat16: exact in f32
+        a = a.astype(np.float32)
+    elif a.dtype.kind != "f":
+        raise TypeError(f"expected a float array, got {a.dtype}")
+    return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
+
+
+def _exact(a, np_dtype, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype != np_dtype:
+        raise TypeError(f"expected {np.dtype(np_dtype)}, got {a.dtype}")
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def lm_params_from_numpy(cfg, params: dict, device=None):
+    """The port's model from the reference's ``init_params`` pytree, its
+    leaves as numpy arrays. The stacked ``(L, ...)`` layer leaves are
+    sliced per layer; quantized linears keep ``w_int`` int8 and ``scales``
+    float32 exactly; float weights take the config's dtype."""
+    from .models import attention, ffn, transformer
+    from .models.common import Linear, Norm, dtype_of
+
+    transformer.check_supported(cfg)
+    device = resolve_device(device)
+    dt = dtype_of(cfg)
+
+    def flt(a):
+        return _float(a, dt, device)
+
+    def norm(p, i=None):
+        pick = (lambda a: a) if i is None else (lambda a: np.asarray(a)[i])
+        return Norm(flt(pick(p["w"])),
+                    flt(pick(p["b"])) if "b" in p else None)
+
+    def lin(p, i):
+        b = flt(np.asarray(p["b"])[i]) if "b" in p else None
+        if "w_int" in p:
+            return Linear(
+                w_int=_exact(np.asarray(p["w_int"])[i], np.int8, device),
+                scales=_exact(np.asarray(p["scales"])[i], np.float32,
+                              device), b=b)
+        return Linear(flt(np.asarray(p["w"])[i]), b=b)
+
+    stack = params["stack"]
+    a, f = stack["attn"], stack["ffn"]
+    layers = []
+    for i in range(cfg.n_layers):
+        opt = {k: flt(np.asarray(a[k])[i]) for k in
+               ("bq", "bk", "bv", "q_norm", "k_norm") if k in a}
+        gqa = attention.GQA(*(flt(np.asarray(a[k])[i])
+                              for k in ("wq", "wk", "wv", "wo")), **opt)
+        dense = ffn.DenseFFN(lin(f["w1"], i), lin(f["w2"], i),
+                             lin(f["w3"], i) if "w3" in f else None)
+        layers.append(transformer.TFLayer(norm(stack["ln1"], i), gqa,
+                                          norm(stack["ln2"], i), dense))
+    lm_head = flt(params["lm_head"]) if "lm_head" in params else None
+    return transformer.LM(cfg, flt(params["embed"]), layers,
+                          norm(params["final_norm"]), lm_head)

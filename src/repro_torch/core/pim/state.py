@@ -27,6 +27,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..._device import resolve_device  # noqa: F401  (re-exported)
+
 # Paper/NVMain configuration: 8KB row buffer = 65,536 bitlines; 512 rows.
 ROW_BITS = 65_536
 WORD_BITS = 32
@@ -41,18 +43,6 @@ ODD_MASK = 0xAAAA_AAAA - (1 << 32)
 FLOAT_FIELDS = ("time_ns", "e_act", "e_pre", "e_refresh", "e_burst",
                 "e_background")
 INT_FIELDS = ("n_act", "n_pre", "n_aap", "n_shift", "n_tra", "n_refresh")
-
-
-def resolve_device(device=None) -> torch.device:
-    """``device=None`` means the CUDA card. Without one, raise instead of
-    running on the CPU: a CPU run has to be asked for (``device="cpu"``)."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is available; pass device='cpu' to run the "
-                "port on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 def as_rows(rows, device) -> torch.Tensor:

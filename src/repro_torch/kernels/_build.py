@@ -24,7 +24,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # name -> (sources, {C function: (argtypes)})
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 LIBRARIES = {
     "rowops": (
         (_HERE / "rowops" / "csrc" / "rowops.cu",),
@@ -33,6 +34,21 @@ LIBRARIES = {
             "rowops_bitwise": (_P, _P, _P, _P, _L, _I, _I, _P),
             "rowops_meter_fold": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _P),
+        },
+    ),
+    "pim_matmul": (
+        (_HERE / "pim_matmul" / "csrc" / "pim_matmul.cu",),
+        {
+            "pim_matmul_splits": (_I, _I, _I, _I, _I),
+            "pim_matmul": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _P),
+        },
+    ),
+    "flash_attn": (
+        (_HERE / "flash_attn" / "csrc" / "flash_attn.cu",),
+        {
+            "flash_attn_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _I, _I, _F, _I, _P),
         },
     ),
 }

@@ -6,6 +6,11 @@ import pytest
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card and nvcc; skips elsewhere")
+
+
 @pytest.fixture(autouse=True)
 def _fresh_pim_stats():
     """Zero the pim instrumentation counters (COLUMN_STATS / SCHED_STATS /

@@ -22,7 +22,11 @@ FORBIDDEN = re.compile(
 
 def test_port_imports_neither_jax_nor_the_reference():
     code = ("import sys, repro_torch, repro_torch.core.pim, "
-            "repro_torch.kernels.rowops.ops, repro_torch.convert\n"
+            "repro_torch.kernels.rowops.ops, repro_torch.convert, "
+            "repro_torch.configs, repro_torch.models, "
+            "repro_torch.kernels.pim_matmul.ops, "
+            "repro_torch.kernels.flash_attn.ops, repro_torch.serve.engine, "
+            "repro_torch.launch.serve\n"
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
             "or m.startswith(('jax.', 'repro.'))]\n"
             "assert not bad, bad\n")
@@ -68,3 +72,84 @@ def test_cuda_states_refuse_the_plain_path():
         (1,), device="cpu")) is False
     with pytest.raises(ValueError):
         ops._on_card(torch.zeros(1, device="meta"))
+
+
+def test_lm_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.convert import lm_params_from_numpy
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.serve.engine import greedy_generate
+
+    cfg = get_config("qwen3-4b", smoke=True, n_layers=1)
+    model = init_params(cfg, 0, device="cpu")
+    batch = {"tokens": np.zeros((1, 4), np.int32)}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: init_params(cfg, 0),
+                 lambda: lm_params_from_numpy(cfg, {}),
+                 lambda: prefill(cfg, model, batch, 8),
+                 lambda: greedy_generate(cfg, model, batch,
+                                         max_new_tokens=2)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    _, caches = prefill(cfg, model, batch, 8, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        decode_step(cfg, model, {"tokens": batch["tokens"][:, :1]}, 4,
+                    caches)
+    out = greedy_generate(cfg, model, batch, max_new_tokens=2, device="cpu")
+    assert out.shape == (1, 2) and out.device.type == "cpu"
+
+
+class _FakeLib:
+    """Stands in for a built kernel library: records each C call."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def call(*args):
+            self.calls.append(name)
+            return 1 if name == "pim_matmul_splits" else 0
+        return call
+
+
+def test_cuda_tensors_never_take_the_plain_path(monkeypatch):
+    """What a CUDA tensor takes in pim_matmul and flash_attention: the
+    device decides (``_on_card``), and on the card the wrapper goes to the
+    kernel library and never to the plain version."""
+    from types import SimpleNamespace
+
+    from repro_torch.kernels.flash_attn import ops as fa
+    from repro_torch.kernels.pim_matmul import ops as pm
+
+    cuda_like = SimpleNamespace(device=torch.device("cuda"))
+    cpu_like = SimpleNamespace(device=torch.device("cpu"))
+    for ops in (pm, fa):
+        assert ops._on_card(cuda_like) is True
+        assert ops._on_card(cpu_like) is False
+        with pytest.raises(ValueError):
+            ops._on_card(torch.zeros(1, device="meta"))
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    lib = _FakeLib()
+    for ops, ref_name in ((pm, "ref_pim_matmul_raw"),
+                          (fa, "ref_flash_attention")):
+        monkeypatch.setattr(ops, "_on_card", lambda x: True)
+        monkeypatch.setattr(ops, "_lib", lambda: lib)
+        monkeypatch.setattr(ops._ref, ref_name, plain)
+    monkeypatch.setattr(pm, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=0))
+    x = torch.zeros((4, 8), dtype=torch.bfloat16)
+    pm.pim_matmul(x, torch.zeros((8, 3), dtype=torch.int8), torch.ones(3))
+    q = torch.zeros((1, 2, 1, 2, 16))
+    k = torch.zeros((1, 3, 1, 16))
+    fa.flash_attention(q, k, k, torch.arange(1, 3), torch.arange(3))
+    assert lib.calls == ["pim_matmul_splits", "pim_matmul",
+                         "flash_attn_fwd"]
+    assert pm.LAUNCHES["pim_matmul"] >= 1 and fa.LAUNCHES["flash_attn"] >= 1
+    pm.reset_launches()
+    fa.reset_launches()
