@@ -36,7 +36,31 @@ each, every mismatch fatal:
                prefill and per decode token, GB on the card, decode against
                prefill, the busy share of one prefill and one decode step;
 8. lm parity — the same model at 2 layers, on the card (kernels) and on the
-               CPU (plain versions), logits compared step by step.
+               CPU (plain versions), logits compared step by step;
+9. ripple    — ``ripple_add`` against its plain version at (512, 2,048) for
+               every width dividing 32 and at ragged shapes, bit for bit,
+               with device times, the plain version's, the bound and one
+               library call where one computes the same function
+               (``torch.bitwise_xor`` at w 1, ``torch.add`` on the rows
+               viewed as uint8/int16/int32 at w 8/16/32); then the kernel
+               bench's path, ripple_add's own (launch counts reset just
+               before, read just after, ripple_add must run): the fused
+               adder against the 30-launch composition of
+               ``bitwise``/``shift_cols`` at w 8;
+10. bitplane — the bit-plane layer at the crypto case study's full-row
+               sizes (launch counts reset just before, read just after,
+               each kernel must run; the VM records PIM commands and never
+               calls ripple_add): ``PimVM`` routines on 8 KB rows, each
+               equal to its numpy oracle, and the fused adder on the VM's
+               own operand rows equal to ``add_ripple`` (that launch
+               counted apart); RS(12,8) on 32
+               banks of full rows equal to the oracle and to one wide
+               subarray; the async pipeline's identities (equal bits and
+               energy, sync wall - async wall = hidden host time); one
+               ``run_pipeline`` and one ``run_workload`` equal to the same
+               steps flushed one by one;
+11. bitplane parity — phase 10 again on the CPU: reads, counts and every
+               float32 meter identical.
 
 Then the kernel table as JSON, the card's name and power limit, and the
 result line. Nanoseconds and nanojoules of the DDR3 meter are outputs of
@@ -59,6 +83,9 @@ sys.path.insert(0, str(ROOT / "src"))
 H100_BYTES_PER_S = 3.35e12       # HBM3, NVIDIA's data sheet (SXM)
 H100_F32_OPS_PER_S = 67e12       # float32 outside the tensor cores
 H100_BF16_OPS_PER_S = 989e12     # bf16 tensor cores, dense
+# int32 integer and logic instructions outside the tensor cores: 64 INT32
+# lanes per SM (Hopper architecture white paper) x 132 SMs x 1.98 GHz boost
+H100_INT32_OPS_PER_S = 132 * 64 * 1.98e9
 SOURCES = {
     "rowops": "src/repro_torch/kernels/rowops/csrc/rowops.cu",
     "pim_matmul": "src/repro_torch/kernels/pim_matmul/csrc/pim_matmul.cu",
@@ -70,6 +97,7 @@ REPLACES = {
     "meter_fold": "src/repro/core/pim/compile.py:247",
     "pim_matmul": "src/repro/kernels/pim_matmul/pim_matmul.py:61",
     "flash_attn": "src/repro/kernels/flash_attn/flash_attn.py:75",
+    "ripple_add": "src/repro/kernels/rowops/rowops.py:151",
 }
 # Tolerances of the LM phases. pim_matmul: the kernel and its plain version
 # compute the same float32 function (exact products, sums over K <= 9,728
@@ -95,6 +123,18 @@ FLASH_SHAPES = {"prefill": (4, 8, 4, 128, 128, 128, 0),
                 "decode": (4, 8, 4, 128, 1, 144, 135)}
 PARITY_LAYERS, PARITY_BATCH, PARITY_PROMPT, PARITY_NEW = 2, 2, 32, 4
 SHIFT_KS = (1, -1, 31, 32, 33, -33, 999, -999, 65535, 65536, 70000)
+# Phases 9-11: ripple_add at the kernel bench's row block and ragged shapes;
+# the bit-plane layer at the crypto case study's sizes (8 KB rows: 2,048
+# words, 8,192 byte lanes)
+RIPPLE_SHAPE = (512, 2048)
+RIPPLE_PAIRS = 8
+RIPPLE_RAGGED = ((37, 2048), (5, 33))
+WIDTHS = (1, 2, 4, 8, 16, 32)
+VM_WORDS, VM_ROWS = 2048, 64
+VM_ROUTINES = ("add_ripple", "add_kogge_stone", "mul_shift_add", "xtime",
+               "gf_mul", "mixcolumns")
+RS_BANKS, RS_WORDS, RS_ROWS, RS_K, RS_NPAR = 32, 65536, 120, 8, 4
+PIPE_BANKS, PIPE_WORDS, PIPE_CHUNKS = 8, 2048, 4
 OPS = ("not", "and", "or", "xor", "maj")
 
 
@@ -792,6 +832,430 @@ def say_share(name: str, sh: dict) -> None:
                     for k in sh["top"][:3]))
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: ripple_add against its plain version; fused against composed
+# ---------------------------------------------------------------------------
+
+def ripple_library(torch, width):
+    """One PyTorch call that computes ``ripple_add`` at ``width``, with its
+    name, or (None, "none"). At w 1 the interior mask is 0 and no carry
+    moves, so the add is ``a ^ b``; at w 8, 16 and 32 little-endian packing
+    and wrap-around addition make it one ``torch.add`` on the rows viewed
+    as uint8, int16 or int32. w 2 and 4 have no such call."""
+    if width == 1:
+        return (lambda x, y: torch.bitwise_xor(x, y)), "torch.bitwise_xor"
+    dt = {8: "uint8", 16: "int16", 32: "int32"}.get(width)
+    if dt is None:
+        return None, "none"
+    view = getattr(torch, dt)
+    return (lambda x, y: torch.add(x.view(view), y.view(view))
+            .view(torch.int32)), f"torch.add on {dt}"
+
+
+def phase_ripple(torch, device):
+    """ripple_add at every width: exact against its plain version; device,
+    plain and library times and the bound. Returns (rows, fused record)."""
+    from repro_torch.kernels.rowops import ops, ref
+
+    n, w = RIPPLE_SHAPE
+    # RIPPLE_PAIRS operand pairs (64 MiB) cycled through by the timed
+    # calls, so that each call finds its inputs outside the 50 MB L2, as
+    # the HBM bound assumes
+    pairs = [(rows_from_seed(40 + 2 * i, (n, w), torch, device),
+              rows_from_seed(41 + 2 * i, (n, w), torch, device))
+             for i in range(RIPPLE_PAIRS)]
+    a, b = pairs[0]
+    for shape in RIPPLE_RAGGED:
+        ra = rows_from_seed(33, shape, torch, device)
+        rb = rows_from_seed(34, shape, torch, device)
+        for width in WIDTHS:
+            if not torch.equal(ops.ripple_add(ra, rb, width=width),
+                               ref.ref_ripple_add(ra, rb, width)):
+                raise AssertionError(f"ripple_add w{width} {shape} differs "
+                                     "from plain")
+
+    def cycled(fn):
+        calls = iter(range(10**9))
+        return lambda: fn(*pairs[next(calls) % len(pairs)])
+
+    rows = {}
+    for width in WIDTHS:
+        for pa, pb in pairs:
+            got = ops.ripple_add(pa, pb, width=width)
+            exp = ref.ref_ripple_add(pa, pb, width)
+            if not torch.equal(got, exp):
+                raise AssertionError(f"ripple_add w{width} differs from "
+                                     "plain")
+        got = ops.ripple_add(a, b, width=width)
+        exp = ref.ref_ripple_add(a, b, width)
+        if not torch.equal(got.cpu(), ref.ref_ripple_add(a.cpu(), b.cpu(),
+                                                         width)):
+            raise AssertionError(f"ripple_add w{width} differs from plain "
+                                 "on the CPU")
+        library, lib_note = ripple_library(torch, width)
+        if library is not None and not all(
+                torch.equal(library(pa, pb), ops.ripple_add(pa, pb,
+                                                            width=width))
+                for pa, pb in pairs):
+            library, lib_note = None, f"none ({lib_note} differs)"
+        # Operations: s = a^b and c = a&b, then three three-input logic
+        # operations per two rounds (c1 = s & t0, c2 = t1 & (s ^ t0), s2 =
+        # s ^ t0 ^ t1 with t = c<<1 & interior), as nvcc emits them (LOP3
+        # on the integer pipe); the shift by one issues as a multiply on
+        # the twice as wide FMA pipe beside them and is not counted.
+        nbytes = 12 * n * w
+        nops = (2 + (3 * (width - 1) + 1) // 2) * n * w
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        t_ops = nops / H100_INT32_OPS_PER_S * 1e3
+        kernel = lambda x, y, width=width: ops.ripple_add(x, y, width=width)
+        r = dict(
+            ms=device_us(cycled(kernel), torch) / 1e3,
+            call_ms=event_us(cycled(kernel), torch) / 1e3,
+            plain_ms=device_us(cycled(lambda x, y, width=width:
+                                      ref.ref_ripple_add(x, y, width)),
+                               torch) / 1e3,
+            library_ms=(None if library is None
+                        else device_us(cycled(library), torch) / 1e3),
+            library=lib_note, bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            bytes=nbytes, ops=nops, max_abs_err=max_abs_err(got, exp),
+            shape=f"2 x ({n}, {w}) int32, w {width}")
+        rows[f"ripple_add[w{width}]"] = r
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms'] * 1e3:.2f} us ({lib_note})")
+        say(f"kernel ripple_add[w{width}] {r['shape']}: kernel "
+            f"{r['ms'] * 1e3:.2f} us ({r['call_ms'] * 1e3:.2f} us per call "
+            f"with the host's launch), plain {r['plain_ms'] * 1e3:.2f} us, "
+            f"library {lib}, bound {r['bound_ms'] * 1e3:.3f} us "
+            f"({r['bound_by']}), max_abs_err {r['max_abs_err']}")
+
+    # The kernel bench's path, ripple_add's own (the bit-plane VM records
+    # PIM commands instead, as the reference's does): the fused adder at
+    # w 8, the bit-plane layer's byte lanes, beside its op-by-op
+    # composition, with the launch counts reset just before and read just
+    # after.
+    def composed_ripple_add(x, y):
+        return ref.composed_ripple_add(x, y, 8, bitwise=ops.bitwise,
+                                       shift_cols=ops.shift_cols)
+
+    ops.reset_launches()
+    fused = ops.ripple_add(a, b, width=8)
+    composed = composed_ripple_add(a, b)
+    torch.cuda.synchronize()
+    bench_launches = dict(ops.LAUNCHES)
+    n_composed = bench_launches["bitwise"] + bench_launches["shift_cols"]
+    if not torch.equal(fused, composed) or n_composed != 2 + 4 * 7:
+        raise AssertionError(f"fused ripple_add != composed ({n_composed} "
+                             "launches)")
+    if bench_launches["ripple_add"] == 0:
+        raise AssertionError("ripple_add never launched on the kernel "
+                             "bench's path")
+    rec = dict(
+        width=8, launches=bench_launches, composed_launches=n_composed,
+        fused_ms=device_us(cycled(lambda x, y: ops.ripple_add(x, y, width=8)),
+                           torch) / 1e3,
+        composed_ms=device_us(cycled(composed_ripple_add), torch) / 1e3,
+        fused_bytes=12 * n * w,
+        composed_bytes=(2 * 12 + 7 * (8 + 12 + 12 + 12)) * n * w)
+    say(f"fused ripple_add[w8] {n}x{w}: fused {rec['fused_ms'] * 1e3:.2f} us "
+        f"== composed ({n_composed} bitwise/shift_cols launches) "
+        f"{rec['composed_ms'] * 1e3:.2f} us, bit for bit; rows moved "
+        f"{rec['fused_bytes'] / 2**20:.0f} MiB fused vs "
+        f"{rec['composed_bytes'] / 2**20:.0f} MiB composed")
+    return rows, rec
+
+
+def ripple_sass():
+    """Instructions per word of ``ripple_add`` at w 32 (the four-word
+    kernel), counted in ``cuobjdump -sass`` of the built library: what the
+    bound's operation count rests on. None where the toolkit has no
+    ``cuobjdump``."""
+    import collections
+    import re
+    import shutil
+    from repro_torch.kernels import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    sass = subprocess.run([tool, "-sass", str(_build.library_path("rowops"))],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    start = sass.index("ripple_add_vec4_kernelILi32E")
+    end = sass.find("Function :", start)
+    opcode = r"/\*[0-9a-f]{4,}\*/\s+([A-Z][A-Z0-9]*)"
+    ops = collections.Counter(re.findall(
+        opcode, sass[start:end if end > 0 else None]))
+    return {k: ops[k] / 4 for k in ("LOP3", "IMAD", "SHF")}
+
+
+# ---------------------------------------------------------------------------
+# Phases 10-11: the bit-plane layer at the case study's sizes
+# ---------------------------------------------------------------------------
+
+def _meters(vm) -> dict:
+    return {"time_ns": vm.time_ns, "energy_nj": vm.energy_nj,
+            "setup_energy_nj": vm.setup_energy_nj,
+            "host_overlap_ns": vm.host_overlap_ns, "counts": vm.counts()}
+
+
+def _timed(torch, device, fn):
+    """(result, host ms) of ``fn``, ending in a sync on the card."""
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def _routine(name, vm, ra, rb):
+    from repro_torch.core.bitplane import arith, gf
+    return {"add_ripple": lambda: arith.add_ripple(vm, ra, rb),
+            "add_kogge_stone": lambda: arith.add_kogge_stone(vm, ra, rb),
+            "mul_shift_add": lambda: arith.mul_shift_add(vm, ra, rb),
+            "xtime": lambda: gf.xtime(vm, ra),
+            "gf_mul": lambda: gf.gf_mul(vm, ra, rb),
+            "mixcolumns": lambda: gf.mixcolumns(vm, ra)}[name]()
+
+
+def _oracle(name, a, b):
+    from repro_torch.core.bitplane import arith, gf
+    if name == "mixcolumns":
+        return gf.ref_mixcolumns(a.reshape(-1, 4)).reshape(-1)
+    return {"add_ripple": lambda: arith.ref_add(a, b, 8),
+            "add_kogge_stone": lambda: arith.ref_add(a, b, 8),
+            "mul_shift_add": lambda: arith.ref_mul(a, b, 8),
+            "xtime": lambda: gf.ref_xtime(a),
+            "gf_mul": lambda: gf.ref_gf_mul(a, b)}[name]()
+
+
+def _add_step(vm, x):
+    """One recurring pipeline step: load two byte-lane rows, add them."""
+    from repro_torch.core.bitplane import arith
+    a, b = vm.load(x[0]), vm.load(x[1])
+    s = arith.add_ripple(vm, a, b)
+    vm.free(a, b)
+    return s
+
+
+def _xtime_step(vm, x):
+    from repro_torch.core.bitplane import gf
+    a = vm.load(x)
+    t = gf.xtime(vm, a)
+    vm.free(a)
+    return t
+
+
+def run_bitplane(torch, device, seed=21, check_oracles=False):
+    """The bit-plane path on ``device``. Returns (values, record): the
+    values (reads, float32 meters, counts) phase 11 compares across
+    devices, and the record of times and DDR3 model outputs. With
+    ``check_oracles`` the RS encodes are also held against the numpy
+    oracle (tens of seconds of host Python at these sizes)."""
+    import numpy as np
+    from repro_torch.core.bitplane import PimVM, layout, rs
+    from repro_torch.kernels.rowops import ops
+
+    device = torch.device(device)
+    rng = np.random.default_rng(seed)
+    values, record = {}, {"routines": {}}
+    for name in VM_ROUTINES:
+        vm = PimVM(width=8, num_rows=VM_ROWS, words=VM_WORDS, device=device)
+        a = rng.integers(0, 256, vm.lanes)
+        b = rng.integers(0, 256, vm.lanes)
+        ra, rb = vm.load(a), vm.load(b)
+        t0, e0 = vm.time_ns, vm.energy_nj
+        got, host_ms = _timed(torch, device,
+                              lambda: vm.read(_routine(name, vm, ra, rb)))
+        if not np.array_equal(got, _oracle(name, a, b)):
+            raise AssertionError(f"PimVM {name} differs from its oracle")
+        values[name] = ([got], _meters(vm))
+        record["routines"][name] = dict(
+            host_ms=host_ms, ddr3_ns=vm.time_ns - t0,
+            ddr3_nj=vm.energy_nj - e0, counts=vm.counts())
+        if name == "add_ripple":
+            # the fused adder (the kernel bench's form of the same add)
+            # on the rows the VM loaded; its launch is this check's, not
+            # the VM path's, and is counted apart
+            rows = vm.state.bits
+            before = ops.LAUNCHES["ripple_add"]
+            fused = ops.ripple_add(rows[ra:ra + 1].contiguous(),
+                                   rows[rb:rb + 1].contiguous(), width=8)
+            record["check_launches"] = ops.LAUNCHES["ripple_add"] - before
+            if not np.array_equal(
+                    layout.unpack_elements(fused[0], 8, vm.lanes), got):
+                raise AssertionError("ripple_add on the VM's rows differs "
+                                     "from add_ripple's read-back row")
+
+    # RS(12,8) on 32 banks of full rows, and on one 65,536-word subarray
+    msg = rng.integers(0, 256, (RS_K, RS_WORDS * 4))
+    pars, rs_rec = [], {}
+    for what, banks in (("32 banks", RS_BANKS), ("one subarray", 1)):
+        vm = PimVM(width=8, num_rows=RS_ROWS, words=RS_WORDS, n_banks=banks,
+                   device=device)
+        regs = [vm.load(msg[i]) for i in range(RS_K)]
+        t0, e0 = vm.time_ns, vm.energy_nj
+        par, host_ms = _timed(torch, device, lambda: np.stack(
+            vm.read_many(rs.rs_encode(vm, regs, RS_NPAR))))
+        pars.append(par)
+        values[f"rs_encode {what}"] = ([par], _meters(vm))
+        rs_rec[what] = dict(host_ms=host_ms, ddr3_ns=vm.time_ns - t0,
+                            ddr3_nj=vm.energy_nj - e0)
+    if not np.array_equal(pars[0], pars[1]):
+        raise AssertionError("RS encode: 32 banks != one wide subarray")
+    if check_oracles and not np.array_equal(
+            pars[0], rs.ref_rs_encode(msg, RS_NPAR)):
+        raise AssertionError("RS encode on 32 banks differs from the oracle")
+    record["rs"] = rs_rec
+
+    # the async pipeline (crypto_casestudy._async_pipeline at this size)
+    lanes = PIPE_WORDS * 4
+    msgs = [rng.integers(0, 256, (RS_K, lanes)) for _ in range(PIPE_CHUNKS)]
+    pipe = {}
+    for async_host in (False, True):
+        vm = PimVM(width=8, num_rows=RS_ROWS, words=PIPE_WORDS,
+                   n_banks=PIPE_BANKS, async_host=async_host, device=device)
+
+        def encode_all(vm=vm):
+            out = []
+            for m in msgs:
+                regs = [vm.load(m[i]) for i in range(RS_K)]
+                par = rs.rs_encode(vm, regs, RS_NPAR)
+                out.append(np.stack(vm.read_many(par)))
+                vm.free(*regs, *par)
+            return np.stack(out)
+
+        got, host_ms = _timed(torch, device, encode_all)
+        pipe[async_host] = (vm, got, host_ms)
+        values[f"pipeline async={async_host}"] = ([got], _meters(vm))
+    (vs, gs, ms_s), (va, ga, ms_a) = pipe[False], pipe[True]
+    hidden = va.host_overlap_ns
+    if check_oracles:
+        for c, m in enumerate(msgs):
+            if not np.array_equal(gs[c], rs.ref_rs_encode(m, RS_NPAR)):
+                raise AssertionError(f"pipeline chunk {c} differs from the "
+                                     "oracle")
+    if not (np.array_equal(gs, ga) and vs.energy_nj == va.energy_nj
+            and va.time_ns < vs.time_ns
+            and abs((vs.time_ns - va.time_ns) - hidden)
+            <= 1e-6 * vs.time_ns):
+        raise AssertionError("async pipeline: the case study's identities "
+                             "do not hold")
+    record["pipeline"] = dict(sync_ns=vs.time_ns, async_ns=va.time_ns,
+                              hidden_ns=hidden, energy_nj=vs.energy_nj,
+                              sync_host_ms=ms_s, async_host_ms=ms_a,
+                              exact=(vs.time_ns - va.time_ns) == hidden)
+
+    # run_pipeline / run_workload on a sharded VM against step-by-step
+    xs = [(rng.integers(0, 256, VM_WORDS * 4),
+           rng.integers(0, 256, VM_WORDS * 4)) for _ in range(4)]
+    ys = [rng.integers(0, 256, VM_WORDS * 4) for _ in range(3)]
+    runs = {}
+    for mode in ("run", "stepwise"):
+        vm = PimVM(width=8, num_rows=VM_ROWS, words=VM_WORDS, n_banks=8,
+                   async_host=True, device=device)
+        # every mask the steps use, created once before them: inside a
+        # pipeline step a new mask would be host-written at every step
+        for pattern in (0xFE, 0xFC, 0xF0, 0x7F, 0x3F, 0x0F, 0x80, 0x1B):
+            vm.mask(pattern)
+        if mode == "run":
+            out, host_ms = _timed(torch, device, lambda: (
+                vm.run_pipeline(_add_step, xs),
+                vm.run_workload([(_add_step, xs[:2]), (_xtime_step, ys)])))
+        else:
+            def stepwise(vm=vm):
+                res = []
+                for fn, steps in ((_add_step, xs), (_add_step, xs[:2]),
+                                  (_xtime_step, ys)):
+                    out = []
+                    for x in steps:
+                        reg = fn(vm, x)
+                        out.append(vm.read(reg))
+                        vm.free(reg)
+                    res.append(out)
+                return res[0], res[1:]
+
+            out, host_ms = _timed(torch, device, stepwise)
+        runs[mode] = (vm, out, host_ms)
+    (vr, (p, w), ms_r), (vw, (p2, w2), ms_w) = runs["run"], runs["stepwise"]
+    flat = lambda o: [v for seq in o for v in seq]
+    if not (all(np.array_equal(x, y) for x, y in zip(p + flat(w),
+                                                      p2 + flat(w2)))
+            and vr.energy_nj == vw.energy_nj and vr.counts() == vw.counts()
+            and abs(vr.time_ns - vw.time_ns) <= 1e-6 * vw.time_ns):
+        raise AssertionError("run_pipeline/run_workload differ from the "
+                             "same steps flushed one by one")
+    values["run_pipeline+run_workload"] = (p + flat(w), _meters(vr))
+    record["runs"] = dict(run_host_ms=ms_r, stepwise_host_ms=ms_w,
+                          run_ns=vr.time_ns, stepwise_ns=vw.time_ns)
+    return values, record
+
+
+def bitplane_equal(a, b) -> bool:
+    """Reads equal, counts equal, float meters equal as float32 bits."""
+    import numpy as np
+    if a.keys() != b.keys():
+        return False
+    for k in a:
+        (ra, ma), (rb, mb) = a[k], b[k]
+        if len(ra) != len(rb) or not all(np.array_equal(x, y)
+                                         for x, y in zip(ra, rb)):
+            return False
+        for f, x in ma.items():
+            y = mb[f]
+            if f == "counts":
+                if x != y:
+                    return False
+            elif np.float32(x).view(np.uint32) != np.float32(y).view(
+                    np.uint32):
+                return False
+    return True
+
+
+def profile_vm(torch, device):
+    """One warm ``mul_shift_add`` on 8 KB rows under the profiler."""
+    import numpy as np
+    from repro_torch.core.bitplane import PimVM, arith
+    vm = PimVM(width=8, num_rows=VM_ROWS, words=VM_WORDS, device=device)
+    rng = np.random.default_rng(22)
+    ra = vm.load(rng.integers(0, 256, vm.lanes))
+    rb = vm.load(rng.integers(0, 256, vm.lanes))
+    vm.read(arith.mul_shift_add(vm, ra, rb))
+    return device_share(torch, lambda: vm.read(arith.mul_shift_add(vm, ra,
+                                                                   rb)))
+
+
+def say_bitplane(record):
+    for name, r in record["routines"].items():
+        say(f"bitplane PimVM(width=8, num_rows={VM_ROWS}, words={VM_WORDS}) "
+            f"{name}: == oracle; {r['host_ms']:.2f} ms on the host clock "
+            f"(card); DDR3 model {r['ddr3_ns']:.1f} ns, {r['ddr3_nj']:.1f} "
+            f"nJ")
+    rs_r = record["rs"]
+    say(f"bitplane RS({RS_K + RS_NPAR},{RS_K}) encode, {RS_WORDS * 4} "
+        f"codewords ({RS_BANKS} banks x {RS_WORDS // RS_BANKS} words x "
+        f"{RS_ROWS} rows, {RS_ROWS * RS_WORDS * 4 / 2**20:.1f} MiB of "
+        f"rows): == oracle == one {RS_WORDS}-word subarray; host ms "
+        f"{rs_r['32 banks']['host_ms']:.1f} (32 banks), "
+        f"{rs_r['one subarray']['host_ms']:.1f} (one subarray); DDR3 model "
+        f"{rs_r['32 banks']['ddr3_ns']:.1f} ns vs "
+        f"{rs_r['one subarray']['ddr3_ns']:.1f} ns, "
+        f"{rs_r['32 banks']['ddr3_nj']:.1f} nJ")
+    pp = record["pipeline"]
+    say(f"bitplane async pipeline {PIPE_BANKS} banks x {PIPE_WORDS} words x "
+        f"{PIPE_CHUNKS} chunks: equal bits and energy "
+        f"({pp['energy_nj']:.1f} nJ); sync {pp['sync_ns']:.1f} ns - async "
+        f"{pp['async_ns']:.1f} ns = hidden {pp['hidden_ns']:.1f} ns "
+        f"(exact: {pp['exact']}); host ms {pp['sync_host_ms']:.1f} sync, "
+        f"{pp['async_host_ms']:.1f} async")
+    rr = record["runs"]
+    say(f"bitplane run_pipeline + run_workload (8 banks, async) == the same "
+        f"steps flushed one by one; host ms {rr['run_host_ms']:.1f} vs "
+        f"{rr['stepwise_host_ms']:.1f}; DDR3 wall {rr['run_ns']:.1f} ns vs "
+        f"{rr['stepwise_ns']:.1f} ns")
+
+
 def card_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -928,6 +1392,51 @@ def main() -> int:
     # 8. card against CPU at full width, 2 layers
     record["lm_parity"] = run_lm_parity(torch, device)
 
+    # 9. ripple_add against its plain version; fused against composed
+    ripple_rows, record["fused_vs_composed"] = phase_ripple(torch, device)
+    record["ripple"] = ripple_rows
+    record["ripple_sass"] = ripple_sass()
+    say("kernels kernel_bench " + json.dumps(
+        record["fused_vs_composed"]["launches"]))
+    say("sass ripple_add[w32], per word: " + (
+        "not measured (no cuobjdump)" if record["ripple_sass"] is None
+        else ", ".join(f"{v:g} {k}"
+                       for k, v in record["ripple_sass"].items())))
+
+    # 10. the bit-plane path, with the launch counts reset just before it
+    # and read just after it
+    ops.reset_launches()
+    bp_values, record["bitplane"] = run_bitplane(torch, device,
+                                                 check_oracles=True)
+    torch.cuda.synchronize()
+    bp_launches = {**ops.LAUNCHES, **{f"bitwise[{k}]": v
+                                      for k, v in ops.LAUNCHES_BY_OP.items()}}
+    check = record["bitplane"].pop("check_launches")
+    bp_launches["ripple_add"] -= check
+    say("kernels bitplane " + json.dumps(bp_launches)
+        + f" (ripple_add {check} more in the check against add_ripple)")
+    # The VM records PIM commands, as the reference's does, and never calls
+    # ripple_add. Its shifts are chains of fewer than SHIFT_FUSE_MIN (32)
+    # columns, which the compiler leaves to the residual interpreter, as
+    # the reference's does: shift_cols is not a kernel of this path either.
+    missing = [k for k in ("bitwise[maj]", "bitwise[not]", "meter_fold")
+               if bp_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the bit-plane "
+                             f"path: {missing}")
+    say_bitplane(record["bitplane"])
+    record["bitplane"]["profile"] = profile_vm(torch, device)
+    say_share("bitplane mul_shift_add", record["bitplane"]["profile"])
+
+    # 11. the same path on the CPU: reads, counts and meters identical
+    t = time.perf_counter()
+    cpu_values, _ = run_bitplane(torch, "cpu")
+    cpu_s = time.perf_counter() - t
+    if not bitplane_equal(bp_values, cpu_values):
+        raise AssertionError("bit-plane path: card and CPU differ")
+    say(f"bitplane parity: card == CPU for {len(bp_values)} runs (reads, "
+        f"counts, float32 meters); CPU run {cpu_s:.1f} s")
+
     table = []
     for name, r in kernel_rows.items():
         table.append({
@@ -950,6 +1459,16 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # ripple_add at the bit-plane layer's width (byte lanes), launched on
+    # the kernel bench's path; every width is in chip_smoke.json
+    r = ripple_rows["ripple_add[w8]"]
+    table.append({
+        "name": "ripple_add[w8]", "route": "cuda", "source": SOURCES["rowops"],
+        "replaces": REPLACES["ripple_add"],
+        "launches": record["fused_vs_composed"]["launches"]["ripple_add"],
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     record["table"] = table
     out = ROOT / "chiprun_out"
     try:

@@ -1,6 +1,7 @@
 """In-DRAM PIM runtime in PyTorch: the paper's migration-cell shift + Ambit
 ISA, the recorded-program compiler and executor, and the device scheduler.
-Port of ``repro.core.pim`` (its main path; see ROADMAP.md for the rest)."""
+Port of ``repro.core.pim`` (all but lint, sem, variation and area; see
+ROADMAP.md)."""
 from .state import (CostMeter, SubarrayState, make_bank, make_subarray,
                     EVEN_MASK, ODD_MASK, NUM_ROWS, ROW_BITS, ROW_WORDS,
                     WORD_BITS, resolve_device)
@@ -22,13 +23,16 @@ from .ir import (COPY_SELF, PimOp, PimProgram, ProgramBuilder,
 from .compile import (CompiledProgram, compile_program, cost_pass,
                       cost_summary, cost_tables, cost_tables_reference,
                       dead_copy_elimination, fuse, SHIFT_FUSE_MIN)
-from .exec import ExecResult, RUNNER_STATS, execute, make_runner
+from .exec import (ExecResult, RUNNER_STATS, execute, make_pipeline_runner,
+                   make_runner, make_workload_runner)
 from .device import (DeviceConfig, DeviceState, bus_time_ns,
                      channel_bus_model, channel_occupancy, device_wall_ns,
                      host_bus_ns, issue_bus_ns, make_device, paper_device)
-from .schedule import (CopyDrainStats, SCHED_STATS, ScheduleResult,
-                       compiled_for, gather_rows, schedule, shard_lanes,
-                       shard_rows, stream_key, xor_reduce_program)
+from .schedule import (CopyDrainStats, Phase, PhaseResult, PipelineResult,
+                       SCHED_STATS, ScheduleResult, WorkloadResult,
+                       compiled_for, gather_rows, schedule, schedule_pipeline,
+                       schedule_workload, shard_lanes, shard_rows,
+                       stream_key, xor_reduce_program)
 
 
 def reset_stats() -> None:
@@ -64,11 +68,14 @@ __all__ = [
     "CompiledProgram", "compile_program", "cost_pass", "cost_summary",
     "cost_tables", "cost_tables_reference", "dead_copy_elimination", "fuse",
     "SHIFT_FUSE_MIN",
-    "ExecResult", "RUNNER_STATS", "execute", "make_runner",
+    "ExecResult", "RUNNER_STATS", "execute", "make_pipeline_runner",
+    "make_runner", "make_workload_runner",
     "DeviceConfig", "DeviceState", "bus_time_ns", "channel_bus_model",
     "channel_occupancy", "device_wall_ns", "host_bus_ns", "issue_bus_ns",
     "make_device", "paper_device",
-    "CopyDrainStats", "SCHED_STATS", "ScheduleResult", "compiled_for",
-    "gather_rows", "schedule", "shard_lanes", "shard_rows", "stream_key",
-    "xor_reduce_program", "reset_stats",
+    "CopyDrainStats", "Phase", "PhaseResult", "PipelineResult",
+    "SCHED_STATS", "ScheduleResult", "WorkloadResult", "compiled_for",
+    "gather_rows", "schedule", "schedule_pipeline", "schedule_workload",
+    "shard_lanes", "shard_rows", "stream_key", "xor_reduce_program",
+    "reset_stats",
 ]

@@ -49,9 +49,9 @@ class ExecResult:
     reads: tuple
 
 
-# How many runners were built. The reference counts jit traces here; the
-# port traces nothing, so the count is of builds, and steady-state paths
-# must not grow it.
+# How many runners (single-step, pipeline or workload) were built. The
+# reference counts jit traces here; the port traces nothing, so the count
+# is of builds, and steady-state paths must not grow it.
 RUNNER_STATS = {"traces": 0}
 
 
@@ -334,6 +334,91 @@ def make_runner(program, cfg: DDR3Timing = DEFAULT_TIMING, *,
     runner.raw = raw
     cache[key] = runner
     return runner
+
+
+def _stack_reads(steps, n_reads: int, like: torch.Tensor) -> tuple:
+    """Per-step read tuples -> one tensor per read with a leading step
+    axis (``like`` gives the row shape of a run with no steps)."""
+    if not steps:
+        return tuple(torch.zeros((0,) + like.shape[:-2] + like.shape[-1:],
+                                 dtype=like.dtype, device=like.device)
+                     for _ in range(n_reads))
+    return tuple(torch.stack([r[j] for r in steps])
+                 for j in range(n_reads))
+
+
+def make_pipeline_runner(program, cfg: DDR3Timing = DEFAULT_TIMING, *,
+                         use_kernels: bool | None = None,
+                         interpret: bool | None = None,
+                         refresh: bool = False):
+    """Build a K-step pipeline ``(state, payload_steps) -> (state,
+    reads_steps)`` for ONE recurring program.
+
+    ``payload_steps`` is a ``(K, n_payloads, words)`` int32 tensor, the
+    HOSTW data of each step; the same command stream runs K times, the
+    state threaded through, exactly as K calls of the ``payload_arg``
+    runner (the reference runs them under one ``lax.scan``). Every entry
+    of ``reads_steps`` carries a leading step axis. Cached per (program,
+    flags, cfg) like :func:`make_runner`."""
+    compiled = _as_compiled(program, cfg)
+    base = make_runner(compiled, cfg, use_kernels=use_kernels,
+                       interpret=interpret, refresh=refresh,
+                       payload_arg=True)
+    cache = compiled._runner_cache      # make_runner just ensured it exists
+    key = ("pipeline", use_kernels, interpret, refresh, cfg)
+    if key in cache:
+        return cache[key]
+    RUNNER_STATS["traces"] += 1
+    n_reads = compiled.program.n_reads
+
+    def run_pipe(state: SubarrayState, payload_steps):
+        steps = []
+        for k in range(payload_steps.shape[0]):
+            res = base(state, payload_steps[k])
+            state = res.state
+            steps.append(res.reads)
+        return state, _stack_reads(steps, n_reads, state.bits)
+
+    cache[key] = run_pipe
+    return run_pipe
+
+
+def make_workload_runner(programs, cfg: DDR3Timing = DEFAULT_TIMING, *,
+                         use_kernels: bool | None = None,
+                         interpret: bool | None = None,
+                         refresh: bool = False):
+    """Build a MULTI-PHASE pipeline ``(state, payload_phases) -> (state,
+    reads_phases)`` for a sequence of recurring programs.
+
+    ``programs`` is one recurring program per phase; ``payload_phases`` is
+    a matching tuple of ``(K_p, n_payloads_p, words)`` int32 tensors. The
+    phases run back to back, each a :func:`make_pipeline_runner` loop, the
+    state threaded through; ``reads_phases`` is a tuple of per-phase read
+    tuples, each with a leading step axis. Cached on the first program's
+    compile artifact, keyed by the phase digest sequence."""
+    compiled = [_as_compiled(p, cfg) for p in programs]
+    if not compiled:
+        raise ValueError("make_workload_runner needs at least one program")
+    pipes = tuple(
+        make_pipeline_runner(c, cfg, use_kernels=use_kernels,
+                             interpret=interpret, refresh=refresh)
+        for c in compiled)
+    cache = compiled[0]._runner_cache   # ensured by make_pipeline_runner
+    key = ("workload", tuple(c.program.digest for c in compiled),
+           use_kernels, interpret, refresh, cfg)
+    if key in cache:
+        return cache[key]
+    RUNNER_STATS["traces"] += 1
+
+    def run_workload(state: SubarrayState, payload_phases):
+        reads_phases = []
+        for pipe, payload_steps in zip(pipes, payload_phases):
+            state, reads = pipe(state, payload_steps)
+            reads_phases.append(reads)
+        return state, tuple(reads_phases)
+
+    cache[key] = run_workload
+    return run_workload
 
 
 def execute(program, state: SubarrayState | None = None,

@@ -1,18 +1,16 @@
 """Workload scheduler for device-level (multi-bank, multi-subarray) PIM
 execution.
 
-Port of ``repro.core.pim.schedule`` (``schedule`` and the movement and
-partitioning helpers; the multi-step pipelines and workloads are a later
-slice). Takes *heterogeneous* per-slot :class:`~.ir.PimProgram`s (slot =
-one ``(bank, subarray)`` pair) and executes them against a
-:class:`~.device.DeviceState`: slots whose command streams are identical
-(same ops, shape and payload count — payload *data* may differ) form one
-group, and each group runs as ONE compiled runner over the group's slots —
-the reference ``vmap``s it, the port passes the group as a slot batch, so
-each kernel of the group's program is one launch for all its slots. When a
-group holds every slot it runs on the device state directly; otherwise its
-slots are gathered with ``index_select`` and scattered back with
-``index_copy_``.
+Port of ``repro.core.pim.schedule``. Takes *heterogeneous* per-slot
+:class:`~.ir.PimProgram`s (slot = one ``(bank, subarray)`` pair) and
+executes them against a :class:`~.device.DeviceState`: slots whose command
+streams are identical (same ops, shape and payload count — payload *data*
+may differ) form one group, and each group runs as ONE compiled runner
+over the group's slots — the reference ``vmap``s it, the port passes the
+group as a slot batch, so each kernel of the group's program is one launch
+for all its slots. When a group holds every slot it runs on the device
+state directly; otherwise its slots are gathered with ``index_select`` and
+scattered back with ``index_copy_``.
 
 In-DRAM row movement (``COPY``, LISA-style): a slot's stream may carry
 ``COPY`` ops whose destination is *another* slot. The scheduler strips
@@ -38,6 +36,12 @@ One ``schedule`` call clones the device's rows once (256 MiB at the paper's
 full geometry), runs every group on that copy in place, and leaves the
 caller's state untouched. Float results are float32 in the reference's
 order; sums over slots are taken left to right.
+
+``schedule_pipeline`` runs K steps of one recurring layout and
+``schedule_workload`` a sequence of such phases, back to back or in a given
+interleaved order. The reference runs them under one ``lax.scan``; the port
+runs the same cached step function once per step, the async host credit
+chained from step to step exactly as K calls of ``schedule()`` chain it.
 """
 from __future__ import annotations
 
@@ -58,17 +62,25 @@ from .state import NUM_ROWS, CostMeter, as_rows
 from .timing import DDR3Timing, DEFAULT_TIMING, copy_cost
 
 
-def _unbatch_reads(group_reads, read_layout):
+def _unbatch_reads(group_reads, read_layout, n_steps=None):
     """ONE device->host transfer per group read tensor, then numpy slicing
-    into the per-slot layout (uint32 rows, as the reference returns)."""
+    into the per-slot layout (uint32 rows, as the reference returns). With
+    ``n_steps`` the tensors carry a leading step axis and a per-step list
+    is returned."""
     n_slots, group_slots = read_layout
     host = [tuple(r.cpu().numpy().view(np.uint32) for r in g)
             for g in group_reads]
-    out: list = [()] * n_slots
-    for g, slots in enumerate(group_slots):
-        for j, k in enumerate(slots):
-            out[k] = tuple(r[j] for r in host[g])
-    return tuple(out)
+
+    def one_step(pick):
+        out: list = [()] * n_slots
+        for g, slots in enumerate(group_slots):
+            for j, k in enumerate(slots):
+                out[k] = tuple(pick(r, j) for r in host[g])
+        return tuple(out)
+
+    if n_steps is None:
+        return one_step(lambda r, j: r[j])
+    return [one_step(lambda r, j, k=k: r[k, j]) for k in range(n_steps)]
 
 
 @dataclasses.dataclass
@@ -108,6 +120,13 @@ class ScheduleResult:
         return float(self._host_bus_ns)
 
     @property
+    def host_overlap_ns_lazy(self):
+        """The raw hidden-host-time value (a 0-d tensor on the device in
+        async mode), for accumulators that must not sync
+        (``host_overlap_ns`` converts)."""
+        return self._host_overlap_ns
+
+    @property
     def channel_bus_ns(self) -> tuple:
         """Per-channel serialized occupancy (+tRTRS), as floats."""
         return tuple(float(x) for x in self._channel_bus_ns)
@@ -125,7 +144,8 @@ def stream_key(p: PimProgram):
 
 
 # Host-orchestration counters, reset-able by tests:
-#   dispatches     — schedule() calls that ran a step
+#   dispatches     — schedule()/schedule_pipeline()/schedule_workload()
+#                    calls (one each, however many steps they run)
 #   plan_misses    — step-plan cache misses (a new schedule layout)
 #   compile_misses — _compiled_for cache misses (a new program stream)
 SCHED_STATS = {"dispatches": 0, "plan_misses": 0, "compile_misses": 0}
@@ -624,6 +644,13 @@ def _plan_for(cfg: DeviceConfig, stripped, groups, deferred, *,
     return plan
 
 
+def _no_verify(verify: bool) -> None:
+    if verify:
+        raise NotImplementedError(
+            "verify=True needs the static verifier (lint.py), which the "
+            "port does not have yet (ROADMAP A8)")
+
+
 def _lower_step(cfg: DeviceConfig, programs):
     """Shared front half of schedule()/schedule_pipeline(): normalize the
     layout, strip cross-slot copies, group by stream digest. Returns
@@ -652,6 +679,48 @@ def _lower_step(cfg: DeviceConfig, programs):
     return flat, stripped, groups, deferred
 
 
+def _lower_recurring(cfg: DeviceConfig, step_list, *, what: str, hint: str):
+    """Lower a K-step RECURRING layout: step 0 fully, later steps only a
+    per-slot stream-key check — identical command streams imply identical
+    copy stripping and grouping, and stripping preserves HOSTW payloads,
+    so the original (pre-strip) programs serve for per-step payloads.
+    Returns ``(flats, stripped0, groups0, deferred0)``."""
+    flat0, stripped0, groups0, deferred0 = _lower_step(cfg, step_list[0])
+    flats = [flat0]
+    for k, programs in enumerate(step_list[1:], 1):
+        if programs is step_list[0]:
+            flats.append(flat0)         # replicated layout: nothing to check
+            continue
+        flat_k = _normalize_programs(cfg, programs)
+        for s in range(cfg.n_slots):
+            a, b = flat0[s], flat_k[s]
+            if ((a is None) != (b is None)
+                    or (a is not None and stream_key(a) != stream_key(b))):
+                raise ValueError(
+                    f"{what} step {k} does not recur: slot "
+                    f"{cfg.slot_coords(s)}'s command stream differs from "
+                    f"step 0 — {hint}")
+        flats.append(flat_k)
+    return flats, stripped0, groups0, deferred0
+
+
+def _step_payloads(plan: _StepPlan, programs, words: int,
+                   device: torch.device) -> tuple:
+    """Per group, the (n_group, n_payloads, words) HOSTW batch of one
+    step's per-slot ``programs``."""
+    return tuple(_payload_stack([programs[k] for k in slots], words, device)
+                 for slots in plan.group_slots)
+
+
+def _credit(device: DeviceState) -> torch.Tensor:
+    """The device's async host credit as a 0-d float32 tensor."""
+    credit = device.host_credit_ns
+    if not isinstance(credit, torch.Tensor):
+        credit = torch.tensor(float(credit), dtype=torch.float32,
+                              device=device.device)
+    return credit
+
+
 def schedule(device: DeviceState,
              programs, *,
              use_kernels: bool | None = None,
@@ -674,24 +743,15 @@ def schedule(device: DeviceState,
     ``verify=True`` needs lint.py and raises ``NotImplementedError`` until
     it is ported (ROADMAP A8). The caller's ``device`` is not modified.
     """
-    if verify:
-        raise NotImplementedError(
-            "verify=True needs the static verifier (lint.py), which the "
-            "port does not have yet (ROADMAP A8)")
+    _no_verify(verify)
     cfg = device.config
     _, stripped, groups, deferred = _lower_step(cfg, programs)
     plan = _plan_for(cfg, stripped, groups, deferred,
                      use_kernels=use_kernels, interpret=interpret,
                      refresh=refresh, async_host=async_host)
-    dev = device.device
-    payloads = tuple(
-        _payload_stack([stripped[k] for k in slots], cfg.words, dev)
-        for slots in plan.group_slots)
-    credit = device.host_credit_ns
-    if not isinstance(credit, torch.Tensor):
-        credit = torch.tensor(float(credit), dtype=torch.float32, device=dev)
+    payloads = _step_payloads(plan, stripped, cfg.words, device.device)
     new_banks, greads, wall, energy, credit_out, busy, hidden_sum = plan.fn(
-        device.banks, credit, payloads)
+        device.banks, _credit(device), payloads)
     SCHED_STATS["dispatches"] += 1
     stats = plan.copy.stats if plan.copy is not None else CopyDrainStats()
     return ScheduleResult(
@@ -710,6 +770,336 @@ def schedule(device: DeviceState,
         _host_bus_ns=plan.host_bus_total,
         _channel_bus_ns=busy if async_host else plan.chan_busy,
         _host_overlap_ns=hidden_sum if async_host else 0.0)
+
+
+# ---------------------------------------------------------------------------
+# Multi-step pipelines and multi-phase workloads
+# ---------------------------------------------------------------------------
+
+def _sum_steps(x):
+    """The reference's ``jnp.sum(jnp.asarray(x))`` of a per-step value: a
+    (K,) float32 tensor summed left to right, or the plain 0.0 that a sync
+    schedule records for its hidden host time."""
+    if isinstance(x, torch.Tensor):
+        return sequential_sum(x.reshape(-1))
+    return x
+
+
+class _StepLog:
+    """What the steps of one layout produced, in step order."""
+
+    def __init__(self):
+        self.reads, self.walls, self.energies, self.hidden = [], [], [], []
+        self.credit = None          # the credit leaving the last step
+
+    def add(self, greads, wall, energy, hidden, credit) -> None:
+        self.reads.append(greads)
+        self.walls.append(wall)
+        self.energies.append(energy)
+        self.hidden.append(hidden)
+        self.credit = credit
+
+    def group_reads(self) -> tuple:
+        """Per group, per read: a (K, n_group, words) tensor."""
+        first = self.reads[0]
+        return tuple(
+            tuple(torch.stack([step[g][j] for step in self.reads])
+                  for j in range(len(first[g])))
+            for g in range(len(first)))
+
+
+def _run_step(plan: _StepPlan, banks, credit, programs, words, log):
+    """One step of a lowered layout on ``banks``; logs its outputs and
+    returns ``(banks, credit)`` for the next step."""
+    payloads = _step_payloads(plan, programs, words, banks.bits.device)
+    new_banks, greads, wall, energy, credit_out, _busy, hidden = plan.fn(
+        banks, credit, payloads)
+    log.add(greads, wall, energy, hidden, credit_out)
+    return new_banks, credit_out
+
+
+def _copy_stats(plan: _StepPlan) -> dict:
+    stats = plan.copy.stats if plan.copy is not None else CopyDrainStats()
+    return dict(bus_ns=plan.bus_total, host_bytes=plan.host_bytes,
+                copy_ns=stats.makespan_ns, copy_total_ns=stats.total_ns,
+                copy_queue_ns=stats.queue_ns, rank_switch_ns=plan.switch_ns,
+                link_busy_ns=dict(stats.link_busy_ns))
+
+
+@dataclasses.dataclass
+class _StepsResult:
+    """K steps of one recurring layout, as ``PipelineResult`` and
+    ``PhaseResult`` report them.
+
+    Per-step timing tensors carry a leading step axis (float32 on the
+    device); the static per-step quantities (bus occupancy, copy drain
+    stats, host bytes) are identical every step — the layout recurs by
+    construction."""
+
+    wall_ns: torch.Tensor       # (K,) per-step wall clock
+    energy_nj: torch.Tensor     # (K,) per-step energy
+    n_steps: int
+    bus_ns: float               # per-step bus occupancy (Σ slots)
+    host_bytes: int             # per-step off-chip bytes
+    copy_ns: float = 0.0        # per-step COPY drain makespan
+    copy_total_ns: float = 0.0
+    copy_queue_ns: float = 0.0
+    rank_switch_ns: float = 0.0
+    link_busy_ns: dict = dataclasses.field(default_factory=dict)
+    _group_reads: tuple = ()    # per group: per-read (K, n_group, words)
+    _read_layout: tuple = (0, ())  # (n_slots, group slot-id tuples)
+    _host_overlap_ns: object = 0.0  # (K,) in async mode, else 0.0
+
+    @property
+    def reads(self) -> list:
+        """Per-step reads, same nesting as ``ScheduleResult.reads``:
+        ``reads[k][slot]`` is the slot's host-read rows of step ``k``."""
+        cached = getattr(self, "_reads_cache", None)
+        if cached is None:
+            cached = _unbatch_reads(self._group_reads, self._read_layout,
+                                    self.n_steps)
+            self._reads_cache = cached
+        return cached
+
+    @property
+    def host_overlap_ns_lazy(self):
+        """Raw per-step hidden-host-time values (see
+        ``ScheduleResult.host_overlap_ns_lazy``)."""
+        return self._host_overlap_ns
+
+    @property
+    def total_wall_ns(self) -> float:
+        return float(sequential_sum(self.wall_ns))
+
+    @property
+    def host_overlap_ns(self) -> float:
+        """Total host-transfer time hidden across the steps (async)."""
+        return float(_sum_steps(self._host_overlap_ns))
+
+
+@dataclasses.dataclass
+class PipelineResult(_StepsResult):
+    """Outcome of ``schedule_pipeline``: K steps of one recurring layout,
+    and the final device (credit = last step's compute)."""
+
+    state: DeviceState = dataclasses.field(kw_only=True)
+
+
+def schedule_pipeline(device: DeviceState, steps, *,
+                      n_steps: int | None = None,
+                      use_kernels: bool | None = None,
+                      interpret: bool | None = None,
+                      refresh: bool = False,
+                      async_host: bool = False,
+                      donate: bool = False,
+                      verify: bool = False) -> PipelineResult:
+    """Run K recurring schedule steps.
+
+    ``steps`` is either a sequence of K per-step program layouts (anything
+    ``schedule`` accepts — all steps must lower to the SAME layout:
+    identical command streams per slot and copy pattern; HOSTW payload
+    *data* may differ per step), or — with ``n_steps=K`` — a single layout
+    replayed K times. Equal to calling ``schedule`` K times in a loop
+    (states, reads and meters bit for bit; the async host credit chains
+    identically); the layout is lowered and planned once. ``donate`` is
+    accepted for signature parity and ignored (the caller's ``device`` is
+    never modified); ``verify=True`` raises ``NotImplementedError`` (ROADMAP
+    A8).
+    """
+    _no_verify(verify)
+    cfg = device.config
+    step_list = ([steps] * int(n_steps) if n_steps is not None
+                 else list(steps))
+    if not step_list:
+        raise ValueError("schedule_pipeline needs at least one step")
+    flats, stripped0, groups0, deferred0 = _lower_recurring(
+        cfg, step_list, what="pipeline",
+        hint="schedule_pipeline runs ONE recurring step; use "
+             "schedule_workload() for multi-phase sequences or schedule() "
+             "for fully heterogeneous ones")
+    plan = _plan_for(cfg, stripped0, groups0, deferred0,
+                     use_kernels=use_kernels, interpret=interpret,
+                     refresh=refresh, async_host=async_host)
+    banks, credit, log = device.banks, _credit(device), _StepLog()
+    for flat in flats:
+        banks, credit = _run_step(plan, banks, credit, flat, cfg.words, log)
+    SCHED_STATS["dispatches"] += 1
+    return PipelineResult(
+        state=device.with_banks(banks, host_credit_ns=credit),
+        wall_ns=torch.stack(log.walls),
+        energy_nj=torch.stack(log.energies),
+        n_steps=len(step_list),
+        _group_reads=log.group_reads(),
+        _read_layout=(cfg.n_slots, plan.group_slots),
+        _host_overlap_ns=(torch.stack(log.hidden) if async_host else 0.0),
+        **_copy_stats(plan))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Phase:
+    """One phase of a multi-phase workload: a RECURRING step layout (the
+    ``schedule_pipeline`` contract) replayed once per entry of ``steps``.
+    Payload data may differ per step; the command streams may not.
+
+    ``async_host=None`` inherits the workload-level flag; an explicit
+    ``True``/``False`` overrides it per phase."""
+
+    steps: tuple
+    async_host: bool | None = None
+
+    @classmethod
+    def repeat(cls, layout, n_steps: int, **kw) -> "Phase":
+        """A phase that replays ONE layout ``n_steps`` times (payloads
+        included — use explicit ``steps`` for per-step data)."""
+        return cls(steps=(layout,) * int(n_steps), **kw)
+
+
+def _as_phase(d) -> Phase:
+    """Phase descriptors: a :class:`Phase`, a ``(layout, n_steps)`` pair,
+    or a sequence of per-step layouts."""
+    if isinstance(d, Phase):
+        return d
+    if (isinstance(d, tuple) and len(d) == 2
+            and isinstance(d[1], (int, np.integer))):
+        return Phase.repeat(d[0], int(d[1]))
+    return Phase(steps=tuple(d))
+
+
+@dataclasses.dataclass
+class PhaseResult(_StepsResult):
+    """One phase's slice of a :class:`WorkloadResult` — the
+    :class:`PipelineResult` metrics minus the device state, plus the async
+    credit observed at the phase boundary."""
+
+    _boundary_credit_ns: object = 0.0   # credit leaving the phase's last step
+
+    @property
+    def boundary_credit_ns(self) -> float:
+        """The ``host_credit_ns`` leaf as it left this phase's last step:
+        the next phase's first step overlaps (at most) this much host
+        traffic. Zero after a sync phase."""
+        return float(self._boundary_credit_ns)
+
+
+@dataclasses.dataclass
+class WorkloadResult:
+    """Outcome of ``schedule_workload``: the final device state plus one
+    :class:`PhaseResult` per phase. ``order`` echoes the interleaved step
+    order (``None`` for phases run back to back)."""
+
+    state: DeviceState
+    phases: tuple
+    order: tuple | None = None
+
+    @property
+    def n_steps(self) -> int:
+        return sum(p.n_steps for p in self.phases)
+
+    @property
+    def total_wall_ns(self) -> float:
+        return sum(p.total_wall_ns for p in self.phases)
+
+    @property
+    def total_energy_nj(self) -> float:
+        return float(sum(float(sequential_sum(p.energy_nj))
+                         for p in self.phases))
+
+    @property
+    def host_overlap_ns(self) -> float:
+        return sum(p.host_overlap_ns for p in self.phases)
+
+
+def schedule_workload(device: DeviceState, phases, *,
+                      order: Sequence[int] | None = None,
+                      use_kernels: bool | None = None,
+                      interpret: bool | None = None,
+                      refresh: bool = False,
+                      async_host: bool = False,
+                      donate: bool = False,
+                      verify: bool = False) -> WorkloadResult:
+    """Run a HETEROGENEOUS multi-phase workload.
+
+    ``phases`` is a sequence of phase descriptors (:class:`Phase`, a
+    ``(layout, n_steps)`` pair, or a sequence of per-step layouts); each
+    phase is one recurring step layout in the ``schedule_pipeline`` sense.
+    Phases may differ arbitrarily from each other (streams, grouping, copy
+    patterns, async flags).
+
+    With ``order=None`` the phases run back to back. With
+    ``order=[phase_idx, ...]`` the steps run in exactly that interleaved
+    order, each phase's steps consumed FIFO, so ``order`` must name phase
+    ``p`` exactly ``len(phases[p].steps)`` times.
+
+    Equal to per-step ``schedule`` calls in the same order: states, reads
+    and meters bit for bit, with the async host credit and the
+    refresh-history meter threaded across every phase boundary (a sync
+    phase resets the credit). ``donate`` is accepted and ignored;
+    ``verify=True`` raises ``NotImplementedError`` (ROADMAP A8).
+    """
+    _no_verify(verify)
+    cfg = device.config
+    phase_list = [_as_phase(d) for d in phases]
+    if not phase_list:
+        raise ValueError("schedule_workload needs at least one phase")
+    lowered = []                        # per phase: (plan, flats, async)
+    for p, ph in enumerate(phase_list):
+        step_list = list(ph.steps)
+        if not step_list:
+            raise ValueError(f"workload phase {p} has no steps")
+        a_h = async_host if ph.async_host is None else bool(ph.async_host)
+        flats, stripped0, groups0, deferred0 = _lower_recurring(
+            cfg, step_list, what=f"workload phase {p}",
+            hint="each phase of schedule_workload is ONE recurring "
+                 "step layout; split heterogeneous steps into "
+                 "separate phases")
+        plan = _plan_for(cfg, stripped0, groups0, deferred0,
+                         use_kernels=use_kernels, interpret=interpret,
+                         refresh=refresh, async_host=a_h)
+        lowered.append((plan, flats, a_h))
+
+    n_ph = len(lowered)
+    if order is None:
+        seq = [p for p, (_, flats, _) in enumerate(lowered)
+               for _ in flats]
+    else:
+        seq = [int(i) for i in order]
+        counts = [0] * n_ph
+        for i in seq:
+            if not 0 <= i < n_ph:
+                raise ValueError(
+                    f"order index {i} out of range for {n_ph} phases")
+            counts[i] += 1
+        for p, (got, (_, flats, _)) in enumerate(zip(counts, lowered)):
+            if got != len(flats):
+                raise ValueError(
+                    f"order names phase {p} {got} times but the phase has "
+                    f"{len(flats)} steps — each phase's steps are consumed "
+                    "FIFO")
+
+    banks, credit = device.banks, _credit(device)
+    logs = [_StepLog() for _ in lowered]
+    cursor = [0] * n_ph
+    for p in seq:
+        plan, flats, _ = lowered[p]
+        banks, credit = _run_step(plan, banks, credit, flats[cursor[p]],
+                                  cfg.words, logs[p])
+        cursor[p] += 1
+    SCHED_STATS["dispatches"] += 1
+    results = tuple(
+        PhaseResult(
+            wall_ns=torch.stack(log.walls),
+            energy_nj=torch.stack(log.energies),
+            n_steps=len(flats),
+            _boundary_credit_ns=log.credit,
+            _group_reads=log.group_reads(),
+            _read_layout=(cfg.n_slots, plan.group_slots),
+            _host_overlap_ns=torch.stack(log.hidden) if a_h else 0.0,
+            **_copy_stats(plan))
+        for (plan, flats, a_h), log in zip(lowered, logs))
+    return WorkloadResult(
+        state=device.with_banks(banks, host_credit_ns=credit),
+        phases=results,
+        order=None if order is None else tuple(seq))
 
 
 # ---------------------------------------------------------------------------

@@ -186,6 +186,88 @@ __global__ void meter_fold_kernel(const float* __restrict__ ftab,
   }
 }
 
+// ---------------------------------------------------------------------------
+// ripple_add — replaces the TPU kernel
+//   src/repro/kernels/rowops/rowops.py: ripple_add -> _ripple_add_kernel.
+// Lane-wise add of horizontally packed w-bit elements, w | 32, as the
+// paper's ripple-carry S/C iteration: s = a^b, c = a&b, then w-1 rounds of
+//   cs = shift_cols(c, +1) & interior;  c = s & cs;  s ^= cs.
+// Because w divides 32, every word starts an element, so the bit that
+// shift_cols(c, +1) carries across a word boundary always lands on an
+// element's bit 0, which the interior mask clears. Each output word thus
+// depends only on the same word of a and b: shift_cols(c, +1) & interior
+// is (c << 1) & interior within the word. One thread keeps s and c in
+// registers for all w-1 rounds (four words per thread through 16-byte
+// loads when aligned), reads each input word once and writes once: the
+// Pallas kernel's one HBM round trip, with no neighbour word and no shared
+// memory. The width is a template parameter, so the rounds unroll.
+// Bound on the card: bytes, 12 per word, at every width. nvcc fuses two
+// rounds into three three-input LOP3s and issues each shift as an
+// IMAD.SHL on the FMA pipe (cuobjdump -sass: 47 LOP3 and 32 IMAD per word
+// at w = 32), so even w = 32 needs less integer time than memory time.
+// ---------------------------------------------------------------------------
+template <int W>
+__device__ __forceinline__ uint32_t ripple_word(uint32_t a, uint32_t b) {
+  constexpr uint32_t kElem = W == 32 ? 0xFFFFFFFFu
+                                      : ((1u << (W % 32)) - 1u);
+  constexpr uint32_t kLsb = W == 32 ? 1u
+                                    : 0xFFFFFFFFu / kElem;  // each bit 0
+  constexpr uint32_t kInterior = ~kLsb;
+  uint32_t s = a ^ b;
+  uint32_t c = a & b;
+#pragma unroll
+  for (int r = 0; r < W - 1; ++r) {
+    uint32_t cs = (c << 1) & kInterior;
+    c = s & cs;
+    s ^= cs;
+  }
+  return s;
+}
+
+template <int W>
+__global__ void ripple_add_kernel(const uint32_t* __restrict__ a,
+                                  const uint32_t* __restrict__ b,
+                                  uint32_t* __restrict__ out,
+                                  long long total) {
+  long long i = static_cast<long long>(blockIdx.x) * blockDim.x
+                + threadIdx.x;
+  if (i >= total) return;
+  out[i] = ripple_word<W>(a[i], b[i]);
+}
+
+template <int W>
+__global__ void ripple_add_vec4_kernel(const uint4* __restrict__ a,
+                                       const uint4* __restrict__ b,
+                                       uint4* __restrict__ out,
+                                       long long total4) {
+  long long i = static_cast<long long>(blockIdx.x) * blockDim.x
+                + threadIdx.x;
+  if (i >= total4) return;
+  uint4 av = a[i];
+  uint4 bv = b[i];
+  uint4 r;
+  r.x = ripple_word<W>(av.x, bv.x);
+  r.y = ripple_word<W>(av.y, bv.y);
+  r.z = ripple_word<W>(av.z, bv.z);
+  r.w = ripple_word<W>(av.w, bv.w);
+  out[i] = r;
+}
+
+template <int W>
+void launch_ripple_add(const void* a, const void* b, void* out,
+                       long long total, int vec4, cudaStream_t s) {
+  if (vec4) {
+    long long total4 = total / 4;
+    ripple_add_vec4_kernel<W><<<blocks_for(total4), kThreads, 0, s>>>(
+        static_cast<const uint4*>(a), static_cast<const uint4*>(b),
+        static_cast<uint4*>(out), total4);
+  } else {
+    ripple_add_kernel<W><<<blocks_for(total), kThreads, 0, s>>>(
+        static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
+        static_cast<uint32_t*>(out), total);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -235,6 +317,22 @@ int rowops_meter_fold(const void* ftab, const void* itab, const void* f0,
       static_cast<const float*>(f0), static_cast<const int32_t*>(i0),
       static_cast<float*>(fout), static_cast<int32_t*>(iout), m, n_slots,
       nf, ni);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int rowops_ripple_add(const void* a, const void* b, void* out,
+                      long long total, int width, int vec4, void* stream) {
+  if (total <= 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (width) {
+    case 1: launch_ripple_add<1>(a, b, out, total, vec4, s); break;
+    case 2: launch_ripple_add<2>(a, b, out, total, vec4, s); break;
+    case 4: launch_ripple_add<4>(a, b, out, total, vec4, s); break;
+    case 8: launch_ripple_add<8>(a, b, out, total, vec4, s); break;
+    case 16: launch_ripple_add<16>(a, b, out, total, vec4, s); break;
+    case 32: launch_ripple_add<32>(a, b, out, total, vec4, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,7 +15,7 @@ import torch
 
 from . import ref as _ref
 
-LAUNCHES = {"shift_cols": 0, "bitwise": 0, "meter_fold": 0}
+LAUNCHES = {"shift_cols": 0, "bitwise": 0, "meter_fold": 0, "ripple_add": 0}
 LAUNCHES_BY_OP = {op: 0 for op in _ref.OPS}
 
 _N_OPERANDS = {"not": 1, "and": 2, "or": 2, "xor": 2, "maj": 3}
@@ -145,3 +145,29 @@ def meter_fold(f_tab: torch.Tensor, i_tab: torch.Tensor, f0: torch.Tensor,
         torch.cuda.current_stream(f0.device).cuda_stream), "meter_fold")
     LAUNCHES["meter_fold"] += 1
     return fout, iout
+
+
+def ripple_add(a: torch.Tensor, b: torch.Tensor, *, width: int,
+               interpret: bool | None = None) -> torch.Tensor:
+    """Lane-wise ``a + b`` (mod 2**width) of horizontally packed w-bit
+    elements in (N, W) rows, as the fused S/C carry iteration; ``width``
+    must divide 32. A new tensor."""
+    width = int(width)
+    if width < 1 or 32 % width:
+        raise ValueError(f"ripple_add: width {width} does not divide 32")
+    _check_rows("ripple_add", a)
+    _check_rows("ripple_add", b, like=a)
+    if not _on_card(a):
+        return _ref.ref_ripple_add(a, b, width)
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("ripple_add: rows must be contiguous")
+    out = torch.empty_like(a)
+    if a.numel() == 0:
+        return out
+    ptrs = (a.data_ptr(), b.data_ptr(), out.data_ptr())
+    vec4 = int(a.numel() % 4 == 0 and all(p % 16 == 0 for p in ptrs))
+    _raise_on(_lib().rowops_ripple_add(
+        *ptrs, a.numel(), width, vec4,
+        torch.cuda.current_stream(a.device).cuda_stream), "ripple_add")
+    LAUNCHES["ripple_add"] += 1
+    return out

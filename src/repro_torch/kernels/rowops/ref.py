@@ -79,3 +79,49 @@ def ref_meter_fold(f_tab: torch.Tensor, i_tab: torch.Tensor,
             out = np.add.accumulate(stack, axis=0, dtype=dtype)[-1]
         return torch.from_numpy(np.ascontiguousarray(out)).to(init.device)
     return fold(f_tab, f0, np.float32), fold(i_tab, i0, np.int32)
+
+
+def _interior_mask(width: int) -> int:
+    """32-bit tile of the 'all element bits except bit 0' pattern, as a
+    plain int. Valid whenever width divides 32 (1, 2, 4, 8, 16, 32)."""
+    assert 32 % width == 0, "interior mask tiles only for width | 32"
+    pat = 0
+    for e in range(32 // width):
+        pat |= (((1 << width) - 1) & ~1) << (e * width)
+    return pat
+
+
+def _as_int32(pattern: int) -> int:
+    """A 32-bit pattern as the int32 value with the same bits."""
+    return pattern - (1 << 32) if pattern >= 1 << 31 else pattern
+
+
+def ref_ripple_add(a: torch.Tensor, b: torch.Tensor,
+                   width: int) -> torch.Tensor:
+    """Bulk element-wise add over horizontally packed w-bit elements, with
+    the S/C iteration the PIM machine runs: ``width - 1`` rounds of
+    ``cs = shift(c, +1) & interior; c = s & cs; s ^= cs``."""
+    interior = _as_int32(_interior_mask(width))
+    s = a ^ b
+    c = a & b
+    for _ in range(width - 1):
+        cs = ref_shift_cols(c, +1) & interior
+        c = s & cs
+        s = s ^ cs
+    return s
+
+
+def composed_ripple_add(a: torch.Tensor, b: torch.Tensor, width: int, *,
+                        bitwise=ref_bitwise,
+                        shift_cols=ref_shift_cols) -> torch.Tensor:
+    """The same add as the op-by-op sequence the fused kernel replaces:
+    2 + 4*(width-1) ``bitwise``/``shift_cols`` calls. Pass the wrappers of
+    ``ops`` to run it as that many kernel launches."""
+    interior = torch.full_like(a, _as_int32(_interior_mask(width)))
+    s = bitwise(a, b, op="xor")
+    c = bitwise(a, b, op="and")
+    for _ in range(width - 1):
+        cs = bitwise(shift_cols(c, 1), interior, op="and")
+        c = bitwise(s, cs, op="and")
+        s = bitwise(s, cs, op="xor")
+    return s

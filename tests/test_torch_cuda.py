@@ -1,6 +1,7 @@
-"""The port's LM kernels on the card against their plain versions, at ragged
-shapes and options that ``chip_smoke.py``'s full-width run does not reach,
-and the smoke-size serving path on the card against the CPU.
+"""The port's kernels on the card against their plain versions, at ragged
+shapes and options that ``chip_smoke.py``'s full-width run does not reach
+(``ripple_add`` at every width, ``pim_matmul``, ``flash_attn``), and the
+smoke-size serving path on the card against the CPU.
 
 Needs a CUDA card and ``nvcc`` (the kernels build at first use); every test
 here skips elsewhere. It imports nothing of JAX, so on the card machine it
@@ -8,7 +9,7 @@ runs without the repository's conftest:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: pim_matmul, 1e-4 of max |y| (kernel and plain version compute
+Tolerances: ripple_add, exact; pim_matmul, 1e-4 of max |y| (kernel and plain version compute
 the same float32 function, summing in another order); flash, abs 2e-5 in
 float32 and 0.05 for bf16 (the reference tests' bounds); logits, 2e-2 of
 max |logit| (the bound the CPU tests hold the bf16 model to).
@@ -23,6 +24,8 @@ from repro_torch.kernels.flash_attn import ops as fa  # noqa: E402
 from repro_torch.kernels.flash_attn import ref as fref  # noqa: E402
 from repro_torch.kernels.pim_matmul import ops as pm  # noqa: E402
 from repro_torch.kernels.pim_matmul import ref as pref  # noqa: E402
+from repro_torch.kernels.rowops import ops as rops  # noqa: E402
+from repro_torch.kernels.rowops import ref as rref  # noqa: E402
 from repro_torch.models import decode_step, init_params, prefill  # noqa: E402,E501
 from repro_torch.serve.engine import greedy_generate  # noqa: E402
 
@@ -166,3 +169,46 @@ def test_smoke_lm_card_matches_cpu(card, arch, overrides):
     for t, (a, b) in enumerate(zip(on_card, on_cpu)):
         rel = rel_err(a, b)
         assert rel < LOGITS_REL, f"step {t}: rel {rel:.3e}"
+
+
+@pytest.mark.parametrize("width", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("shape", [(512, 2048), (37, 2048), (3, 5), (1, 1)])
+def test_ripple_add_kernel_matches_plain(card, width, shape):
+    """Every width; ragged row counts and widths, and an odd word count
+    (the one-word-per-thread kernel); exact."""
+    gen = torch.Generator(device=card).manual_seed(width * 7 + shape[0])
+    a, b = (torch.randint(-2**31, 2**31, shape, generator=gen,
+                          dtype=torch.int64, device=card).to(torch.int32)
+            for _ in range(2))
+    got = rops.ripple_add(a, b, width=width)
+    assert torch.equal(got, rref.ref_ripple_add(a, b, width))
+    assert torch.equal(got.cpu(), rref.ref_ripple_add(a.cpu(), b.cpu(),
+                                                      width))
+
+
+def test_ripple_add_unaligned_rows(card):
+    """Contiguous views that start 260 bytes in: a multiple of four words
+    but not 16-byte aligned, so the one-word-per-thread kernel runs."""
+    x = torch.randint(-2**31, 2**31, (2, 9, 65), dtype=torch.int64,
+                      device=card).to(torch.int32)
+    a, b = x[0, 1:], x[1, 1:]
+    assert a.is_contiguous() and a.data_ptr() % 16 and a.numel() % 4 == 0
+    got = rops.ripple_add(a, b, width=8)
+    assert torch.equal(got, rref.ref_ripple_add(a, b, 8))
+
+
+def test_ripple_add_launch_count_and_refusals(card):
+    rops.reset_launches()
+    x = torch.ones((4, 64), dtype=torch.int32, device=card)
+    rops.ripple_add(x, x, width=8)
+    assert rops.LAUNCHES["ripple_add"] == 1
+    with pytest.raises(ValueError, match="contiguous"):
+        rops.ripple_add(x.T, x.T, width=8)
+    with pytest.raises(TypeError):
+        rops.ripple_add(x.float(), x.float(), width=8)
+    with pytest.raises(ValueError, match="divide 32"):
+        rops.ripple_add(x, x, width=3)
+    assert rops.LAUNCHES["ripple_add"] == 1
+    empty = torch.empty((0, 64), dtype=torch.int32, device=card)
+    assert rops.ripple_add(empty, empty, width=8).shape == (0, 64)
+    assert rops.LAUNCHES["ripple_add"] == 1

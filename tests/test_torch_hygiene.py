@@ -22,6 +22,7 @@ FORBIDDEN = re.compile(
 
 def test_port_imports_neither_jax_nor_the_reference():
     code = ("import sys, repro_torch, repro_torch.core.pim, "
+            "repro_torch.core.bitplane, "
             "repro_torch.kernels.rowops.ops, repro_torch.convert, "
             "repro_torch.configs, repro_torch.models, "
             "repro_torch.kernels.pim_matmul.ops, "
@@ -49,15 +50,23 @@ def test_no_source_file_imports_jax_or_the_reference():
 
 def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
     from repro_torch.core import pim
+    from repro_torch.core.bitplane import PimVM, gf
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (lambda: pim.make_subarray(),
                  lambda: pim.make_bank(2, 16, 4),
                  lambda: pim.make_device(pim.paper_device(1, 16, 4)),
                  lambda: pim.execute(pim.shift_workload_program(1, 16, 4)),
-                 lambda: pim.CostMeter.zeros()):
+                 lambda: pim.CostMeter.zeros(),
+                 lambda: PimVM(width=8, words=2),
+                 lambda: PimVM(width=8, words=4, n_banks=2),
+                 lambda: gf.aes_xtime_cost(2)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert pim.make_subarray(16, 4, device="cpu").bits.device.type == "cpu"
+    vm = PimVM(width=8, words=4, n_banks=2, device="cpu")
+    assert vm._device.banks.bits.device.type == "cpu"
+    assert PimVM(width=8, words=2, device="cpu").state.bits.device.type \
+        == "cpu"
 
 
 def test_cuda_states_refuse_the_plain_path():
@@ -153,3 +162,29 @@ def test_cuda_tensors_never_take_the_plain_path(monkeypatch):
     assert pm.LAUNCHES["pim_matmul"] >= 1 and fa.LAUNCHES["flash_attn"] >= 1
     pm.reset_launches()
     fa.reset_launches()
+
+
+def test_ripple_add_on_the_card_goes_to_the_kernel(monkeypatch):
+    """What a CUDA tensor takes in ripple_add: the kernel library, never the
+    plain version, with one count per launch."""
+    from types import SimpleNamespace
+
+    from repro_torch.kernels.rowops import ops
+
+    def plain(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    lib = _FakeLib()
+    monkeypatch.setattr(ops, "_on_card", lambda x: True)
+    monkeypatch.setattr(ops, "_lib", lambda: lib)
+    monkeypatch.setattr(ops._ref, "ref_ripple_add", plain)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=0))
+    ops.reset_launches()
+    x = torch.zeros((4, 8), dtype=torch.int32)
+    ops.ripple_add(x, x, width=8)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.ripple_add(x.T, x.T, width=8)
+    assert lib.calls == ["rowops_ripple_add"]
+    assert ops.LAUNCHES["ripple_add"] == 1
+    ops.reset_launches()

@@ -124,3 +124,71 @@ def test_plain_shift_guards_full_row():
     x = to_port(rand_rows((2, 4), 1))
     assert not port_ref.ref_shift_cols(x, 32 * 4).any()
     assert not port_ref.ref_shift_cols(x, -32 * 4 - 1).any()
+
+
+WIDTHS = [1, 2, 4, 8, 16, 32]
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+def test_ripple_add_matches_pallas(width):
+    """The port's ripple_add (its plain version on the CPU) against the
+    reference's Pallas kernel in interpret mode and its jnp oracle, and
+    against lane-wise addition mod 2**width; all exact."""
+    a, b = rand_rows((8, 64), 20 + width), rand_rows((8, 64), 40 + width)
+    got = from_port(port_ops.ripple_add(to_port(a), to_port(b), width=width))
+    exp = np.asarray(ref_ops.ripple_add(jnp.asarray(a), jnp.asarray(b),
+                                        width=width, interpret=True))
+    assert np.array_equal(got, exp)
+    assert np.array_equal(got, np.asarray(ref_ops.ref_ripple_add(
+        jnp.asarray(a), jnp.asarray(b), width)))
+    mask = (1 << width) - 1
+    shifts = np.arange(0, 32, width, dtype=np.uint64)
+    lanes = lambda x: (x.astype(np.uint64)[..., None] >> shifts) & mask
+    assert np.array_equal(lanes(got), (lanes(a) + lanes(b)) & mask)
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+def test_ripple_add_is_word_local(width):
+    """What the CUDA kernel computes: per word, ``(c << 1) & interior``
+    in place of the cross-word ``shift_cols(c, +1) & interior`` (the bit
+    carried across a word lands on an element's bit 0, which the mask
+    clears). Numpy uint32 math against the plain version."""
+    a, b = rand_rows((5, 33), 60 + width), rand_rows((5, 33), 70 + width)
+    interior = np.uint32(port_ref._interior_mask(width))
+    s, c = a ^ b, a & b
+    for _ in range(width - 1):
+        cs = (c << np.uint32(1)) & interior
+        c, s = s & cs, s ^ cs
+    got = port_ref.ref_ripple_add(to_port(a), to_port(b), width)
+    assert np.array_equal(from_port(got), s)
+
+
+def test_fused_adder_equals_composed_primitives():
+    a, b = to_port(rand_rows((8, 64), 10)), to_port(rand_rows((8, 64), 11))
+    assert torch.equal(port_ops.ripple_add(a, b, width=8),
+                       port_ref.composed_ripple_add(
+                           a, b, 8, bitwise=port_ops.bitwise,
+                           shift_cols=port_ops.shift_cols))
+
+
+def test_interior_mask_matches_reference():
+    from repro.kernels.rowops import ref as ref_rowops_ref
+    for width in WIDTHS:
+        assert port_ref._interior_mask(width) == \
+            ref_rowops_ref._interior_mask(width)
+    with pytest.raises(AssertionError):
+        port_ref._interior_mask(3)
+
+
+def test_ripple_add_checks_its_inputs():
+    x = to_port(rand_rows((4, 16), 0))
+    port_ops.reset_launches()
+    for width in (0, 3, 5, 64):
+        with pytest.raises(ValueError, match="divide 32"):
+            port_ops.ripple_add(x, x, width=width)
+    with pytest.raises(TypeError):
+        port_ops.ripple_add(x.to(torch.int64), x, width=8)
+    with pytest.raises(ValueError):
+        port_ops.ripple_add(x, x[:2], width=8)
+    port_ops.ripple_add(x, x, width=8)
+    assert port_ops.LAUNCHES["ripple_add"] == 0
