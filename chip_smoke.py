@@ -25,14 +25,22 @@ each, every mismatch fatal:
 5. launches  — kernel launches over the PIM path of phases 3-4 (counts
                reset just before, read just after); each kernel must run;
 6. lm kernels — pim_matmul (M 4 and 512, K x N 2560 x 9728 and 9728 x
-               2560, both modes, 4 and 8 bits) and flash_attn (Qwen3-4B's
-               heads at prefill and decode) against their plain versions on
-               the card, with device and per-call times, bound and the time
-               of one PyTorch library call;
+               2560, both modes, 4 and 8 bits; each row names the route,
+               ``cuda_core`` or ``tensor_core``, that ``ops.route`` gives
+               it) and flash_attn (Qwen3-4B's heads at prefill and decode)
+               against their plain versions on the card, with device and
+               per-call times, bound and the time of one PyTorch library
+               call; then both pim_matmul routes at M 8, 16 and 64 (the
+               route threshold) and the tensor-core kernel's K splits at M
+               512, each timed; the ``ptxas`` report (registers, shared
+               memory, spills) and the ``HMMA`` count (``cuobjdump -sass``)
+               of the tensor-core kernel, which must be above 0;
 7. serve     — the LM serving path: ``greedy_generate`` on Qwen3-4B
                (pim_w4, shift_add) at full width and depth, weights from a
                seed, batch 4, prompt 128, 16 new tokens (launch counts reset
-               just before, read just after, each kernel must run); ms of
+               just before, read just after, each kernel must run, prefill's
+               108 pim_matmul calls on the tensor cores and decode's 1,620
+               on the CUDA cores); ms of
                prefill and per decode token, GB on the card, decode against
                prefill, the busy share of one prefill and one decode step;
 8. lm parity — the same model at 2 layers, on the card (kernels) and on the
@@ -121,6 +129,10 @@ PIM_SHAPES = ((4, 2560, 9728), (4, 9728, 2560), (512, 2560, 9728),
 # position); at decode the slots after the query's position hold kpos -1
 FLASH_SHAPES = {"prefill": (4, 8, 4, 128, 128, 128, 0),
                 "decode": (4, 8, 4, 128, 1, 144, 135)}
+# both pim_matmul routes at these M, at (M, 2560) @ (2560, 9728), w4;
+# the tensor-core kernel's K splits timed at the two prefill shapes
+THRESHOLD_MS = (8, 16, 64)
+TC_SPLITS = (1, 2, 3)
 PARITY_LAYERS, PARITY_BATCH, PARITY_PROMPT, PARITY_NEW = 2, 2, 32, 4
 SHIFT_KS = (1, -1, 31, 32, 33, -33, 999, -999, 65535, 65536, 70000)
 # Phases 9-11: ripple_add at the kernel bench's row block and ragged shapes;
@@ -538,7 +550,8 @@ def _kernel_row(torch, kernel, plain, library, nbytes, nops, shape, err,
 
 
 def _say_row(name, r):
-    say(f"kernel {name} {r['shape']}: kernel {r['ms'] * 1e3:.2f} us "
+    route = f" [{r['route']}]" if "route" in r else ""
+    say(f"kernel {name}{route} {r['shape']}: kernel {r['ms'] * 1e3:.2f} us "
         f"({r['call_ms'] * 1e3:.2f} us per call with the host's launch), "
         f"plain {r['plain_ms'] * 1e3:.2f} us, library "
         f"{r['library_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.3f} us "
@@ -589,6 +602,7 @@ def phase_lm_kernels(torch, device):
                     lambda x=x, w_deq=w_deq: torch.matmul(x, w_deq),
                     2 * m * k + k * n + 4 * n + 4 * m * n, 2 * m * k * n,
                     f"x ({m}, {k}) bf16, w ({k}, {n}) int{bits}", err)
+                rows[name]["route"] = pm.route(m, k, n, x.dtype)
                 _say_row(name, rows[name])
                 del got, exp
     for phase, (B, KV, G, dh, sq, sk, pq0) in FLASH_SHAPES.items():
@@ -634,6 +648,95 @@ def phase_lm_kernels(torch, device):
             reps=10)
         _say_row(name, rows[name])
     return rows
+
+
+def pim_routes_timed(torch, device):
+    """Device us of both pim_matmul routes at the threshold's M, and of the
+    tensor-core kernel at each K split count at M = 512 (w4 shift_add)."""
+    from repro_torch.kernels.pim_matmul import ops as pm
+
+    gen = torch.Generator(device=device).manual_seed(17)
+
+    def operands(m, k, n):
+        x = torch.randn((m, k), generator=gen, device=device).to(
+            torch.bfloat16)
+        w_int, scales = pm.quantize(
+            torch.randn((k, n), generator=gen, device=device), 4)
+        return x, w_int, scales, torch.empty((m, n), device=device)
+
+    def timed(ops, which, splits=None):
+        x, w_int, scales, out = ops
+        return device_us(lambda: pm._launch(x, w_int, scales, out,
+                                            "shift_add", 4, which, splits),
+                         torch, 5, 5)
+
+    threshold = {}
+    for m in THRESHOLD_MS:
+        ops = operands(m, 2560, 9728)
+        threshold[m] = {r: timed(ops, r) for r in ("tensor_core",
+                                                   "cuda_core")}
+    say(f"route threshold (M, 2560) @ (2560, 9728) w4, TC_MIN_M "
+        f"{pm.TC_MIN_M}: " + "; ".join(
+            f"M {m}: tensor_core {t['tensor_core']:.2f} us, cuda_core "
+            f"{t['cuda_core']:.2f} us" for m, t in threshold.items()))
+    lib = pm._lib()
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    splits = {}
+    for m, k, n in PIM_SHAPES[2:]:
+        ops = operands(m, k, n)
+        chosen = lib.pim_matmul_tc_splits(m, k, n, 4, sms)
+        times = {s: timed(ops, "tensor_core", s) for s in TC_SPLITS}
+        splits[f"({m},{k})@({k},{n})"] = {"chosen": chosen, "us": times}
+        say(f"splits pim_matmul[tc] ({m},{k})@({k},{n}) w4, chosen "
+            f"{chosen}: " + ", ".join(f"{s}: {t:.2f} us"
+                                      for s, t in times.items()))
+    return {"threshold_us": threshold, "tc_splits": splits}
+
+
+def tc_ptxas():
+    """Registers, static shared memory and spill bytes ptxas reported for
+    each instance of the tensor-core kernel (None where this process did
+    not build the library), and its dynamic shared memory."""
+    import re
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.pim_matmul import ops as pm
+
+    log = _build.BUILD_LOG.get("pim_matmul")
+    out = {"dynamic_smem_bytes": pm._lib().pim_matmul_tc_smem_bytes()}
+    if not log:
+        return out
+    for part in log.split("Compiling entry function")[1:]:
+        kernel = re.search(r"pim_matmul_tc_kernelILi(\d+)E", part)
+        if kernel is None:
+            continue
+        regs = re.search(r"Used (\d+) registers", part)
+        smem = re.search(r"(\d+) bytes smem", part)
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", part)
+        out[f"bits{kernel.group(1)}"] = {
+            "registers": int(regs.group(1)),
+            "static_smem_bytes": int(smem.group(1)) if smem else 0,
+            "spill_bytes": int(spills.group(1)) + int(spills.group(2))}
+    return out
+
+
+def tc_sass():
+    """HMMA instructions in each instance of the tensor-core kernel, from
+    ``cuobjdump -sass`` of the built library (bits -> count)."""
+    import re
+    import shutil
+    from repro_torch.kernels import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run(
+        [tool, "-sass", str(_build.library_path("pim_matmul"))],
+        capture_output=True, text=True, timeout=120, check=True).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        kernel = re.match(r"\S*pim_matmul_tc_kernelILi(\d+)E", part)
+        if kernel is not None:
+            counts[f"bits{kernel.group(1)}"] = len(re.findall(
+                r"/\*[0-9a-f]{4,}\*/\s+HMMA\b", part))
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -702,6 +805,7 @@ def run_serve(torch, device):
     first_s = time.perf_counter() - t
     launches = {"pim_matmul": pm.LAUNCHES["pim_matmul"],
                 "flash_attn": fa.LAUNCHES["flash_attn"]}
+    routes = dict(pm.ROUTES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     L, V = cfg.n_layers, cfg.vocab_size
@@ -714,6 +818,12 @@ def run_serve(torch, device):
     expected = {"pim_matmul": 3 * L * SERVE_NEW, "flash_attn": L * SERVE_NEW}
     if launches != expected:
         raise AssertionError(f"serving launches {launches}, expected "
+                             f"{expected}")
+    # prefill's FFN linears (M = batch x prompt) on the tensor cores, each
+    # decode step's (M = batch) on the CUDA cores
+    expected = {"tensor_core": 3 * L, "cuda_core": 3 * L * (SERVE_NEW - 1)}
+    if routes != expected:
+        raise AssertionError(f"serving routes {routes}, expected "
                              f"{expected}")
 
     max_len = SERVE_PROMPT + SERVE_NEW
@@ -768,7 +878,7 @@ def run_serve(torch, device):
         init_s=init_s, first_generate_s=first_s, weights_gb=weights_gb,
         peak_gb=peak_gb, prefill_ms=prefill_ms, decode_ms_per_token=decode_ms,
         generate_ms=generate_ms, decode_vs_prefill_rel=dvp,
-        tokens=out.cpu().tolist(), profile=shares)
+        tokens=out.cpu().tolist(), profile=shares, routes=routes)
     say(f"serve {cfg.arch_id} {cfg.quant} {cfg.quant_mode} ({L} layers, "
         f"d_model {cfg.d_model}): batch {SERVE_BATCH}, prompt "
         f"{SERVE_PROMPT}, {SERVE_NEW} new tokens; prefill {prefill_ms:.2f} "
@@ -780,7 +890,7 @@ def run_serve(torch, device):
         say_share(f"serve {name}", sh)
     del model, caches
     torch.cuda.empty_cache()
-    return record, launches
+    return record, launches, routes
 
 
 def run_lm_parity(torch, device):
@@ -1383,11 +1493,28 @@ def main() -> int:
     # 6. the LM kernels against their plain versions
     lm_rows = phase_lm_kernels(torch, device)
     record["lm_kernels"] = lm_rows
+    record["pim_routes"] = pim_routes_timed(torch, device)
+    record["tc_ptxas"] = tc_ptxas()
+    say("ptxas pim_matmul[tc]: " + (", ".join(
+        f"{k}: {v['registers']} registers, {v['static_smem_bytes']} bytes "
+        f"static smem, {v['spill_bytes']} spill bytes"
+        for k, v in record["tc_ptxas"].items() if k.startswith("bits"))
+        or "not measured (library not built in this process)")
+        + f"; {record['tc_ptxas']['dynamic_smem_bytes']} bytes dynamic "
+        "smem per block")
+    record["tc_sass"] = tc_sass()
+    say("sass pim_matmul[tc]: " + ", ".join(
+        f"{k}: {v} HMMA" for k, v in sorted(record["tc_sass"].items())))
+    if sorted(record["tc_sass"]) != ["bits0", "bits4", "bits8"] \
+            or min(record["tc_sass"].values()) == 0:
+        raise AssertionError(f"tensor-core kernel without HMMA: "
+                             f"{record['tc_sass']}")
 
     # 7. the serving path, with the launch counts reset just before it and
     # read just after it (inside run_serve)
-    record["serve"], lm_launches = run_serve(torch, device)
-    say("kernels serve " + json.dumps(lm_launches))
+    record["serve"], lm_launches, lm_routes = run_serve(torch, device)
+    say("kernels serve " + json.dumps(lm_launches) + " routes "
+        + json.dumps(lm_routes))
 
     # 8. card against CPU at full width, 2 layers
     record["lm_parity"] = run_lm_parity(torch, device)
@@ -1446,16 +1573,21 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
-    # one row per LM kernel, at the shape that runs most often on the
-    # serving path (a decode step); every shape is in chip_smoke.json
-    m, k, n = PIM_SHAPES[0]
-    for kernel, row in (("pim_matmul",
-                         f"pim_matmul[shift_add,w4] ({m},{k})@({k},{n})"),
-                        ("flash_attn", "flash_attn[decode]")):
+    # one row per LM kernel, at the shape of the serving path it runs at
+    # (pim_matmul: decode's on the CUDA cores, prefill's first on the
+    # tensor cores); every shape is in chip_smoke.json
+    (m, k, n), (pm_, pk, pn) = PIM_SHAPES[0], PIM_SHAPES[2]
+    for kernel, row, launched in (
+            ("pim_matmul", f"pim_matmul[shift_add,w4] ({m},{k})@({k},{n})",
+             lm_routes["cuda_core"]),
+            ("pim_matmul",
+             f"pim_matmul[shift_add,w4] ({pm_},{pk})@({pk},{pn})",
+             lm_routes["tensor_core"]),
+            ("flash_attn", "flash_attn[decode]", lm_launches["flash_attn"])):
         r = lm_rows[row]
         table.append({
             "name": row, "route": "cuda", "source": SOURCES[kernel],
-            "replaces": REPLACES[kernel], "launches": lm_launches[kernel],
+            "replaces": REPLACES[kernel], "launches": launched,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

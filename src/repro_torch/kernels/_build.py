@@ -43,6 +43,10 @@ LIBRARIES = {
             "pim_matmul_splits": (_I, _I, _I, _I, _I),
             "pim_matmul": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _P),
+            "pim_matmul_tc_splits": (_I, _I, _I, _I, _I),
+            "pim_matmul_tc_smem_bytes": (),
+            "pim_matmul_tc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _P),
         },
     ),
     "flash_attn": (

@@ -2,41 +2,76 @@
 // plain C interface loaded through ctypes (repro_torch/kernels/_build.py).
 //
 // pim_matmul — replaces the TPU kernel
-//   src/repro/kernels/pim_matmul/pim_matmul.py: pim_matmul_raw
-//   -> _matmul_kernel.
+//   src/repro/kernels/pim_matmul/pim_matmul.py: pim_matmul_raw (:61)
+//   -> _matmul_kernel (:35).
 // out[m, n] = scales[n] * sum_k x[m, k] * W[k, n], float32, with W int8
 // codes (K, N) row-major and X (M, K) row-major, bf16 or float32.
 //   shift_add: W is taken as BITS-bit two's complement (the low BITS bits
-//     of each code); each thread keeps one float32 partial sum per bit
-//     plane, sum_k x * bit_b(w), and at the end of every K tile folds them
-//     into its output as acc = sum_b c_b * dot_b, out += acc, with
-//     c = [1, 2, ..., -2^(BITS-1)] (ref.py: plane_coeffs) — the order of
-//     the Pallas kernel, one "MXU pass" per plane.
-//   dequant:   one partial sum, sum_k x * w, with the codes as they are.
-// Products x * bit and x * w are exact in float32 (bf16 x, |w| <= 128), so
-// the two modes and the plain version differ only in the order of float32
-// additions.
+//     of each code), one pass per bit plane with the plane weights
+//     c = [1, 2, ..., -2^(BITS-1)] (ref.py: plane_coeffs) — the Pallas
+//     kernel's one "MXU pass" per plane.
+//   dequant:   one pass with the codes as they are.
+// Products x * c_b * bit and x * w are exact in float32 (bf16 x, |w| <=
+// 128), so the kernels and the plain version differ only in the order of
+// float32 additions.
 //
-// Bound on the card: the function moves X, W, scales and the float32
-// output once and does 2*M*K*N operations. At the model's decode shapes
-// (M = batch = 4, K x N = 2560 x 9728) it is bound by the bytes of W
-// (~25 MB); at prefill (M = 512) by the operations. This first kernel runs
-// on the CUDA cores, BITS multiply-adds per weight and row in shift_add, so
-// at prefill it is far from the tensor-core bound; making it fast (planes
-// through wgmma) is later work.
+// Two kernels; ops.py::route picks one from the shapes and X's type alone.
 //
-// Design: a block owns a BM x BN output tile; X and W tiles of depth kBK
-// are staged in shared memory (X as float32, W as int codes, masked to
-// BITS bits for shift_add); a thread owns TM x TN outputs. Any M, K, N:
-// every load and store is bounds-checked. When the (M, N) tiles alone do
-// not fill the card (decode), K is split over gridDim.z: each split writes
-// its unscaled sums to a workspace, and a second kernel adds the splits in
-// order and applies the scales, so the result does not depend on timing.
+// pim_matmul_tc_kernel (tensor cores; bf16 X, M >= the route's threshold,
+// K % 8 == 0, N % 16 == 0). Bound on the card at the model's prefill
+// shapes (M = 512, K x N = 2560 x 9728 and 9728 x 2560): 2*M*K*N
+// operations at 989 TFLOP/s, 25.785 us for both; the plane floor, BITS
+// tensor-core passes of 2*M*K*N each, is 103.1 us at w4 and 206.3 us at
+// w8: the least a kernel doing one pass per plane can take. Design:
+//   - mma.sync.m16n8k16 bf16 -> f32, issued from registers. The B
+//     fragment of plane b holds c_b * bit_b(w) as bf16 (exact: a signed
+//     power of two or zero), one MMA per plane per fragment; dequant's
+//     fragment is the code itself as bf16 (exact for |w| <= 128). All
+//     planes add into one float32 accumulator per output (per-plane
+//     accumulators, 8 x a warp's 64 x 32 tile at w8, do not fit in
+//     registers), so the Pallas kernel's per-K-tile fold
+//     (acc = sum_b c_b * dot_b; out += acc) becomes another order of
+//     float32 sums; the function is the same.
+//   - Planes are built in registers. W stays int8 in shared memory, each
+//     row padded to 144 bytes so the warp's word reads hit 32 banks. A
+//     thread reads one 32-bit word (four neighbouring codes along N) at
+//     each of its four k rows per k16 step; output column 4*g + j of the
+//     warp's 32 is fragment j's column g, so byte j of that word is
+//     fragment j's code and the thread ends up owning 8 neighbouring
+//     output columns. One prmt per register pairs the two k codes of a
+//     fragment into the halves of a word, and plane b is then
+//     (v & (0x10001 << b)) * (bf16(c_b) >> b): two integer operations per
+//     register, shared by the 4 m16 tiles of the warp.
+//   - A 4-stage cp.async ring (16-byte cp.async.cg, zero fill past the M,
+//     N and K edges and the split's end) of 128 x 32 bf16 X tiles (rows
+//     padded to 80 bytes, conflict-free for ldmatrix.x4) and 32 x 128 int8
+//     W tiles: 58 KB of dynamic shared memory, set with
+//     cudaFuncSetAttribute. 8 warps as 2 x 4, each 64 x 32 outputs
+//     (4 x 4 fragments, 64 float32 accumulators); at most 128 registers
+//     so two blocks share an SM.
+//   - Waves: 128 x 128 tiles give 4 x 76 = 304 blocks at N = 9728 and
+//     4 x 20 = 80 at N = 2560. pim_matmul_tc_splits splits K when that
+//     evens the blocks per SM: 3 ways at N = 2560 (240 blocks, two per SM
+//     on 108 of the 132 SMs instead of one on 80), 2 ways at N = 9728 for
+//     w4 (608 blocks, 4 or 5 per SM instead of 2 or 3); each split writes
+//     unscaled sums to a workspace that reduce_splits_kernel adds in
+//     order, so the result does not depend on timing (no atomics).
+//
+// pim_matmul_kernel (CUDA cores; float32 X, decode-sized M, rows that are
+// not 16-byte multiples). Bound at decode (M = batch = 4) by the bytes of
+// W (~25 MB). A block owns a BM x BN output tile; X and W tiles of depth
+// kBK are staged in shared memory (X as float32, W as int codes, masked to
+// BITS bits for shift_add); a thread owns TM x TN outputs and keeps one
+// float32 partial sum per plane, folded per K tile as the Pallas kernel
+// does. Any M, K, N: every load and store is bounds-checked. When the
+// (M, N) tiles alone do not fill the card, K is split over gridDim.z as
+// above.
 //
 // Every entry takes device pointers, sizes and the caller's stream,
 // launches without synchronising, allocates nothing and returns
 // cudaGetLastError() (or cudaErrorInvalidValue for sizes it refuses).
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -174,6 +209,275 @@ __global__ void reduce_splits_kernel(const float* __restrict__ workspace,
   out[i] = s * scales[i % n];
 }
 
+// ---------------------------------------------------------------------------
+// Tensor-core kernel (see the note at the head of the file)
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int kBM = 128, kBN = 128, kBK = 32, kStages = 4;
+constexpr int kThreads = 256;                 // 8 warps, 2 (M) x 4 (N)
+constexpr int kXStride = kBK + 8;             // bf16 per X row in shared
+constexpr int kWStride = kBN + 16;            // bytes per W row in shared
+constexpr int kXBytes = kBM * kXStride * 2;   // 10,240
+constexpr int kWBytes = kBK * kWStride;       // 4,608
+constexpr int kStageBytes = kXBytes + kWBytes;
+constexpr int kSmemBytes = kStages * kStageBytes;   // 59,392
+static_assert(kStageBytes % 16 == 0, "stages must stay 16-byte aligned");
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared; src-size 0 fills the 16 bytes with zeros
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4],
+                                            unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr) : "memory");
+}
+
+// c += a (16 x 16, row) * b (16 x 8, col), bf16 in, float32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned prmt(unsigned a, unsigned b,
+                                         unsigned sel) {
+  unsigned d;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
+  return d;
+}
+
+// bf16 bits of plane b's weight: 2^b, or -2^b for the sign plane
+__host__ __device__ constexpr unsigned plane_bf16(int b, int bits) {
+  return (b == bits - 1 ? 0x8000u : 0u) | ((127u + b) << 7);
+}
+
+// The B fragment of plane b from v, which holds two codes as the halves of
+// a word: each half becomes bf16(c_b) where bit b of its code is set, else
+// 0. (v & (1 << b)) is 0 or 2^b in each half, and bf16(c_b) has at least
+// seven trailing zero bits (b <= 7), so the product is exact and stays in
+// its half. Called with b a constant of an unrolled loop.
+template <int BITS>
+__device__ __forceinline__ unsigned plane_frag(unsigned v, int b) {
+  return (v & (0x00010001u << b)) * (plane_bf16(b, BITS) >> b);
+}
+
+// dequant's B fragment: byte j of a (at k) and of b (at k + 1), the int8
+// codes themselves, as bf16 (exact for |w| <= 128)
+__device__ __forceinline__ unsigned code_frag(unsigned a, unsigned b,
+                                              int j) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(
+      static_cast<float>(static_cast<signed char>(a >> (8 * j))),
+      static_cast<float>(static_cast<signed char>(b >> (8 * j))));
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// BITS = 0: dequant; BITS = 4 or 8: shift_add over BITS planes.
+template <int BITS>
+__global__ void __launch_bounds__(kThreads, 2)
+pim_matmul_tc_kernel(const __nv_bfloat16* __restrict__ x,
+                     const int8_t* __restrict__ w,
+                     const float* __restrict__ scales,
+                     float* __restrict__ out, float* __restrict__ workspace,
+                     int m, int k, int n, int k_per_split) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int warp_m = warp >> 2, warp_n = warp & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = blockIdx.y * kBM, col0 = blockIdx.x * kBN;
+  const int k_begin = blockIdx.z * k_per_split;
+  const int k_end = min(k, k_begin + k_per_split);
+  const int k_tiles = (k_end - k_begin + kBK - 1) / kBK;
+  const unsigned smem0 = smem_u32(smem);
+
+  // one stage: X kBM rows x kBK / 8 chunks, W kBK rows x kBN / 16 chunks,
+  // 16 bytes each; K % 8 == 0 and N % 16 == 0, so a chunk is wholly
+  // inside or wholly outside the operands
+  constexpr int kXChunks = kBM * kBK / 8 / kThreads;   // per thread
+  constexpr int kWChunks = kBK * kBN / 16 / kThreads;
+  static_assert(kXChunks * kThreads * 8 == kBM * kBK
+                && kWChunks * kThreads * 16 == kBK * kBN,
+                "tiles must split evenly over the threads");
+  auto load = [&](int stage, int kt) {
+    const int k0 = k_begin + kt * kBK;
+    const unsigned xs = smem0 + stage * kStageBytes;
+#pragma unroll
+    for (int i = 0; i < kXChunks; ++i) {
+      const int c = tid + i * kThreads;
+      const int r = c / (kBK / 8), kc = c % (kBK / 8) * 8;
+      const int gr = row0 + r, gk = k0 + kc;
+      const bool ok = gr < m && gk < k_end;
+      cp_async16(xs + (r * kXStride + kc) * 2,
+                 ok ? x + static_cast<long long>(gr) * k + gk : x, ok);
+    }
+#pragma unroll
+    for (int i = 0; i < kWChunks; ++i) {
+      const int c = tid + i * kThreads;
+      const int r = c / (kBN / 16), nc = c % (kBN / 16) * 16;
+      const int gk = k0 + r, gc = col0 + nc;
+      const bool ok = gk < k_end && gc < n;
+      cp_async16(xs + kXBytes + r * kWStride + nc,
+                 ok ? w + static_cast<long long>(gk) * n + gc : w, ok);
+    }
+  };
+
+  float acc[4][4][4];                 // [m16 tile][n8 fragment][C reg]
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < k_tiles) load(s, s);
+    cp_async_commit();
+  }
+
+  // ldmatrix.x4 rows: lanes 0-7 rows 0-7 at k 0, 8-15 rows 8-15 at k 0,
+  // 16-23 rows 0-7 at k 8, 24-31 rows 8-15 at k 8 -> a0..a3 of m16n8k16
+  const unsigned a_off =
+      ((warp_m * 64 + (lane & 7) + ((lane >> 3) & 1) * 8) * kXStride
+       + (lane >> 4) * 8) * 2;
+  // this thread's code words: k rows 2t, 2t+1, 2t+8, 2t+9 of a k16 step,
+  // columns 4g..4g+3 of the warp's 32
+  const int w_off = kXBytes + 2 * t * kWStride + warp_n * 32 + 4 * g;
+
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    cp_async_wait<kStages - 2>();     // tile kt has landed ...
+    __syncthreads();                  // ... for every thread, and tile
+    {                                 // kt - 1's stage is free again
+      const int next = kt + kStages - 1;
+      if (next < k_tiles) load(next % kStages, next);
+      cp_async_commit();
+    }
+    const int stage = kt % kStages;
+    const unsigned xs = smem0 + stage * kStageBytes;
+    const unsigned char* ws = smem + stage * kStageBytes + w_off;
+#pragma unroll
+    for (int ks = 0; ks < kBK; ks += 16) {
+      unsigned a[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        ldmatrix_x4(a[i], xs + a_off + (i * 16 * kXStride + ks) * 2);
+      const unsigned* wk = reinterpret_cast<const unsigned*>(
+          ws + ks * kWStride);
+      const unsigned u0 = wk[0], u1 = wk[kWStride / 4];
+      const unsigned u8 = wk[8 * kWStride / 4], u9 = wk[9 * kWStride / 4];
+      if constexpr (BITS == 0) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const unsigned b0 = code_frag(u0, u1, j);
+          const unsigned b1 = code_frag(u8, u9, j);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) mma_bf16(acc[i][j], a[i], b0, b1);
+        }
+      } else {
+        // fragment j's codes: byte j of the k and k+1 words in the low and
+        // high halves (the b0 and b1 registers' k pairs)
+        unsigned v0[4], v1[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const unsigned sel = j | (4 + j) << 8;
+          v0[j] = prmt(u0, u1, sel);
+          v1[j] = prmt(u8, u9, sel);
+        }
+        // plane outermost: two MMAs into one accumulator are 16 apart
+#pragma unroll
+        for (int b = 0; b < BITS; ++b)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const unsigned b0 = plane_frag<BITS>(v0[j], b);
+            const unsigned b1 = plane_frag<BITS>(v1[j], b);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) mma_bf16(acc[i][j], a[i], b0, b1);
+          }
+      }
+    }
+  }
+
+  // C fragment j of m16 tile i: rows g and g+8, logical columns 2t and
+  // 2t+1, which are the warp's columns 8t + j and 8t + 4 + j: the thread
+  // owns columns 8t..8t+7 of each of its rows
+  const bool split = gridDim.z > 1;
+  float* dst = split ? workspace + static_cast<long long>(blockIdx.z) * m * n
+                     : out;
+  const int c = col0 + warp_n * 32 + 8 * t;
+  if (c >= n) return;                 // N % 16 == 0: all 8 in or all out
+  float4 s0 = make_float4(1.f, 1.f, 1.f, 1.f), s1 = s0;
+  if (!split) {
+    s0 = *reinterpret_cast<const float4*>(scales + c);
+    s1 = *reinterpret_cast<const float4*>(scales + c + 4);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + warp_m * 64 + i * 16 + g + 8 * h;
+      if (r >= m) continue;
+      float4* p = reinterpret_cast<float4*>(dst + static_cast<long long>(r)
+                                            * n + c);
+      p[0] = make_float4(acc[i][0][2 * h] * s0.x, acc[i][1][2 * h] * s0.y,
+                         acc[i][2][2 * h] * s0.z, acc[i][3][2 * h] * s0.w);
+      p[1] = make_float4(acc[i][0][2 * h + 1] * s1.x,
+                         acc[i][1][2 * h + 1] * s1.y,
+                         acc[i][2][2 * h + 1] * s1.z,
+                         acc[i][3][2 * h + 1] * s1.w);
+    }
+}
+
+template <int BITS>
+cudaError_t launch(const void* x, const void* w, const void* scales,
+                   void* out, void* workspace, int m, int k, int n,
+                   int splits, cudaStream_t stream) {
+  // above 48 KB of dynamic shared memory only once allowed, per device
+  static std::atomic<unsigned long long> allowed{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (!(allowed.load() & bit)) {
+    err = cudaFuncSetAttribute(pim_matmul_tc_kernel<BITS>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemBytes);
+    if (err != cudaSuccess) return err;
+    allowed.fetch_or(bit);
+  }
+  const int k_per_split = ((k + splits - 1) / splits + kBK - 1) / kBK * kBK;
+  dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM, splits);
+  pim_matmul_tc_kernel<BITS><<<grid, kThreads, kSmemBytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
+      static_cast<const float*>(scales), static_cast<float*>(out),
+      static_cast<float*>(workspace), m, k, n, k_per_split);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 struct Tile {
   int bm, bn;
 };
@@ -230,6 +534,22 @@ void launch_mode(const void* x, const void* w, const void* scales,
     launch_bits<T, 8>(x, w, scales, out, workspace, m, k, n, splits, stream);
 }
 
+// the ordered sum of the splits, scaled, into out (when there are splits)
+cudaError_t reduce_splits(const void* workspace, const void* scales,
+                          void* out, int m, int n, int splits,
+                          cudaStream_t s) {
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const long long mn = static_cast<long long>(m) * n;
+  reduce_splits_kernel<<<static_cast<unsigned>((mn + kThreads - 1)
+                                               / kThreads),
+                         kThreads, 0, s>>>(
+      static_cast<const float*>(workspace),
+      static_cast<const float*>(scales), static_cast<float*>(out), mn, n,
+      splits);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -268,18 +588,69 @@ int pim_matmul(const void* x, const void* w, const void* scales, void* out,
   else
     launch_mode<float>(x, w, scales, out, workspace, m, k, n, mode, bits,
                        splits, s);
-  if (splits > 1) {
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const long long mn = static_cast<long long>(m) * n;
-    reduce_splits_kernel<<<static_cast<unsigned>((mn + kThreads - 1)
-                                                 / kThreads),
-                           kThreads, 0, s>>>(
-        static_cast<const float*>(workspace),
-        static_cast<const float*>(scales), static_cast<float*>(out), mn, n,
-        splits);
+  return static_cast<int>(reduce_splits(workspace, scales, out, m, n,
+                                         splits, s));
+}
+
+// K splits of the tensor-core kernel: the count in 1..8 that minimises
+// an estimate of its time, ceil(blocks / SMs) x K tiles per split x
+// planes in units of one block's pass over one K tile (a slow SM's share
+// of the waves), plus the workspace's bytes for more than one split (each
+// split written and read once, the output written once) in the same
+// units: kSplitBytesPerUnit is what the card's memory moves in one unit.
+// planes: BITS for shift_add, 1 for dequant.
+int pim_matmul_tc_splits(int m, int k, int n, int planes, int sm_count) {
+  constexpr double kSplitBytesPerUnit = 780e3;
+  if (m <= 0 || n <= 0 || k <= 0 || planes <= 0 || sm_count <= 0) return 1;
+  const long long tiles = static_cast<long long>((m + tc::kBM - 1)
+                                                 / tc::kBM)
+                          * ((n + tc::kBN - 1) / tc::kBN);
+  const int k_tiles = (k + tc::kBK - 1) / tc::kBK;
+  int best = 1;
+  double best_cost = 0.0;
+  for (int s = 1; s <= 8 && s <= k_tiles; ++s) {
+    const int per_split = (k_tiles + s - 1) / s;
+    const int splits = (k_tiles + per_split - 1) / per_split;   // none empty
+    if (splits != s) continue;
+    const long long waves = (tiles * s + sm_count - 1) / sm_count;
+    double cost = static_cast<double>(waves) * per_split * planes;
+    if (s > 1)
+      cost += (2.0 * s + 1.0) * 4.0 * m * n / kSplitBytesPerUnit;
+    if (s == 1 || cost < best_cost) {
+      best = s;
+      best_cost = cost;
+    }
   }
-  return static_cast<int>(cudaGetLastError());
+  return best;
+}
+
+// Dynamic shared memory of one tensor-core block, in bytes.
+int pim_matmul_tc_smem_bytes() { return tc::kSmemBytes; }
+
+// The tensor-core kernel: x (m, k) bf16, w (k, n) int8 codes, scales (n,)
+// float32, out (m, n) float32; mode and bits as for pim_matmul; workspace:
+// splits * m * n floats (unused when splits == 1). Takes k % 8 == 0 and
+// n % 16 == 0 (rows of 16-byte multiples) and 16-byte aligned x and w.
+int pim_matmul_tc(const void* x, const void* w, const void* scales,
+                  void* out, void* workspace, int m, int k, int n, int mode,
+                  int bits, int splits, void* stream) {
+  if (m <= 0 || n <= 0 || k <= 0 || splits < 1 || splits > 64
+      || (mode != 0 && mode != 1) || (bits != 4 && bits != 8)
+      || k % 8 != 0 || n % 16 != 0 || (m + tc::kBM - 1) / tc::kBM > 65535
+      || reinterpret_cast<uintptr_t>(x) % 16
+      || reinterpret_cast<uintptr_t>(w) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (mode == 1)
+    err = tc::launch<0>(x, w, scales, out, workspace, m, k, n, splits, s);
+  else if (bits == 4)
+    err = tc::launch<4>(x, w, scales, out, workspace, m, k, n, splits, s);
+  else
+    err = tc::launch<8>(x, w, scales, out, workspace, m, k, n, splits, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(reduce_splits(workspace, scales, out, m, n,
+                                         splits, s));
 }
 
 }  // extern "C"

@@ -4,15 +4,25 @@
 quantized linear in ``repro_torch.models`` runs as a bit-plane matmul
 (config.quant = "pim_w4" / "pim_w8", mode = "shift_add" | "dequant").
 
-For a CUDA tensor ``pim_matmul`` launches the hand-written kernel
+For a CUDA tensor ``pim_matmul`` launches a hand-written kernel
 (``csrc/pim_matmul.cu``) on the current stream, or raises; for a CPU
 tensor it runs the plain torch version in ``ref.py``. There is no other
-switch: the device of the input decides. The kernel picks its own tiles
-and takes any M, K and N, so the reference's block sizes and ``interpret``
-have no counterpart.
+switch: the device of the input decides whether a kernel runs, and
+``route`` alone decides which one, from the shapes and X's type — never
+from a failure (a launch that returns a CUDA error raises):
 
-``LAUNCHES["pim_matmul"]`` counts kernel launches; a plain-version call
-counts nothing.
+- ``"tensor_core"`` (``pim_matmul_tc``: bit planes built in registers,
+  ``mma.sync`` on the tensor cores) for bf16 X with M >= ``TC_MIN_M``
+  (prefill), K % 8 == 0 and N % 16 == 0 (rows of 16-byte multiples, for
+  ``cp.async``);
+- ``"cuda_core"`` (``pim_matmul``) otherwise: float32 X, decode-sized M,
+  rows that are not 16-byte multiples.
+
+Both take any M, and pick their own tiles and K splits, so the
+reference's block sizes and ``interpret`` have no counterpart.
+
+``LAUNCHES["pim_matmul"]`` counts kernel launches and ``ROUTES`` splits
+them by route; a plain-version call counts nothing.
 """
 from __future__ import annotations
 
@@ -23,10 +33,28 @@ import torch
 from . import ref as _ref
 
 LAUNCHES = {"pim_matmul": 0}
+ROUTES = {"tensor_core": 0, "cuda_core": 0}
+# The least M that takes the tensor cores: prefill takes them, decode
+# (M = batch <= 8) keeps the CUDA-core kernel's thin split-K tiles. On one
+# H100 the tensor-core kernel is already ~11x faster at M = 16
+# (chip_smoke.py's `route threshold` line; PERF.md).
+TC_MIN_M = 16
 
 
 def reset_launches() -> None:
     LAUNCHES["pim_matmul"] = 0
+    for r in ROUTES:
+        ROUTES[r] = 0
+
+
+def route(m: int, k: int, n: int, dtype: torch.dtype) -> str:
+    """Which kernel a card call of these sizes takes: "tensor_core" for
+    bf16 X with ``m >= TC_MIN_M``, ``k % 8 == 0`` and ``n % 16 == 0``,
+    else "cuda_core"."""
+    if (dtype == torch.bfloat16 and m >= TC_MIN_M and k % 8 == 0
+            and n % 16 == 0):
+        return "tensor_core"
+    return "cuda_core"
 
 
 def _on_card(x: torch.Tensor) -> bool:
@@ -100,20 +128,45 @@ def pim_matmul(x: torch.Tensor, w_int: torch.Tensor, scales: torch.Tensor,
         return out
     if k == 0:
         return out.zero_()
+    return _launch(x, w_int, scales, out, mode, bits, route(m, k, n, x.dtype))
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it when its data does not start on 16 bytes."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch(x, w_int, scales, out, mode, bits, which, splits=None):
+    """Launch the kernel of route ``which`` into ``out``; ``splits``
+    overrides the kernel's own choice of K splits."""
     lib = _lib()
-    splits = lib.pim_matmul_splits(m, k, n, bits,
-                                   _sm_count(x.device.index or 0))
+    m, k = x.shape
+    n = w_int.shape[1]
+    sms = _sm_count(x.device.index or 0)
+    tensor_core = which == "tensor_core"
+    if tensor_core:
+        x, w_int = _aligned(x), _aligned(w_int)
+        if splits is None:
+            splits = lib.pim_matmul_tc_splits(
+                m, k, n, bits if mode == "shift_add" else 1, sms)
+    elif splits is None:
+        splits = lib.pim_matmul_splits(m, k, n, bits, sms)
     workspace = (torch.empty((splits, m, n), dtype=torch.float32,
                              device=x.device) if splits > 1 else out)
-    rc = lib.pim_matmul(
-        x.data_ptr(), w_int.data_ptr(), scales.data_ptr(), out.data_ptr(),
-        workspace.data_ptr(), m, k, n, _ref.MODES.index(mode), bits,
-        int(x.dtype == torch.bfloat16), splits,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    args = (x.data_ptr(), w_int.data_ptr(), scales.data_ptr(),
+            out.data_ptr(), workspace.data_ptr(), m, k, n,
+            _ref.MODES.index(mode), bits)
+    if tensor_core:
+        rc = lib.pim_matmul_tc(*args, splits, stream)
+    else:
+        rc = lib.pim_matmul(*args, int(x.dtype == torch.bfloat16), splits,
+                            stream)
     if rc != 0:
-        raise RuntimeError(f"pim_matmul kernel launch failed: CUDA error "
-                           f"{rc}")
+        raise RuntimeError(f"pim_matmul kernel launch failed ({which}): "
+                           f"CUDA error {rc}")
     LAUNCHES["pim_matmul"] += 1
+    ROUTES[which] += 1
     return out
 
 

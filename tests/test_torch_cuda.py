@@ -1,7 +1,8 @@
 """The port's kernels on the card against their plain versions, at ragged
 shapes and options that ``chip_smoke.py``'s full-width run does not reach
-(``ripple_add`` at every width, ``pim_matmul``, ``flash_attn``), and the
-smoke-size serving path on the card against the CPU.
+(``ripple_add`` at every width, ``pim_matmul`` on both of its routes,
+``flash_attn``), and the smoke-size serving path on the card against the
+CPU.
 
 Needs a CUDA card and ``nvcc`` (the kernels build at first use); every test
 here skips elsewhere. It imports nothing of JAX, so on the card machine it
@@ -48,10 +49,19 @@ def rel_err(a, b):
     return float((a - b).abs().max() / (b.abs().max() + 1e-9))
 
 
-# (M, K, N): every tile the kernel picks (M <= 4, <= 8, 32-row for 8-bit
-# shift_add, 64-row), with and without the K split, ragged everywhere
+# (M, K, N). The CUDA-core kernel (float32 X everywhere; bf16 X below
+# TC_MIN_M or with unaligned rows): every tile it picks (M <= 4, <= 8,
+# 32-row for 8-bit shift_add, 64-row), with and without the K split,
+# ragged everywhere. The tensor-core kernel (bf16 X from the second row
+# on): M at and just above the threshold (16), both Qwen3-4B prefill
+# shapes, M, N and K ragged against its 128 x 128 x 32 tiles, with and
+# without its K split; then bf16 shapes that stay on the CUDA cores
+# because K % 8 != 0 or N % 16 != 0.
 PIM_SHAPES = [(1, 33, 300), (5, 96, 40), (8, 200, 257), (9, 64, 64),
-              (37, 130, 70), (130, 520, 96), (3, 4096, 17)]
+              (37, 130, 70), (130, 520, 96), (3, 4096, 17),
+              (16, 64, 48), (17, 136, 144), (512, 2560, 9728),
+              (512, 9728, 2560), (65, 136, 272), (200, 1032, 9728),
+              (128, 260, 64), (128, 256, 40)]
 
 
 @pytest.mark.parametrize("mkn", PIM_SHAPES)
@@ -64,26 +74,62 @@ def test_pim_matmul_kernel_matches_plain(card, mkn, bits, mode, dtype):
     x = torch.randn((m, k), generator=gen, device=card).to(dtype)
     w_int, scales = pm.quantize(
         torch.randn((k, n), generator=gen, device=card), bits)
+    pm.reset_launches()
     got = pm.pim_matmul(x, w_int, scales, mode=mode, bits=bits)
+    assert pm.ROUTES[pm.route(m, k, n, dtype)] == 1
     exp = pref.ref_pim_matmul_raw(x, w_int, mode=mode, bits=bits) \
         * scales[None, :]
     rel = rel_err(got, exp)
     assert rel <= PIM_REL, f"rel {rel:.3e} (bound {PIM_REL})"
 
 
-def test_pim_matmul_codes_beyond_the_bits(card):
+@pytest.mark.parametrize("mkn,dtype,route", [
+    ((6, 70, 33), torch.float32, "cuda_core"),
+    ((128, 72, 48), torch.bfloat16, "tensor_core"),
+])
+def test_pim_matmul_codes_beyond_the_bits(card, mkn, dtype, route):
     """int8 codes outside the 4-bit range: shift_add reads their low 4 bits
-    as two's complement, dequant the code itself — as the Pallas kernel."""
+    as two's complement, dequant the code itself — as the Pallas kernel —
+    on either route."""
+    m, k, n = mkn
     rng = np.random.default_rng(3)
-    w_int = torch.as_tensor(rng.integers(-128, 128, (70, 33)),
+    w_int = torch.as_tensor(rng.integers(-128, 128, (k, n)),
                             dtype=torch.int8, device=card)
-    x = torch.as_tensor(rng.normal(size=(6, 70)), dtype=torch.float32,
-                        device=card)
-    scales = torch.ones(33, device=card)
+    x = torch.as_tensor(rng.normal(size=(m, k)), dtype=torch.float32,
+                        device=card).to(dtype)
+    scales = torch.ones(n, device=card)
+    assert pm.route(m, k, n, dtype) == route
     for mode in ("shift_add", "dequant"):
         got = pm.pim_matmul(x, w_int, scales, mode=mode, bits=4)
         exp = pref.ref_pim_matmul_raw(x, w_int, mode=mode, bits=4)
         assert rel_err(got, exp) <= PIM_REL, mode
+
+
+def test_pim_matmul_routes(card):
+    """A prefill-shaped call takes the tensor cores, a decode-shaped one
+    the CUDA cores: one count each in ROUTES, two in LAUNCHES."""
+    gen = torch.Generator(device=card).manual_seed(5)
+    w_int, scales = pm.quantize(
+        torch.randn((256, 512), generator=gen, device=card), 4)
+    pm.reset_launches()
+    for m in (512, 4):
+        x = torch.randn((m, 256), generator=gen, device=card).to(
+            torch.bfloat16)
+        pm.pim_matmul(x, w_int, scales)
+    assert pm.ROUTES == {"tensor_core": 1, "cuda_core": 1}
+    assert pm.LAUNCHES["pim_matmul"] == 2
+    # a contiguous view 2 bytes past 16-byte alignment: the tensor-core
+    # kernel's 16-byte copies take an aligned copy of it
+    buf = torch.randn(1 + 63 * 256, generator=gen, device=card).to(
+        torch.bfloat16)
+    x = buf[1:].view(63, 256)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    assert pm.route(63, 256, 512, x.dtype) == "tensor_core"
+    got = pm.pim_matmul(x, w_int, scales)
+    assert pm.ROUTES == {"tensor_core": 2, "cuda_core": 1}
+    exp = pref.ref_pim_matmul_raw(x, w_int, mode="shift_add", bits=4) \
+        * scales[None, :]
+    assert rel_err(got, exp) <= PIM_REL
 
 
 # (B, Sq, Sk, KV, G, dh, window, invalid keys at the end of each row)

@@ -164,3 +164,117 @@ def test_wrapper_rejects_bad_operands():
         port_ops.pim_matmul(x, wi[:7], sc)
     with pytest.raises(TypeError, match="int8"):
         port_ops.pim_matmul(x, wi.to(torch.int32), sc)
+
+
+# route(): the tensor cores take bf16 X with M >= TC_MIN_M, K % 8 == 0 and
+# N % 16 == 0; everything else stays on the CUDA-core kernel.
+@pytest.mark.parametrize("m,k,n,dtype,expected", [
+    (port_ops.TC_MIN_M, 2560, 9728, torch.bfloat16, "tensor_core"),
+    (port_ops.TC_MIN_M + 1, 2560, 9728, torch.bfloat16, "tensor_core"),
+    (512, 9728, 2560, torch.bfloat16, "tensor_core"),
+    (65, 136, 272, torch.bfloat16, "tensor_core"),
+    (200, 1032, 9728, torch.bfloat16, "tensor_core"),
+    (128, 8, 16, torch.bfloat16, "tensor_core"),
+    (port_ops.TC_MIN_M - 1, 2560, 9728, torch.bfloat16, "cuda_core"),
+    (4, 2560, 9728, torch.bfloat16, "cuda_core"),
+    (8, 9728, 2560, torch.bfloat16, "cuda_core"),
+    (512, 2560, 9728, torch.float32, "cuda_core"),
+    (128, 2564, 9728, torch.bfloat16, "cuda_core"),    # K % 8 == 4
+    (128, 2560, 9720, torch.bfloat16, "cuda_core"),    # N % 16 == 8
+    (130, 520, 96, torch.bfloat16, "tensor_core"),
+    (130, 520, 104, torch.bfloat16, "cuda_core"),
+])
+def test_route_rule(m, k, n, dtype, expected):
+    assert port_ops.route(m, k, n, dtype) == expected
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_planes_rebuild_every_int8_code(bits):
+    """The identity the kernels rely on: for every int8 code,
+    sum_b c_b * bit_b equals its low ``bits`` bits read as two's
+    complement, and every c_b * bit is exact in bf16."""
+    codes = torch.arange(-128, 128, dtype=torch.int32).to(torch.int8)
+    low = codes.to(torch.int32) & ((1 << bits) - 1)
+    signed = torch.where(low >= 1 << (bits - 1), low - (1 << bits), low)
+    acc = torch.zeros(256, dtype=torch.float32)
+    for coeff, plane in zip(port_ref.plane_coeffs(bits),
+                            port_ref.ref_planes(codes[None, :], bits)):
+        term = coeff * plane[0]
+        assert torch.equal(term.to(torch.bfloat16).to(torch.float32), term)
+        acc = acc + term
+    assert torch.equal(acc.to(torch.int32), signed)
+    if bits == 8:
+        assert torch.equal(signed, codes.to(torch.int32))
+
+
+def _bf16_bits(value: float) -> int:
+    return int(torch.tensor([value], dtype=torch.bfloat16)
+               .view(torch.int16).to(torch.int32)[0]) & 0xFFFF
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_packed_plane_fragments_are_exact(bits):
+    """The tensor-core kernel's integer arithmetic, in numpy: two codes
+    sign-extended into the halves of a word (prmt), plane b taken as
+    ``(v & (0x10001 << b)) * (bf16(c_b) >> b)``; each half must be the bf16
+    of c_b * bit_b of its code, for every pair of int8 codes."""
+    lo, hi = np.meshgrid(np.arange(-128, 128), np.arange(-128, 128))
+    v = ((lo.astype(np.int64) & 0xFFFF) | ((hi.astype(np.int64) & 0xFFFF)
+                                           << 16)).astype(np.uint64)
+    for b, coeff in enumerate(port_ref.plane_coeffs(bits)):
+        c_bits = _bf16_bits(coeff)
+        assert c_bits == ((0x8000 if b == bits - 1 else 0)
+                          | ((127 + b) << 7))
+        assert c_bits % (1 << b) == 0
+        frag = ((v & np.uint64(0x00010001 << b))
+                * np.uint64(c_bits >> b)) & np.uint64(0xFFFFFFFF)
+        for half, code in ((frag & np.uint64(0xFFFF), lo),
+                           (frag >> np.uint64(16), hi)):
+            bit = (code >> b) & 1
+            expect = np.where(bit == 1, c_bits, 0)
+            assert np.array_equal(half.astype(np.int64), expect)
+
+
+class _FakeLib:
+    """Records which C entries a card call reaches; launches nothing."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def call(*args):
+            self.calls.append(name)
+            return 1 if name.endswith("splits") else 0
+        return call
+
+
+@pytest.mark.parametrize("m,dtype,entries,which", [
+    (512, torch.bfloat16, ["pim_matmul_tc_splits", "pim_matmul_tc"],
+     "tensor_core"),
+    (port_ops.TC_MIN_M, torch.bfloat16,
+     ["pim_matmul_tc_splits", "pim_matmul_tc"], "tensor_core"),
+    (4, torch.bfloat16, ["pim_matmul_splits", "pim_matmul"], "cuda_core"),
+    (512, torch.float32, ["pim_matmul_splits", "pim_matmul"], "cuda_core"),
+])
+def test_card_calls_take_their_route(monkeypatch, m, dtype, entries, which):
+    """A card call goes to the C entries of its route, counted once in
+    LAUNCHES and once in ROUTES; reset_launches clears both."""
+    from types import SimpleNamespace
+
+    lib = _FakeLib()
+    monkeypatch.setattr(port_ops, "_on_card", lambda x: True)
+    monkeypatch.setattr(port_ops, "_lib", lambda: lib)
+    monkeypatch.setattr(port_ops, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=0))
+    port_ops.reset_launches()
+    x = torch.zeros((m, 32), dtype=dtype)
+    port_ops.pim_matmul(x, torch.zeros((32, 48), dtype=torch.int8),
+                        torch.ones(48))
+    assert lib.calls == entries
+    assert port_ops.LAUNCHES["pim_matmul"] == 1
+    assert port_ops.ROUTES == {"tensor_core": int(which == "tensor_core"),
+                               "cuda_core": int(which == "cuda_core")}
+    port_ops.reset_launches()
+    assert port_ops.ROUTES == {"tensor_core": 0, "cuda_core": 0}
+    assert port_ops.LAUNCHES["pim_matmul"] == 0
