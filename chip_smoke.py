@@ -27,22 +27,32 @@ each, every mismatch fatal:
 6. lm kernels — pim_matmul (M 4 and 512, K x N 2560 x 9728 and 9728 x
                2560, both modes, 4 and 8 bits; each row names the route,
                ``cuda_core`` or ``tensor_core``, that ``ops.route`` gives
-               it) and flash_attn (Qwen3-4B's heads at prefill and decode)
-               against their plain versions on the card, with device and
-               per-call times, bound and the time of one PyTorch library
-               call; then both pim_matmul routes at M 8, 16 and 64 (the
-               route threshold) and the tensor-core kernel's K splits at M
-               512, each timed; the ``ptxas`` report (registers, shared
-               memory, spills) and the ``HMMA`` count (``cuobjdump -sass``)
-               of the tensor-core kernel, which must be above 0;
+               it) and flash_attn (each row names its route, ``tiled`` or
+               ``split_kv``: Qwen3-4B's heads at prefill and decode, that
+               decode over 8,192 slots, MLA's decode at dk 576 / dv 512,
+               recurrentgemma-2b's decode on a 2,048-slot ring under its
+               window, MLA's prefill at dk 192 / dv 128) against their
+               plain versions on the card (flash in float32 and bf16),
+               with device and per-call times, bound and the time of one
+               PyTorch library call; then both pim_matmul routes at M 8,
+               16 and 64 and both flash routes at 4, 16 and 64 rows per
+               pair (the route thresholds), the tensor-core kernel's K
+               splits at M 512 and the flash split route's key splits at
+               its decode shapes, each timed; the ``ptxas`` report
+               (registers, shared memory, spills) of the tensor-core
+               kernel and of the split route's kernels, and the ``HMMA``
+               count (``cuobjdump -sass``) of the tensor-core kernel,
+               which must be above 0;
 7. serve     — the LM serving path: ``greedy_generate`` on Qwen3-4B
                (pim_w4, shift_add) at full width and depth, weights from a
                seed, batch 4, prompt 128, 16 new tokens (launch counts reset
                just before, read just after, each kernel must run, prefill's
                108 pim_matmul calls on the tensor cores and decode's 1,620
-               on the CUDA cores); ms of
-               prefill and per decode token, GB on the card, decode against
-               prefill, the busy share of one prefill and one decode step;
+               on the CUDA cores, prefill's 36 flash_attn calls tiled and
+               decode's 540 split over the keys); ms of prefill and per
+               decode token, GB on the card, decode against prefill, the
+               busy share of one prefill and one decode step, and the
+               decode step's kernel ms;
 8. lm parity — the same model at 2 layers, on the card (kernels) and on the
                CPU (plain versions), logits compared step by step;
 9. ripple    — ``ripple_add`` against its plain version at (512, 2,048) for
@@ -110,13 +120,15 @@ REPLACES = {
 # Tolerances of the LM phases. pim_matmul: the kernel and its plain version
 # compute the same float32 function (exact products, sums over K <= 9,728
 # in another order), so max |kernel - plain| <= 1e-4 of max |plain|.
-# flash_attn: the reference tests' bounds, abs 0.05 for bf16 tensors (the
-# outputs round to bf16 after float32 sums in another order) and 2e-5 for
-# float32. The model's logits, card against CPU and decode against prefill:
-# 2e-2 of max |logit|, the bound the port's CPU tests hold the bf16 model to
-# against the reference (bf16 rounds in other places on either side).
+# flash_attn: abs 2e-5 for float32 (the reference tests' bound); for bf16
+# tensors 1e-2 of max |plain|: both sides compute in float32 from the same
+# bf16 inputs and round the output to bf16, so they differ by at most about
+# one bf16 ulp of the largest output, which is at most 2^-7 of it. The
+# model's logits, card against CPU and decode against prefill: 2e-2 of max
+# |logit|, the bound the port's CPU tests hold the bf16 model to against
+# the reference (bf16 rounds in other places on either side).
 PIM_REL = 1e-4
-FLASH_BF16_ABS = 0.05
+FLASH_BF16_REL = 1e-2
 FLASH_F32_ABS = 2e-5
 LOGITS_REL = 2e-2
 LM_ARCH = ("qwen3-4b", {"quant": "pim_w4", "quant_mode": "shift_add"})
@@ -125,10 +137,28 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 128, 16
 # prefill (M = batch x prompt); the first is the table's row
 PIM_SHAPES = ((4, 2560, 9728), (4, 9728, 2560), (512, 2560, 9728),
               (512, 9728, 2560))
-# flash_attn at Qwen3-4B's heads: (B, KV, G, dh, Sq, Sk, first query
-# position); at decode the slots after the query's position hold kpos -1
-FLASH_SHAPES = {"prefill": (4, 8, 4, 128, 128, 128, 0),
-                "decode": (4, 8, 4, 128, 1, 144, 135)}
+# flash_attn: (B, KV, G, dk, dv, Sq, Sk, last query position, window,
+# ring). Qwen3-4B's heads at prefill and at decode (the slots after the
+# query's position hold kpos -1 and poisoned values), the same decode over
+# an 8,192-slot cache, MLA's decode (deepseek-v2-lite: one 576-wide latent
+# key head, 512-wide values, 16 query heads), recurrentgemma-2b's decode
+# (one kv head of 256, 10 query heads, a 2,048-slot ring under its 2,048
+# window, positions unsorted) and MLA's prefill (16 heads, dk 192, dv 128)
+FLASH_SHAPES = {
+    "prefill": (4, 8, 4, 128, 128, 128, 128, 127, None, False),
+    "decode": (4, 8, 4, 128, 128, 1, 144, 135, None, False),
+    "decode,8k": (4, 8, 4, 128, 128, 1, 8192, 8183, None, False),
+    "decode,mla": (4, 1, 16, 576, 512, 1, 2048, 2040, None, False),
+    "decode,recurrentgemma": (4, 1, 10, 256, 256, 1, 2048, 5000, 2048, True),
+    "prefill,mla": (4, 16, 1, 192, 128, 128, 128, 127, None, False),
+}
+# both flash routes at these query positions per pair (G = 4: 4, 16 and
+# 64 rows) over these key slots: the route threshold
+FLASH_THRESHOLD_SQ = (1, 4, 16)
+FLASH_THRESHOLD_SK = (144, 8192)
+# the split route's key split counts timed at each decode shape, beside
+# the one its cost rule picks
+FLASH_SPLITS = (1, 2, 4, 8, 16, 32, 64)
 # both pim_matmul routes at these M, at (M, 2560) @ (2560, 9728), w4;
 # the tensor-core kernel's K splits timed at the two prefill shapes
 THRESHOLD_MS = (8, 16, 64)
@@ -500,8 +530,8 @@ def check_device(torch, gpu_results, cpu_results):
 def device_share(torch, fn) -> dict:
     """Run ``fn`` once under ``torch.profiler``: host-clock ms of the
     window, the card's summed kernel time in it, their ratio (the card's
-    busy share; one stream, so kernels do not overlap) and the kernels that
-    took most of it."""
+    busy share; one stream, so kernels do not overlap) and every kernel,
+    the longest first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -526,7 +556,7 @@ def device_share(torch, fn) -> dict:
     return {"wall_ms": wall_ms, "device_ms": busy_ms,
             "busy_share": busy_ms / wall_ms if wall_ms else 0.0,
             "top": [{"name": k[1][:80], "ms": k[0], "count": k[2]}
-                    for k in kernels[:6]]}
+                    for k in kernels]}
 
 
 # ---------------------------------------------------------------------------
@@ -561,9 +591,6 @@ def _say_row(name, r):
 def phase_lm_kernels(torch, device):
     """pim_matmul and flash_attn at the serving path's shapes, each against
     its plain version on the same tensors; name -> row."""
-    import torch.nn.functional as F
-    from repro_torch.kernels.flash_attn import ops as fa
-    from repro_torch.kernels.flash_attn import ref as fref
     from repro_torch.kernels.pim_matmul import ops as pm
     from repro_torch.kernels.pim_matmul import ref as pref
 
@@ -605,49 +632,135 @@ def phase_lm_kernels(torch, device):
                 rows[name]["route"] = pm.route(m, k, n, x.dtype)
                 _say_row(name, rows[name])
                 del got, exp
-    for phase, (B, KV, G, dh, sq, sk, pq0) in FLASH_SHAPES.items():
-        q = torch.randn((B, sq, KV, G, dh), generator=gen, device=device)
-        k = torch.randn((B, sk, KV, dh), generator=gen, device=device)
-        v = torch.randn((B, sk, KV, dh), generator=gen, device=device)
-        pos_q = torch.arange(pq0, pq0 + sq, dtype=torch.int32, device=device)
-        pos_k = torch.arange(sk, dtype=torch.int32, device=device).repeat(
-            B, 1)
-        if phase == "decode":        # slots not yet written: kpos = -1
-            pos_k[:, pq0 + 1:] = -1
-            v[:, pq0 + 1:] = 1e4     # and poisoned: they must weigh 0
-        for dt, bound in ((torch.float32, FLASH_F32_ABS),
-                          (torch.bfloat16, FLASH_BF16_ABS)):
-            got = fa.flash_attention(q.to(dt), k.to(dt), v.to(dt), pos_q,
-                                     pos_k)
-            exp = fref.ref_flash_attention(q.to(dt), k.to(dt), v.to(dt),
-                                           pos_q, pos_k)
-            torch.cuda.synchronize()
-            err = max_abs_err(got.float(), exp.float())
-            if not (torch.isfinite(got.float()).all() and err < bound):
-                raise AssertionError(f"flash_attn {phase} {dt}: max abs err "
-                                     f"{err} >= {bound}")
-        qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
-        qt = qb.reshape(B, sq, KV * G, dh).transpose(1, 2).contiguous()
-        kt, vt = (t.transpose(1, 2).contiguous() for t in (kb, vb))
-        seen = ((pos_k[:, None, :] >= 0)
-                & (pos_k[:, None, :] <= pos_q[None, :, None]))  # (B, Sq, Sk)
-        mask = seen[:, None]
-        pairs = int(seen.sum())
+    for phase, shape in FLASH_SHAPES.items():
         name = f"flash_attn[{phase}]"
-        rows[name] = _kernel_row(
-            torch,
-            lambda: fa.flash_attention(qb, kb, vb, pos_q, pos_k),
-            lambda: fref.ref_flash_attention(qb, kb, vb, pos_q, pos_k),
-            lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, enable_gqa=True),
-            2 * (2 * qb.numel() + kb.numel() + vb.numel())
-            + 4 * (pos_q.numel() + pos_k.numel()),
-            4 * dh * KV * G * pairs,
-            f"q ({B}, {sq}, {KV}, {G}, {dh}), k/v ({B}, {sk}, {KV}, {dh}) "
-            f"bf16, {pairs} seen (query, key) pairs", err, per_graph=10,
-            reps=10)
+        rows[name] = flash_row(torch, device, gen, shape)
         _say_row(name, rows[name])
     return rows
+
+
+def flash_operands(torch, device, gen, shape):
+    """q, k, v (float32), positions and the seen mask (B, Sq, Sk) of one
+    FLASH_SHAPES entry; unwritten slots hold kpos -1 and poisoned
+    values."""
+    B, KV, G, dk, dv, sq, sk, last, window, ring = shape
+    q = torch.randn((B, sq, KV, G, dk), generator=gen, device=device)
+    k = torch.randn((B, sk, KV, dk), generator=gen, device=device)
+    v = torch.randn((B, sk, KV, dv), generator=gen, device=device)
+    pos_q = torch.arange(last - sq + 1, last + 1, dtype=torch.int32,
+                         device=device)
+    slots = torch.arange(sk, dtype=torch.int32, device=device)
+    if ring:      # slot j holds the latest position p <= last, p = j mod sk
+        pos_k = (last - torch.remainder(last - slots, sk)).repeat(B, 1)
+    else:
+        pos_k = slots.repeat(B, 1)
+        pos_k[:, last + 1:] = -1
+    v[pos_k < 0] = 1e4                # unwritten slots must weigh 0
+    seen = ((pos_k[:, None, :] >= 0)
+            & (pos_k[:, None, :] <= pos_q[None, :, None]))   # (B, Sq, Sk)
+    if window is not None:
+        seen &= (pos_q[None, :, None] - pos_k[:, None, :]) < window
+    return q, k, v, pos_q, pos_k, seen
+
+
+def flash_row(torch, device, gen, shape):
+    """One flash_attn shape: the kernel of the route ops.route gives it
+    against its plain version in float32 and bf16, then timed in bf16
+    beside the plain version and SDPA (timed only; the port never calls
+    it)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attn import ops as fa
+    from repro_torch.kernels.flash_attn import ref as fref
+
+    B, KV, G, dk, dv, sq, sk, last, window, ring = shape
+    q, k, v, pos_q, pos_k, seen = flash_operands(torch, device, gen, shape)
+    errs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        args = (q.to(dt), k.to(dt), v.to(dt), pos_q, pos_k)
+        got = fa.flash_attention(*args, window=window)
+        exp = fref.ref_flash_attention(*args, window=window)
+        torch.cuda.synchronize()
+        err = max_abs_err(got.float(), exp.float())
+        bound = (FLASH_F32_ABS if dt == torch.float32 else
+                 FLASH_BF16_REL * float(exp.float().abs().max()))
+        if not (got.shape == exp.shape and torch.isfinite(got.float()).all()
+                and err < bound):
+            raise AssertionError(f"flash_attn {shape} {dt}: max abs err "
+                                 f"{err} >= {bound:.3e}")
+        errs[str(dt).split(".")[-1]] = err
+        del got, exp
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    qt = qb.reshape(B, sq, KV * G, dk).transpose(1, 2).contiguous()
+    kt, vt = (t.transpose(1, 2).contiguous() for t in (kb, vb))
+    mask = seen[:, None]
+    pairs = int(seen.sum())
+    row = _kernel_row(
+        torch,
+        lambda: fa.flash_attention(qb, kb, vb, pos_q, pos_k, window=window),
+        lambda: fref.ref_flash_attention(qb, kb, vb, pos_q, pos_k,
+                                         window=window),
+        lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True),
+        2 * (qb.numel() + kb.numel() + vb.numel() + B * sq * KV * G * dv)
+        + 4 * (pos_q.numel() + pos_k.numel()),
+        2 * (dk + dv) * KV * G * pairs,
+        f"q ({B}, {sq}, {KV}, {G}, {dk}), k ({B}, {sk}, {KV}, {dk}), v "
+        f"(.., {dv}) bf16{'' if window is None else f', window {window}'}"
+        f"{', ring' if ring else ''}, {pairs} seen (query, key) pairs",
+        errs["bfloat16"], per_graph=10, reps=10)
+    row["route"] = fa.route(sq, G)
+    row["max_abs_err_f32"] = errs["float32"]
+    if row["route"] == "split_kv":
+        row["splits"] = fa._splits(B * KV, sq * G, sk, dk, dv, 1,
+                                   device.index or 0)
+    del q, k, v, qb, kb, vb, qt, kt, vt
+    return row
+
+
+def flash_routes_timed(torch, device):
+    """Device us of both flash routes, bf16, at Qwen3-4B's heads (B 4, KV
+    8, G 4, dh 128) for each Sq of FLASH_THRESHOLD_SQ and Sk of
+    FLASH_THRESHOLD_SK, the queries at the last positions; then of the
+    split route at each count of FLASH_SPLITS and its own at the decode
+    shapes of FLASH_SHAPES."""
+    from repro_torch.kernels.flash_attn import ops as fa
+
+    gen = torch.Generator(device=device).manual_seed(19)
+    times = {}
+    for sk in FLASH_THRESHOLD_SK:
+        for sq in FLASH_THRESHOLD_SQ:
+            q, k, v, pos_q, pos_k, _ = flash_operands(
+                torch, device, gen, (4, 8, 4, 128, 128, sq, sk, sk - 1, None,
+                                     False))
+            q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+            out = torch.empty_like(q)
+            times[f"rows {4 * sq}, Sk {sk}"] = {
+                which: device_us(lambda which=which: fa._launch(
+                    q, k, v, pos_q, pos_k, out, None, 128 ** -0.5, which),
+                    torch, 5, 5)
+                for which in ("split_kv", "tiled")}
+            del q, k, v, out
+    say(f"route threshold flash_attn (B 4, KV 8, G 4, dh 128, bf16), "
+        f"SPLIT_MAX_ROWS {fa.SPLIT_MAX_ROWS}: " + "; ".join(
+            f"{key}: split_kv {t['split_kv']:.2f} us, tiled "
+            f"{t['tiled']:.2f} us" for key, t in times.items()))
+    splits = {}
+    for phase, shape in FLASH_SHAPES.items():
+        B, KV, G, dk, dv, sq, sk, last, window, ring = shape
+        if fa.route(sq, G) != "split_kv":
+            continue
+        q, k, v, pos_q, pos_k, _ = flash_operands(torch, device, gen, shape)
+        q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+        out = torch.empty(q.shape[:-1] + (dv,), dtype=q.dtype, device=device)
+        chosen = fa._splits(B * KV, sq * G, sk, dk, dv, 1, device.index or 0)
+        us = {n: device_us(lambda n=n: fa._launch(
+            q, k, v, pos_q, pos_k, out, window, dk ** -0.5, "split_kv", n),
+            torch, 5, 5) for n in sorted({chosen, *FLASH_SPLITS})}
+        splits[phase] = {"chosen": chosen, "us": us}
+        say(f"splits flash_attn[{phase}] chosen {chosen}: " + ", ".join(
+            f"{n}: {t:.2f} us" for n, t in us.items()))
+        del q, k, v, out
+    return {"threshold_us": times, "splits": splits}
 
 
 def pim_routes_timed(torch, device):
@@ -693,31 +806,48 @@ def pim_routes_timed(torch, device):
     return {"threshold_us": threshold, "tc_splits": splits}
 
 
-def tc_ptxas():
+def ptxas(library, kernel, key):
     """Registers, static shared memory and spill bytes ptxas reported for
-    each instance of the tensor-core kernel (None where this process did
-    not build the library), and its dynamic shared memory."""
+    each kernel instance of ``library`` whose mangled name matches the
+    regex ``kernel``, under ``key(match)``; empty where this process did
+    not build the library."""
     import re
     from repro_torch.kernels import _build
-    from repro_torch.kernels.pim_matmul import ops as pm
 
-    log = _build.BUILD_LOG.get("pim_matmul")
-    out = {"dynamic_smem_bytes": pm._lib().pim_matmul_tc_smem_bytes()}
-    if not log:
-        return out
-    for part in log.split("Compiling entry function")[1:]:
-        kernel = re.search(r"pim_matmul_tc_kernelILi(\d+)E", part)
-        if kernel is None:
+    out = {}
+    for part in _build.BUILD_LOG.get(library, "").split(
+            "Compiling entry function")[1:]:
+        match = re.search(kernel, part)
+        if match is None:
             continue
         regs = re.search(r"Used (\d+) registers", part)
         smem = re.search(r"(\d+) bytes smem", part)
         spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                            r"loads", part)
-        out[f"bits{kernel.group(1)}"] = {
+        out[key(match)] = {
             "registers": int(regs.group(1)),
             "static_smem_bytes": int(smem.group(1)) if smem else 0,
             "spill_bytes": int(spills.group(1)) + int(spills.group(2))}
     return out
+
+
+def tc_ptxas():
+    """ptxas's report of each instance of the tensor-core kernel, and its
+    dynamic shared memory."""
+    from repro_torch.kernels.pim_matmul import ops as pm
+    return {"dynamic_smem_bytes": pm._lib().pim_matmul_tc_smem_bytes(),
+            **ptxas("pim_matmul", r"pim_matmul_tc_kernelILi(\d+)E",
+                    lambda m: f"bits{m.group(1)}")}
+
+
+def flash_ptxas():
+    """ptxas's report of each instance of the split route's two kernels
+    ("split bf16 rb4", ..., "merge f32")."""
+    return ptxas(
+        "flash_attn",
+        r"flash_(split|merge)_kernelI(13__nv_bfloat16|f)(?:Li(\d+)E)?",
+        lambda m: (f"{m.group(1)} {'f32' if m.group(2) == 'f' else 'bf16'}"
+                   + (f" rb{m.group(3)}" if m.group(3) else "")))
 
 
 def tc_sass():
@@ -806,6 +936,7 @@ def run_serve(torch, device):
     launches = {"pim_matmul": pm.LAUNCHES["pim_matmul"],
                 "flash_attn": fa.LAUNCHES["flash_attn"]}
     routes = dict(pm.ROUTES)
+    flash_routes = dict(fa.ROUTES)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     L, V = cfg.n_layers, cfg.vocab_size
@@ -825,6 +956,12 @@ def run_serve(torch, device):
     if routes != expected:
         raise AssertionError(f"serving routes {routes}, expected "
                              f"{expected}")
+    # prefill's attention (Sq·G = 512 rows per pair) on the tiled kernel,
+    # each decode step's (4 rows) split over the keys
+    expected = {"tiled": L, "split_kv": L * (SERVE_NEW - 1)}
+    if flash_routes != expected:
+        raise AssertionError(f"serving flash routes {flash_routes}, "
+                             f"expected {expected}")
 
     max_len = SERVE_PROMPT + SERVE_NEW
     logits, _ = prefill(cfg, model, batch, max_len)
@@ -878,7 +1015,8 @@ def run_serve(torch, device):
         init_s=init_s, first_generate_s=first_s, weights_gb=weights_gb,
         peak_gb=peak_gb, prefill_ms=prefill_ms, decode_ms_per_token=decode_ms,
         generate_ms=generate_ms, decode_vs_prefill_rel=dvp,
-        tokens=out.cpu().tolist(), profile=shares, routes=routes)
+        tokens=out.cpu().tolist(), profile=shares, routes=routes,
+        flash_routes=flash_routes)
     say(f"serve {cfg.arch_id} {cfg.quant} {cfg.quant_mode} ({L} layers, "
         f"d_model {cfg.d_model}): batch {SERVE_BATCH}, prompt "
         f"{SERVE_PROMPT}, {SERVE_NEW} new tokens; prefill {prefill_ms:.2f} "
@@ -888,9 +1026,15 @@ def run_serve(torch, device):
         f"(bound {LOGITS_REL}); launches {json.dumps(launches)}")
     for name, sh in shares.items():
         say_share(f"serve {name}", sh)
+    flash_ms = sum(k["ms"] for k in shares["decode step"]["top"]
+                   if "flash_" in k["name"])
+    say(f"serve decode step: {shares['decode step']['device_ms']:.3f} ms of "
+        f"kernels, flash_attn {flash_ms:.3f} ms of it (with the tiled "
+        f"kernel at decode, one H100 took 20.18-21.01 ms, flash about 2.9 "
+        f"ms of it)")
     del model, caches
     torch.cuda.empty_cache()
-    return record, launches, routes
+    return record, launches, routes, flash_routes
 
 
 def run_lm_parity(torch, device):
@@ -1502,6 +1646,12 @@ def main() -> int:
         or "not measured (library not built in this process)")
         + f"; {record['tc_ptxas']['dynamic_smem_bytes']} bytes dynamic "
         "smem per block")
+    record["flash_routes"] = flash_routes_timed(torch, device)
+    record["flash_ptxas"] = flash_ptxas()
+    say("ptxas flash_attn[split_kv]: " + ("; ".join(
+        f"{k}: {v['registers']} registers, {v['spill_bytes']} spill bytes"
+        for k, v in record["flash_ptxas"].items())
+        or "not measured (library not built in this process)"))
     record["tc_sass"] = tc_sass()
     say("sass pim_matmul[tc]: " + ", ".join(
         f"{k}: {v} HMMA" for k, v in sorted(record["tc_sass"].items())))
@@ -1512,9 +1662,11 @@ def main() -> int:
 
     # 7. the serving path, with the launch counts reset just before it and
     # read just after it (inside run_serve)
-    record["serve"], lm_launches, lm_routes = run_serve(torch, device)
+    record["serve"], lm_launches, lm_routes, flash_routes = run_serve(
+        torch, device)
     say("kernels serve " + json.dumps(lm_launches) + " routes "
-        + json.dumps(lm_routes))
+        + json.dumps(lm_routes) + " flash routes "
+        + json.dumps(flash_routes))
 
     # 8. card against CPU at full width, 2 layers
     record["lm_parity"] = run_lm_parity(torch, device)
@@ -1575,7 +1727,8 @@ def main() -> int:
             "library_ms": r["library_ms"]})
     # one row per LM kernel, at the shape of the serving path it runs at
     # (pim_matmul: decode's on the CUDA cores, prefill's first on the
-    # tensor cores); every shape is in chip_smoke.json
+    # tensor cores; flash_attn: decode's split over the keys, prefill's
+    # tiled); every shape is in chip_smoke.json
     (m, k, n), (pm_, pk, pn) = PIM_SHAPES[0], PIM_SHAPES[2]
     for kernel, row, launched in (
             ("pim_matmul", f"pim_matmul[shift_add,w4] ({m},{k})@({k},{n})",
@@ -1583,7 +1736,8 @@ def main() -> int:
             ("pim_matmul",
              f"pim_matmul[shift_add,w4] ({pm_},{pk})@({pk},{pn})",
              lm_routes["tensor_core"]),
-            ("flash_attn", "flash_attn[decode]", lm_launches["flash_attn"])):
+            ("flash_attn", "flash_attn[decode]", flash_routes["split_kv"]),
+            ("flash_attn", "flash_attn[prefill]", flash_routes["tiled"])):
         r = lm_rows[row]
         table.append({
             "name": row, "route": "cuda", "source": SOURCES[kernel],

@@ -1,6 +1,8 @@
 """Where the port runs: the CUDA card unless the caller asks for the CPU."""
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -27,3 +29,10 @@ def same_device(a, b) -> bool:
     current = torch.cuda.current_device()
     return (a.index if a.index is not None else current) == (
         b.index if b.index is not None else current)
+
+
+@functools.lru_cache(maxsize=8)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of card ``index``: the kernels size their
+    grids and split counts by it."""
+    return torch.cuda.get_device_properties(index).multi_processor_count

@@ -53,7 +53,10 @@ LIBRARIES = {
         (_HERE / "flash_attn" / "csrc" / "flash_attn.cu",),
         {
             "flash_attn_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _I, _I, _F, _I, _P),
+                               _I, _I, _I, _F, _I, _P),
+            "flash_attn_split_kv_splits": (_I, _I, _I, _I, _I, _I, _I),
+            "flash_attn_split_kv": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                    _I, _I, _I, _I, _I, _F, _I, _I, _P),
         },
     ),
 }

@@ -1,40 +1,64 @@
 // Flash-attention forward for Hopper (sm_90a), with a plain C interface
 // loaded through ctypes (repro_torch/kernels/_build.py).
 //
-// flash_attn_fwd — replaces the TPU kernel
-//   src/repro/kernels/flash_attn/flash_attn.py: flash_attention_fwd
-//   -> _kernel.
-// Online-softmax attention on the models' layout: q (B, Sq, KV, G, DH),
-// k/v (B, Sk, KV, DH), pos_q (Sq,), pos_k (B, Sk), out like q. Query head
-// (kv, g) reads kv head kv. Key j is seen by query i iff
-// 0 <= pos_k[j] <= pos_q[i] and (window < 0 or pos_q[i] - pos_k[j] <
-// window); an unseen key scores -1e30 (not -inf), exactly as in the
-// reference, and the output is acc / max(l, 1e-30). All arithmetic is
-// float32; q, k, v and out are bf16 or float32.
+// Both routes replace the TPU kernel
+//   src/repro/kernels/flash_attn/flash_attn.py: flash_attention_fwd (:75)
+//   -> _kernel (:37).
+// Online-softmax attention on the models' layout: q (B, Sq, KV, G, DK),
+// k (B, Sk, KV, DK), v (B, Sk, KV, DV), pos_q (Sq,), pos_k (B, Sk), out
+// (B, Sq, KV, G, DV). Query head (kv, g) reads kv head kv. Key j is seen
+// by query i iff 0 <= pos_k[j] <= pos_q[i] and (window < 0 or pos_q[i] -
+// pos_k[j] < window); an unseen key scores -1e30 (not -inf), exactly as in
+// the reference, so a row that sees no key averages V over all Sk keys; a
+// slot past Sk weighs exactly 0; the output is acc / max(l, 1e-30). All
+// arithmetic is float32; q, k, v and out are bf16 or float32. Any DK and
+// DV in 1..576 (MLA's decode takes 576 / 512).
 //
-// Bound on the card: 4*DH multiply-adds per (query head, seen key) pair
-// and the bytes of q, k, v, the positions and out. At the model's prefill
-// (B 4, KV 8, G 4, Sq = Sk = 128) the work is ~0.5 GFLOP and ~2 MB, so
-// either bound is a few microseconds; at decode (Sq 1, Sk ~144) the bytes
-// of the cache bound it. This first kernel uses the CUDA cores in float32;
-// tensor cores (wgmma) and TMA are later work.
+// The G query heads of one kv head are extra query rows: for a (b, kv)
+// pair, row r is (query r / G, group r % G), so K and V are read once for
+// the whole group. ops.py::route picks the kernel from the row count.
 //
-// Design: the G query heads of one kv head are extra query rows: for a
-// (b, kv) pair, row r is (query r / G, group r % G). A block owns BQ such
-// rows of one (b, kv) and walks every key tile of BK keys: it stages K and
-// V (float32) in shared memory, computes the BQ x BK scores (2 x 4 per
-// thread), updates the running max m and denominator l per row (one warp
-// per row, shuffles across the 32 keys of the tile), then rescales its
-// BQ x DH accumulator (4 rows x DH/16 columns per thread, in registers) and
-// adds P V. Score tiles never leave the SM, as in the Pallas kernel. So
-// decode's Sq = 1 (G rows) and any Sk (the last tile masked) are handled
-// by the same code. The K and V of a kv head are read once per block,
-// shared by its G query heads.
+// flash_tiled_kernel (prefill; many rows). Bound on the card by its bytes
+// at the model's prefill (B 4, KV 8, G 4, Sq = Sk = 128: ~10 MB, 3.1 us);
+// this kernel uses the CUDA cores in float32, tensor cores are later work.
+// A block owns BQ rows of one (b, kv) and walks every key tile of 32
+// keys: it stages K and V (float32) in shared memory, computes the
+// BQ x 32 scores, updates the running max m and denominator l per row
+// (one warp per row, shuffles across the 32 keys of the tile), then
+// rescales its BQ x DVP accumulator (in registers) and adds P V. dk and dv
+// round up to instantiated widths DKP and DVP (16 to 576), so every loop
+// has a compile-time bound; the extra columns of Q and K are zeros, which
+// add 0 to every score, and those of V are never stored. BQ is 64 where
+// shared memory and registers allow (DVP <= 128, DKP <= 256), else 16.
+//
+// flash_split_kernel + flash_merge_kernel (decode; few rows). At decode
+// (Sq = 1) a pair has only G rows, so a tiled block would be mostly
+// padding and the grid a quarter of the card; the bytes of the cache
+// bound it (Qwen3-4B: 2.4 MB, 0.72 us; over 8,192 slots 134 MB, 40.1 us).
+// So the keys are split (flash-decoding): grid (KV, splits, B x row chunks
+// of RB <= 16, one chunk whenever the rows fit). A block owns all rows of
+// its chunk and one contiguous range of key slots, which it streams in
+// tiles of TK <= 64 keys through a three-stage cp.async ring: 16-byte
+// copies where the row sizes and pointers allow (each thread's copies
+// fixed before the loop, so a tile costs a multiply-add per copy; the
+// index arithmetic, not the memory, first bounded the loop), element loads
+// with a zero-filled tail otherwise; Q, K and V stay in their own type.
+// Scores: each warp takes KW keys, its lanes split d (4 columns each), and
+// one butterfly of shuffles reduces the RB x KW partial sums at once (N
+// values in about N shuffles, not 5 N). P V: a thread owns 4 columns of
+// every row for one of KG key groups; the groups are added in order at the
+// end. Each block writes its unnormalised (m, l, acc) to a float32
+// workspace, and flash_merge_kernel merges the splits in split order (no
+// atomics, so the result does not depend on timing) into out.
+// flash_attn_split_kv_splits picks the split count from a cost rule (see
+// there). Nothing here synchronises the host.
 //
 // Every entry takes device pointers, sizes and the caller's stream,
-// launches without synchronising, allocates nothing and returns
-// cudaGetLastError() (or cudaErrorInvalidValue for sizes it refuses).
+// launches without synchronising, allocates nothing (the workspace is the
+// caller's) and returns cudaGetLastError() (or cudaErrorInvalidValue for
+// sizes it refuses).
 
+#include <cstddef>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -43,8 +67,10 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBQ = 64;   // query rows per block
+constexpr int kWarps = kThreads / 32;
 constexpr int kBK = 32;   // keys per tile: one per lane in the softmax
+constexpr int kMaxDim = 576;
+constexpr int kMaxSmem = 232448;   // the opt-in limit of one block
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -56,85 +82,106 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-template <int DH>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (kBQ * (DH + 1) + kBK * (DH + 1) + kBK * DH
-                          + kBQ * (kBK + 1) + 3 * kBQ)
-         + sizeof(int) * (kBQ + kBK);
+// One block may use up to kMaxSmem bytes of dynamic shared memory; set
+// once per kernel instance (a permission, not an allocation).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, bool& configured) {
+  if (configured) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (err == cudaSuccess) configured = true;
+  return err;
 }
 
-template <typename T, int DH>
+// ---------------------------------------------------------------------------
+// The tiled route
+// ---------------------------------------------------------------------------
+
+namespace tiled {
+
+template <int BQ, int DKP, int DVP>
+constexpr size_t smem_bytes() {
+  return sizeof(float) * (BQ * (DKP + 1) + kBK * (DKP + 1) + kBK * DVP
+                          + BQ * (kBK + 1) + 3 * BQ)
+         + sizeof(int) * (BQ + kBK);
+}
+
+template <typename T, int BQ, int DKP, int DVP>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const int* __restrict__ pos_q,
-                 const int* __restrict__ pos_k, T* __restrict__ out,
-                 int sq, int sk, int kv_heads, int g, int window,
-                 float scale) {
-  static_assert(DH % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int DJ = DH / 16;       // accumulator columns per thread
+flash_tiled_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const int* __restrict__ pos_q,
+                   const int* __restrict__ pos_k, T* __restrict__ out,
+                   int sq, int sk, int kv_heads, int g, int dk, int dv,
+                   int window, float scale) {
+  static_assert(DVP % 16 == 0 && DKP >= DVP, "widths: 16s, DKP >= DVP");
+  static_assert(BQ == 16 || BQ == 32 || BQ == 64, "BQ is 16, 32 or 64");
+  constexpr int DJ = DVP / 16;      // accumulator columns per thread
+  constexpr int AR = BQ / 16;       // accumulator rows per thread
+  constexpr int SC = BQ >= 32 ? 4 : 2;    // score keys per thread
+  constexpr int SR = BQ / 8 / SC;         // score rows per thread
+  constexpr int KT = kBK / SC;            // threads along the keys
+  constexpr int DKS = DKP + 1;            // padded row stride
   extern __shared__ float smem[];
-  float* qs = smem;                           // [kBQ][DH + 1]
-  float* ks = qs + kBQ * (DH + 1);            // [kBK][DH + 1]
-  float* vs = ks + kBK * (DH + 1);            // [kBK][DH]
-  float* ps = vs + kBK * DH;                  // [kBQ][kBK + 1]
-  float* m_s = ps + kBQ * (kBK + 1);          // [kBQ]
-  float* l_s = m_s + kBQ;                     // [kBQ]
-  float* corr_s = l_s + kBQ;                  // [kBQ]
-  int* pq_s = reinterpret_cast<int*>(corr_s + kBQ);  // [kBQ]
-  int* pk_s = pq_s + kBQ;                            // [kBK]
+  float* qs = smem;                           // [BQ][DKP + 1]
+  float* ks = qs + BQ * DKS;                  // [kBK][DKP + 1]
+  float* vs = ks + kBK * DKS;                 // [kBK][DVP]
+  float* ps = vs + kBK * DVP;                 // [BQ][kBK + 1]
+  float* m_s = ps + BQ * (kBK + 1);           // [BQ]
+  float* l_s = m_s + BQ;                      // [BQ]
+  float* corr_s = l_s + BQ;                   // [BQ]
+  int* pq_s = reinterpret_cast<int*>(corr_s + BQ);   // [BQ]
+  int* pk_s = pq_s + BQ;                             // [kBK]
 
   const int tid = threadIdx.x;
   const int lane = tid % 32, warp = tid / 32;
   const int bh = blockIdx.y;                  // b * kv_heads + kv
   const int b = bh / kv_heads, kvh = bh % kv_heads;
   const int rows = sq * g;
-  const int row0 = blockIdx.x * kBQ;
+  const int row0 = blockIdx.x * BQ;
 
-  // query rows: (b, s, kvh, gi, :) at (((b*sq + s)*KV + kvh)*G + gi)*DH
-  for (int i = tid; i < kBQ * DH; i += kThreads) {
-    const int r = i / DH, d = i % DH;
+  // query rows: (b, s, kvh, gi, :) at (((b*sq + s)*KV + kvh)*G + gi)*dk;
+  // columns past dk are zeros, so they add 0 to every score
+  for (int i = tid; i < BQ * DKP; i += kThreads) {
+    const int r = i / DKP, d = i % DKP;
     const int gr = row0 + r;
     float val = 0.f;
-    if (gr < rows) {
+    if (gr < rows && d < dk) {
       const int s = gr / g, gi = gr % g;
       const long long off =
           ((static_cast<long long>(b) * sq + s) * kv_heads + kvh) * g + gi;
-      val = to_f32(q[off * DH + d]);
+      val = to_f32(q[off * dk + d]);
     }
-    qs[r * (DH + 1) + d] = val;
+    qs[r * DKS + d] = val;
   }
-  if (tid < kBQ) {
+  if (tid < BQ) {
     const int gr = row0 + tid;
     pq_s[tid] = gr < rows ? pos_q[gr / g] : -1;
     m_s[tid] = kNegInf;
     l_s[tid] = 0.f;
   }
 
-  // score microtile: rows sr0 + {0, 1}, keys sc0 + 8 * {0..3}
-  const int sr0 = (tid / 8) * 2, sc0 = tid % 8;
-  // accumulator: rows ar0 + {0..3}, columns ad0 + 16 * {0..DJ-1}
-  const int ar0 = (tid / 16) * 4, ad0 = tid % 16;
-  float acc[4][DJ];
+  // score microtile: rows sr0 + {0..SR-1}, keys sc0 + KT * {0..SC-1}
+  const int sr0 = (tid / KT) * SR, sc0 = tid % KT;
+  // accumulator: rows ar0 + {0..AR-1}, columns ad0 + 16 * {0..DJ-1}
+  const int ar0 = (tid / 16) * AR, ad0 = tid % 16;
+  float acc[AR][DJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < AR; ++i)
 #pragma unroll
     for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
 
   for (int kt = 0; kt < sk; kt += kBK) {
     __syncthreads();   // the previous tile's K, V and P are consumed
-    for (int i = tid; i < kBK * DH; i += kThreads) {
-      const int c = i / DH, d = i % DH;
+    // K and V of the tile; zeros past sk, past dk and past dv (those
+    // columns are computed and never stored)
+    for (int i = tid; i < kBK * DKP; i += kThreads) {
+      const int c = i / DKP, d = i % DKP;
       const int key = kt + c;
-      float kv_k = 0.f, kv_v = 0.f;
-      if (key < sk) {
-        const long long off =
-            ((static_cast<long long>(b) * sk + key) * kv_heads + kvh) * DH
-            + d;
-        kv_k = to_f32(k[off]);
-        kv_v = to_f32(v[off]);
-      }
-      ks[c * (DH + 1) + d] = kv_k;
-      vs[c * DH + d] = kv_v;
+      const long long row =
+          (static_cast<long long>(b) * sk + key) * kv_heads + kvh;
+      ks[c * DKS + d] = key < sk && d < dk ? to_f32(k[row * dk + d]) : 0.f;
+      if (d < DVP)
+        vs[c * DVP + d] = key < sk && d < dv ? to_f32(v[row * dv + d]) : 0.f;
     }
     if (tid < kBK) {
       const int key = kt + tid;
@@ -145,29 +192,30 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // S = Q K^T * scale, masked
     {
-      float s[2][4];
+      float s[SR][SC];
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+      for (int i = 0; i < SR; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+        for (int j = 0; j < SC; ++j) s[i][j] = 0.f;
 #pragma unroll 8
-      for (int d = 0; d < DH; ++d) {
-        const float q0 = qs[sr0 * (DH + 1) + d];
-        const float q1 = qs[(sr0 + 1) * (DH + 1) + d];
+      for (int d = 0; d < DKP; ++d) {
+        float qv[SR];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float kk = ks[(sc0 + 8 * j) * (DH + 1) + d];
-          s[0][j] = fmaf(q0, kk, s[0][j]);
-          s[1][j] = fmaf(q1, kk, s[1][j]);
+        for (int i = 0; i < SR; ++i) qv[i] = qs[(sr0 + i) * DKS + d];
+#pragma unroll
+        for (int j = 0; j < SC; ++j) {
+          const float kk = ks[(sc0 + KT * j) * DKS + d];
+#pragma unroll
+          for (int i = 0; i < SR; ++i) s[i][j] = fmaf(qv[i], kk, s[i][j]);
         }
       }
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
+      for (int i = 0; i < SR; ++i) {
         const int r = sr0 + i;
         const int pq = pq_s[r];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int c = sc0 + 8 * j;
+        for (int j = 0; j < SC; ++j) {
+          const int c = sc0 + KT * j;
           float val;
           if (kt + c >= sk) {
             val = -CUDART_INF_F;          // no such key: weight exactly 0
@@ -184,7 +232,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
 
     // online softmax: warp w takes rows w, w + 8, ...; lane = key
-    for (int r = warp; r < kBQ; r += kThreads / 32) {
+    for (int r = warp; r < BQ; r += kWarps) {
       const float sv = ps[r * (kBK + 1) + lane];
       float mx = sv;
 #pragma unroll
@@ -210,7 +258,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // acc = acc * corr + P V
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < AR; ++i) {
       const int r = ar0 + i;
       float pv[DJ];
 #pragma unroll
@@ -220,7 +268,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float p = ps[r * (kBK + 1) + c];
 #pragma unroll
         for (int j = 0; j < DJ; ++j)
-          pv[j] = fmaf(p, vs[c * DH + ad0 + 16 * j], pv[j]);
+          pv[j] = fmaf(p, vs[c * DVP + ad0 + 16 * j], pv[j]);
       }
       const float corr = corr_s[r];
 #pragma unroll
@@ -230,82 +278,682 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < AR; ++i) {
     const int r = ar0 + i;
     const int gr = row0 + r;
     if (gr >= rows) continue;
     const int s = gr / g, gi = gr % g;
     const long long off =
         (((static_cast<long long>(b) * sq + s) * kv_heads + kvh) * g + gi)
-        * DH;
+        * dv;
     const float denom = fmaxf(l_s[r], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < DJ; ++j)
-      store(out + off + ad0 + 16 * j, acc[i][j] / denom);
+    for (int j = 0; j < DJ; ++j) {
+      const int d = ad0 + 16 * j;
+      if (d < dv) store(out + off + d, acc[i][j] / denom);
+    }
   }
 }
 
-template <typename T, int DH>
-int launch(const void* q, const void* k, const void* v, const void* pos_q,
-           const void* pos_k, void* out, int b, int sq, int sk,
-           int kv_heads, int g, int window, float scale,
-           cudaStream_t stream) {
-  constexpr size_t bytes = smem_bytes<DH>();
-  static bool configured = false;   // one attribute call per instantiation
-  if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    configured = true;
-  }
-  dim3 grid((sq * g + kBQ - 1) / kBQ, b * kv_heads);
-  flash_fwd_kernel<T, DH><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(pos_q),
-      static_cast<const int*>(pos_k), static_cast<T*>(out), sq, sk, kv_heads,
-      g, window, scale);
+// The operands and sizes of one call.
+struct Call {
+  const void *q, *k, *v, *pos_q, *pos_k;
+  void* out;
+  int b, sq, sk, kv_heads, g, dk, dv, window;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, int BQ, int DKP, int DVP>
+int launch(const Call& a) {
+  constexpr size_t bytes = smem_bytes<BQ, DKP, DVP>();
+  static_assert(bytes <= static_cast<size_t>(kMaxSmem), "shared memory");
+  static bool configured = false;
+  cudaError_t err = allow_smem(flash_tiled_kernel<T, BQ, DKP, DVP>,
+                               configured);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((a.sq * a.g + BQ - 1) / BQ, a.b * a.kv_heads);
+  flash_tiled_kernel<T, BQ, DKP, DVP><<<grid, kThreads, bytes, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const int*>(a.pos_q),
+      static_cast<const int*>(a.pos_k), static_cast<T*>(a.out), a.sq, a.sk,
+      a.kv_heads, a.g, a.dk, a.dv, a.window, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_dh(int dh, const void* q, const void* k, const void* v,
-              const void* pos_q, const void* pos_k, void* out, int b, int sq,
-              int sk, int kv_heads, int g, int window, float scale,
-              cudaStream_t stream) {
-  switch (dh) {
-    case 16: return launch<T, 16>(q, k, v, pos_q, pos_k, out, b, sq, sk,
-                                  kv_heads, g, window, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, pos_q, pos_k, out, b, sq, sk,
-                                  kv_heads, g, window, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, pos_q, pos_k, out, b, sq, sk,
-                                  kv_heads, g, window, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, pos_q, pos_k, out, b, sq, sk,
-                                    kv_heads, g, window, scale, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+// The instantiated widths, the repo's head sizes among them (192: MLA's
+// prefill keys); a head size rounds up to the next one.
+constexpr int kWidths[] = {16, 32, 64, 128, 192, 256, kMaxDim};
+constexpr int kNumWidths = sizeof(kWidths) / sizeof(kWidths[0]);
+
+// DVP = kWidths[J] rises to the least width >= dv, then DKP = kWidths[I]
+// (never below DVP, so one loop stages K and V) to the least >= dk. BQ is
+// 64 where shared memory and registers allow, else 16.
+template <typename T, int I, int J>
+int launch_widths(const Call& a) {
+  constexpr int DKP = kWidths[I], DVP = kWidths[J];
+  if constexpr (J + 1 < kNumWidths) {
+    if (a.dv > DVP) return launch_widths<T, (I > J + 1 ? I : J + 1), J + 1>(a);
   }
+  if constexpr (I + 1 < kNumWidths) {
+    if (a.dk > DKP) return launch_widths<T, I + 1, J>(a);
+  }
+  return launch<T, (DKP <= 256 && DVP <= 128 ? 64 : 16), DKP, DVP>(a);
+}
+
+}  // namespace tiled
+
+// ---------------------------------------------------------------------------
+// The split-over-keys route
+// ---------------------------------------------------------------------------
+
+namespace split {
+
+constexpr int kSmemTarget = 112 * 1024;   // two blocks per SM
+constexpr int kStages = 3;                // tiles in the cp.async ring
+constexpr int kTK = 64;                   // most keys per tile: two a lane
+constexpr int kMaxSplits = 1024;
+constexpr int kMergeThreads = 128;
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared; src-size 0 fills the 16 bytes with zeros
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+// 4 bytes from global to shared (a key position), zero when not valid
+__device__ __forceinline__ void cp_async4(unsigned dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// four neighbouring elements from shared memory, as float32
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 c = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, c.x, c.y);
+}
+
+// Sums N values over the 32 lanes of a warp in about N shuffles: at each
+// of the five xor offsets a lane sends the half of its values that its
+// partner keeps and keeps the other half. Afterwards a lane holds in v[0
+// .. N/32) the sums of values lane * N/32 + j when N >= 32, and in v[0]
+// the sum of value lane >> (5 - log2 N) when N < 32.
+template <int N, int O>
+__device__ __forceinline__ void butterfly(float* v, int lane) {
+  if constexpr (O > 0) {
+    if constexpr (N > 1) {
+      const bool upper = lane & O;
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) {
+        const float send = upper ? v[i] : v[i + N / 2];
+        const float keep = upper ? v[i + N / 2] : v[i];
+        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+      }
+      butterfly<N / 2, O / 2>(v, lane);
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], O);
+      butterfly<1, O / 2>(v, lane);
+    }
+  }
+}
+
+__host__ __device__ constexpr int log2i(int n) {
+  return n <= 1 ? 0 : 1 + log2i(n / 2);
+}
+
+// Sizes of one block, the same for the split rule and the launch.
+struct Geometry {
+  int rb;      // rows per block: 4, 8 or 16
+  int tk;      // keys per tile: 64, 32, 16 or 8, as shared memory allows
+  int dkp;     // dk and dv rounded up to 4 (shared-memory row lengths)
+  int dvp;
+  int nqp;     // threads per key group: column quads rounded up to 2^n
+  size_t ring_offset;   // bytes before the K/V ring
+  size_t smem;          // bytes of dynamic shared memory
+};
+
+inline Geometry geometry(int rows, int dk, int dv, size_t elem) {
+  Geometry geo;
+  geo.rb = rows <= 4 ? 4 : (rows <= 8 ? 8 : 16);
+  geo.dkp = (dk + 3) / 4 * 4;
+  geo.dvp = (dv + 3) / 4 * 4;
+  geo.nqp = 1;
+  while (geo.nqp < geo.dvp / 4) geo.nqp *= 2;
+  const size_t q_bytes = (elem * geo.rb * geo.dkp + 15) / 16 * 16;
+  const size_t head = q_bytes
+                      + sizeof(float) * (geo.rb * (kTK + 1) + 3 * geo.rb)
+                      + sizeof(int) * (geo.rb + kStages * kTK);
+  geo.ring_offset = (head + 15) / 16 * 16;
+  const size_t red = sizeof(float) * (kThreads / geo.nqp) * geo.rb * geo.dvp;
+  for (geo.tk = kTK; ; geo.tk /= 2) {
+    const size_t ring = kStages * elem * geo.tk * (geo.dkp + geo.dvp);
+    geo.smem = geo.ring_offset + (ring > red ? ring : red);
+    if (geo.smem <= static_cast<size_t>(kSmemTarget) || geo.tk == 8) break;
+  }
+  return geo;
+}
+
+// One block: kv head blockIdx.x of batch row blockIdx.z / chunks, its rows
+// RB * (blockIdx.z % chunks) .. + RB - 1, against the key slots
+// [blockIdx.y * keys_per_split, + keys_per_split), into the workspace: acc
+// (splits, pairs, rows, dv) then (m, l) (splits, pairs, rows, 2), float32,
+// unnormalised. The kv heads vary fastest, so the blocks that run together
+// read neighbouring slices of the same cache rows.
+template <typename T, int RB>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const int* __restrict__ pos_q,
+                   const int* __restrict__ pos_k, float* __restrict__ ws,
+                   int sq, int sk, int kv_heads, int g, int dk, int dv,
+                   int dkp, int dvp, int tk, int nqp, int ring_offset,
+                   int keys_per_split, int vec, int window, float scale) {
+  constexpr int KW = RB <= 8 ? 4 : 2;      // keys per warp and pass
+  constexpr int N = RB * KW;               // partial sums per lane
+  constexpr int PER = N >= 32 ? N / 32 : 1;
+  constexpr int SHIFT = N >= 32 ? 0 : 5 - log2i(N);
+  static_assert((N & (N - 1)) == 0 && N >= 16 && N <= 64, "butterfly size");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);           // [RB][dkp]
+  float* ss = reinterpret_cast<float*>(             // [RB][kTK + 1]
+      smem_raw + (sizeof(T) * RB * dkp + 15) / 16 * 16);
+  float* m_s = ss + RB * (kTK + 1);                 // [RB]
+  float* l_s = m_s + RB;                            // [RB]
+  float* corr_s = l_s + RB;                         // [RB]
+  int* pq_s = reinterpret_cast<int*>(corr_s + RB);  // [RB]
+  int* pk_s = pq_s + RB;                            // [kStages][kTK]
+  T* ring = reinterpret_cast<T*>(smem_raw + ring_offset);
+  const int stage_elems = tk * (dkp + dvp);         // K [tk][dkp], V [tk][dvp]
+  float* red = reinterpret_cast<float*>(ring);      // after the loop
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
+  const int rows = sq * g, chunks = (rows + RB - 1) / RB;
+  const int kvh = blockIdx.x, split = blockIdx.y, splits = gridDim.y;
+  const int b = blockIdx.z / chunks;
+  const int row0 = (blockIdx.z % chunks) * RB;
+  const int bh = b * kv_heads + kvh;
+  const int pairs = gridDim.z / chunks * kv_heads;
+  const int key0 = split * keys_per_split;
+  const int key1 = min(sk, key0 + keys_per_split);
+  const long long kv_row0 = static_cast<long long>(b) * sk;   // slot 0
+
+  // query row r: (b, s, kvh, gi, :) for row0 + r = s * G + gi; zeros past
+  // the rows and past dk
+  auto q_off = [&](int r) {
+    const int gr = min(row0 + r, rows - 1);
+    return (((static_cast<long long>(b) * sq + gr / g) * kv_heads + kvh) * g
+            + gr % g) * dk;
+  };
+  constexpr int E = 16 / sizeof(T);   // elements per 16-byte copy
+  if (vec) {
+    const int qc = dk / E;
+    for (int i = tid; i < RB * qc; i += kThreads) {
+      const int r = i / qc, e = (i % qc) * E;
+      cp_async16(smem_u32(qs + r * dkp + e), q + q_off(r) + e,
+                 row0 + r < rows);
+    }
+  } else {
+    for (int i = tid; i < RB * dkp; i += kThreads) {
+      const int r = i / dkp, d = i % dkp;
+      store(qs + i, row0 + r < rows && d < dk ? to_f32(q[q_off(r) + d])
+                                              : 0.f);
+    }
+  }
+  if (tid < RB) {
+    const int gr = row0 + tid;
+    pq_s[tid] = gr < rows ? pos_q[gr / g] : -1;
+    m_s[tid] = kNegInf;
+    l_s[tid] = 0.f;
+  }
+
+  // A thread's 16-byte copies, the same in every tile: K chunk e_k of the
+  // tile's rows c_k, c_k + k_step, ... and V chunk e_v of rows c_v, ...
+  // (threads past the last whole row copy nothing), so a tile costs a
+  // multiply-add per copy and no division.
+  const int kc = vec ? dk / E : 1, vc = vec ? dv / E : 1;
+  const int k_step = kThreads / kc, v_step = kThreads / vc;
+  const int c_k = tid < k_step * kc ? tid / kc : kTK;
+  const int c_v = tid < v_step * vc ? tid / vc : kTK;
+  const int e_k = tid % kc * E, e_v = tid % vc * E;
+  const long long head0 = kv_row0 * kv_heads + kvh;   // row of slot 0
+  const T* k_src = k + head0 * dk + e_k;
+  const T* v_src = v + head0 * dv + e_v;
+  const long long k_stride = static_cast<long long>(kv_heads) * dk;
+  const long long v_stride = static_cast<long long>(kv_heads) * dv;
+
+  // Stage the keys t0 .. t0 + tk - 1 (zeros from key1 on) and their
+  // positions, all asynchronously (with Q in the first group): a plain
+  // load here would stall the block for a memory latency per tile.
+  auto load_tile = [&](int t0, int stage) {
+    T* ks = ring + stage * stage_elems;
+    T* vs = ks + tk * dkp;
+    if (vec) {
+      for (int c = c_k; c < tk; c += k_step) {
+        const int key = t0 + c;
+        const bool valid = key < key1;
+        cp_async16(smem_u32(ks + c * dkp + e_k),
+                   k_src + (valid ? key : key0) * k_stride, valid);
+      }
+      for (int c = c_v; c < tk; c += v_step) {
+        const int key = t0 + c;
+        const bool valid = key < key1;
+        cp_async16(smem_u32(vs + c * dvp + e_v),
+                   v_src + (valid ? key : key0) * v_stride, valid);
+      }
+    } else {
+      for (int i = tid; i < tk * (dkp + dvp); i += kThreads) {
+        const bool is_k = i < tk * dkp;
+        const int j = is_k ? i : i - tk * dkp;
+        const int width = is_k ? dkp : dvp;
+        const int c = j / width, e = j % width;
+        const int key = t0 + c;
+        float val = 0.f;
+        if (key < key1 && e < (is_k ? dk : dv)) {
+          const long long row = (kv_row0 + key) * kv_heads + kvh;
+          val = to_f32(is_k ? k[row * dk + e] : v[row * dv + e]);
+        }
+        store((is_k ? ks : vs) + c * width + e, val);
+      }
+    }
+    if (tid < tk) {    // past key1 a zero, never read: those keys are -inf
+      const int key = t0 + tid;
+      const bool valid = key < key1;
+      cp_async4(smem_u32(pk_s + stage * kTK + tid),
+                pos_k + kv_row0 + (valid ? key : key0), valid);
+    }
+  };
+
+  const int qd_count = dkp / 4;
+  const int nq = dvp / 4;                       // column quads
+  const int kg = tid / nqp, groups = kThreads / nqp;
+  const int quad = tid % nqp;
+  float acc[RB][4];
+#pragma unroll
+  for (int r = 0; r < RB; ++r)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[r][e] = 0.f;
+
+  const int tiles = key1 > key0 ? (key1 - key0 + tk - 1) / tk : 0;
+#pragma unroll
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < tiles) load_tile(key0 + t * tk, t);
+    cp_async_commit();
+  }
+  for (int t = 0; t < tiles; ++t) {
+    const int stage = t % kStages;
+    const int t0 = key0 + t * tk;
+    const int n = min(tk, key1 - t0);           // real keys in the tile
+    cp_async_wait<kStages - 2>();
+    // tile t has landed for every thread; tile t - 1's stage and scores
+    // are consumed, so its stage takes tile t + kStages - 1
+    __syncthreads();
+    if (t + kStages - 1 < tiles)
+      load_tile(t0 + (kStages - 1) * tk, (t + kStages - 1) % kStages);
+    cp_async_commit();
+    const T* ks = ring + stage * stage_elems;
+    const T* vs = ks + tk * dkp;
+    const int* pk = pk_s + stage * kTK;
+
+    // S = Q K^T * scale, masked: warp w takes keys w*KW + 8*KW*pass + kk
+    for (int c0 = warp * KW; c0 < tk; c0 += kWarps * KW) {
+      float s[N];
+#pragma unroll
+      for (int i = 0; i < N; ++i) s[i] = 0.f;
+      for (int qd = lane; qd < qd_count; qd += 32) {
+        float4 kq[KW];
+#pragma unroll
+        for (int kk = 0; kk < KW; ++kk)
+          kq[kk] = load4(ks + (c0 + kk) * dkp + 4 * qd);
+#pragma unroll
+        for (int r = 0; r < RB; ++r) {
+          const float4 qv = load4(qs + r * dkp + 4 * qd);
+#pragma unroll
+          for (int kk = 0; kk < KW; ++kk) {
+            float a = s[r * KW + kk];
+            a = fmaf(qv.x, kq[kk].x, a);
+            a = fmaf(qv.y, kq[kk].y, a);
+            a = fmaf(qv.z, kq[kk].z, a);
+            a = fmaf(qv.w, kq[kk].w, a);
+            s[r * KW + kk] = a;
+          }
+        }
+      }
+      butterfly<N, 16>(s, lane);
+      if (N >= 32 || (lane & ((1 << SHIFT) - 1)) == 0) {
+#pragma unroll
+        for (int j = 0; j < PER; ++j) {
+          const int idx = N >= 32 ? lane * PER + j : lane >> SHIFT;
+          const int r = idx / KW, c = c0 + idx % KW;
+          float val;
+          if (c >= n) {
+            val = -CUDART_INF_F;          // no such key: weight exactly 0
+          } else {
+            const int pq = pq_s[r], pkc = pk[c];
+            bool ok = pkc >= 0 && pkc <= pq;
+            if (window >= 0) ok = ok && (pq - pkc) < window;
+            val = ok ? s[j] * scale : kNegInf;
+          }
+          ss[r * (kTK + 1) + c] = val;
+        }
+      }
+    }
+    __syncthreads();
+
+    // online softmax: warp w takes rows w, w + 8; lane keys lane, lane + 32
+    for (int r = warp; r < RB; r += kWarps) {
+      float* sr = ss + r * (kTK + 1);
+      const float s0 = lane < n ? sr[lane] : -CUDART_INF_F;
+      const float s1 = lane + 32 < n ? sr[lane + 32] : -CUDART_INF_F;
+      float mx = fmaxf(s0, s1);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_prev = m_s[r];
+      const float m_new = fmaxf(m_prev, mx);
+      const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
+      float sum = p0 + p1;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      sr[lane] = p0;
+      if (lane + 32 < tk) sr[lane + 32] = p1;
+      __syncwarp();
+      if (lane == 0) {
+        const float corr = expf(m_prev - m_new);
+        l_s[r] = l_s[r] * corr + sum;
+        m_s[r] = m_new;
+        corr_s[r] = corr;
+      }
+    }
+    __syncthreads();
+
+    // acc = acc * corr + P V over this thread's key group
+    if (quad < nq) {
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        const float corr = corr_s[r];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[r][e] *= corr;
+      }
+      for (int c = kg; c < n; c += groups) {
+        const float4 vq = load4(vs + c * dvp + 4 * quad);
+#pragma unroll
+        for (int r = 0; r < RB; ++r) {
+          const float p = ss[r * (kTK + 1) + c];
+          acc[r][0] = fmaf(p, vq.x, acc[r][0]);
+          acc[r][1] = fmaf(p, vq.y, acc[r][1]);
+          acc[r][2] = fmaf(p, vq.z, acc[r][2]);
+          acc[r][3] = fmaf(p, vq.w, acc[r][3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // the key groups' sums, added in group order
+  if (quad < nq) {
+#pragma unroll
+    for (int r = 0; r < RB; ++r)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        red[(kg * RB + r) * dvp + 4 * quad + e] = acc[r][e];
+  }
+  __syncthreads();
+  const int nrows = min(RB, rows - row0);
+  const long long ws_row0 =
+      (static_cast<long long>(split) * pairs + bh) * rows + row0;
+  for (int i = tid; i < nrows * dv; i += kThreads) {
+    const int r = i / dv, d = i % dv;
+    float sum = 0.f;
+    for (int grp = 0; grp < groups; ++grp)
+      sum += red[(grp * RB + r) * dvp + d];
+    ws[(ws_row0 + r) * dv + d] = sum;
+  }
+  if (tid < nrows) {
+    float* ml = ws + static_cast<long long>(splits) * pairs * rows * dv;
+    ml[(ws_row0 + tid) * 2] = m_s[tid];
+    ml[(ws_row0 + tid) * 2 + 1] = l_s[tid];
+  }
+}
+
+// out = sum_s acc_s e^(m_s - M) / max(sum_s l_s e^(m_s - M), 1e-30),
+// M = max_s m_s, the splits taken in order. Block (row of a pair, chunk of
+// kMergeThreads columns): the weights e^(m_s - M) and l_s go to shared
+// memory once, then a thread adds its column's splits in order, its loads
+// independent of each other.
+template <typename T>
+__global__ void __launch_bounds__(kMergeThreads)
+flash_merge_kernel(const float* __restrict__ ws, T* __restrict__ out,
+                   int splits, int pairs, int rows, int dv, int sq,
+                   int kv_heads, int g) {
+  extern __shared__ float wl[];                 // [2][splits]: w_s, l_s
+  __shared__ float top[kMergeThreads / 32];
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int pr = blockIdx.x;                    // bh * rows + r
+  const long long stride = static_cast<long long>(pairs) * rows;
+  const float* ml = ws + splits * stride * dv;
+  float m = kNegInf;
+  for (int s = tid; s < splits; s += kMergeThreads) {
+    const float ms = ml[(s * stride + pr) * 2];
+    wl[s] = ms;
+    wl[splits + s] = ml[(s * stride + pr) * 2 + 1];
+    m = fmaxf(m, ms);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  if (lane == 0) top[tid / 32] = m;
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < kMergeThreads / 32; ++w) m = fmaxf(m, top[w]);
+  for (int s = tid; s < splits; s += kMergeThreads)
+    wl[s] = expf(wl[s] - m);
+  __syncthreads();
+  const int d = blockIdx.y * kMergeThreads + tid;
+  if (d >= dv) return;
+  const float* src = ws + static_cast<long long>(pr) * dv + d;
+  float l = 0.f, acc = 0.f;
+#pragma unroll 8
+  for (int s = 0; s < splits; ++s) {
+    const float w = wl[s];
+    l = fmaf(wl[splits + s], w, l);
+    acc = fmaf(src[s * stride * dv], w, acc);
+  }
+  const int r = pr % rows, bh = pr / rows;
+  const int b = bh / kv_heads, kvh = bh % kv_heads;
+  const int s_q = r / g, gi = r % g;
+  const long long off =
+      (((static_cast<long long>(b) * sq + s_q) * kv_heads + kvh) * g + gi)
+      * dv + d;
+  store(out + off, acc / fmaxf(l, 1e-30f));
+}
+
+template <typename T, int RB>
+cudaError_t configure(const Geometry& geo, int* blocks_per_sm) {
+  static bool configured = false;
+  cudaError_t err = allow_smem(flash_split_kernel<T, RB>, configured);
+  if (err != cudaSuccess || blocks_per_sm == nullptr) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, flash_split_kernel<T, RB>, kThreads, geo.smem);
+}
+
+template <typename T>
+cudaError_t configure_rb(const Geometry& geo, int* blocks_per_sm) {
+  if (geo.rb == 4) return configure<T, 4>(geo, blocks_per_sm);
+  if (geo.rb == 8) return configure<T, 8>(geo, blocks_per_sm);
+  return configure<T, 16>(geo, blocks_per_sm);
+}
+
+template <typename T, int RB>
+void launch_split(const Geometry& geo, dim3 grid, const void* q,
+                  const void* k, const void* v, const void* pos_q,
+                  const void* pos_k, float* ws, int sq, int sk,
+                  int kv_heads, int g, int dk, int dv, int keys_per_split,
+                  int vec, int window, float scale, cudaStream_t stream) {
+  flash_split_kernel<T, RB><<<grid, kThreads, geo.smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const int*>(pos_q),
+      static_cast<const int*>(pos_k), ws, sq, sk, kv_heads, g, dk, dv,
+      geo.dkp, geo.dvp, geo.tk, geo.nqp, static_cast<int>(geo.ring_offset),
+      keys_per_split, vec, window, scale);
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, const void* pos_q,
+           const void* pos_k, void* out, void* workspace, int b, int sq,
+           int sk, int kv_heads, int g, int dk, int dv, int window,
+           float scale, int splits, cudaStream_t stream) {
+  const int rows = sq * g, pairs = b * kv_heads;
+  const Geometry geo = geometry(rows, dk, dv, sizeof(T));
+  cudaError_t err = configure_rb<T>(geo, nullptr);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (sk + geo.tk - 1) / geo.tk;
+  const int keys_per_split = (tiles + splits - 1) / splits * geo.tk;
+  const int chunks = (rows + geo.rb - 1) / geo.rb;
+  const int vec = (dk * sizeof(T)) % 16 == 0 && (dv * sizeof(T)) % 16 == 0
+                  && reinterpret_cast<uintptr_t>(q) % 16 == 0
+                  && reinterpret_cast<uintptr_t>(k) % 16 == 0
+                  && reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  float* ws = static_cast<float*>(workspace);
+  dim3 grid(kv_heads, splits, b * chunks);
+  if (geo.rb == 4)
+    launch_split<T, 4>(geo, grid, q, k, v, pos_q, pos_k, ws, sq, sk,
+                       kv_heads, g, dk, dv, keys_per_split, vec, window,
+                       scale, stream);
+  else if (geo.rb == 8)
+    launch_split<T, 8>(geo, grid, q, k, v, pos_q, pos_k, ws, sq, sk,
+                       kv_heads, g, dk, dv, keys_per_split, vec, window,
+                       scale, stream);
+  else
+    launch_split<T, 16>(geo, grid, q, k, v, pos_q, pos_k, ws, sq, sk,
+                        kv_heads, g, dk, dv, keys_per_split, vec, window,
+                        scale, stream);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 merge_grid(pairs * rows, (dv + kMergeThreads - 1) / kMergeThreads);
+  flash_merge_kernel<T><<<merge_grid, kMergeThreads,
+                          2 * sizeof(float) * splits, stream>>>(
+      ws, static_cast<T*>(out), splits, pairs, rows, dv, sq, kv_heads, g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace split
+
+bool dims_ok(int b, int sq, int sk, int kv_heads, int g, int dk, int dv) {
+  return b > 0 && sq > 0 && sk > 0 && kv_heads > 0 && g > 0 && dk > 0
+         && dv > 0 && dk <= kMaxDim && dv <= kMaxDim
+         && static_cast<long long>(b) * kv_heads <= 65535
+         && static_cast<long long>(sq) * g <= 2147483647;
 }
 
 }  // namespace
 
 extern "C" {
 
-// q (b, sq, kv_heads, g, dh), k/v (b, sk, kv_heads, dh), pos_q (sq,) and
-// pos_k (b, sk) int32, out like q. window < 0: none. bf16: the tensors are
-// bf16 (else float32). dh in {16, 32, 64, 128}.
+// The tiled route. q (b, sq, kv_heads, g, dk), k (b, sk, kv_heads, dk), v
+// (b, sk, kv_heads, dv), pos_q (sq,) and pos_k (b, sk) int32, out (b, sq,
+// kv_heads, g, dv). window < 0: none. bf16: the tensors are bf16 (else
+// float32). 1 <= dk, dv <= 576.
 int flash_attn_fwd(const void* q, const void* k, const void* v,
                    const void* pos_q, const void* pos_k, void* out, int b,
-                   int sq, int sk, int kv_heads, int g, int dh, int window,
-                   float scale, int bf16, void* stream) {
-  if (b <= 0 || sq <= 0 || sk <= 0 || kv_heads <= 0 || g <= 0
-      || static_cast<long long>(b) * kv_heads > 65535)
+                   int sq, int sk, int kv_heads, int g, int dk, int dv,
+                   int window, float scale, int bf16, void* stream) {
+  if (!dims_ok(b, sq, sk, kv_heads, g, dk, dv))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const tiled::Call call{q, k, v, pos_q, pos_k, out, b, sq, sk, kv_heads,
+                         g, dk, dv, window, scale,
+                         static_cast<cudaStream_t>(stream)};
+  return bf16 ? tiled::launch_widths<__nv_bfloat16, 0, 0>(call)
+              : tiled::launch_widths<float, 0, 0>(call);
+}
+
+// How many key splits the split route uses for these sizes: the count
+// that minimises an estimate of its time, ceil(blocks / (SMs x blocks per
+// SM)) x key tiles per split (a slow SM's share of the waves, in units of
+// one block's pass over one tile), plus the workspace's bytes (each split
+// written and read once, the output written once) over what the card
+// moves in one such unit (every resident block's tile). Each split gets at
+// least one tile and none is empty. The caller gives a workspace of
+// splits * pairs * rows * (dv + 2) floats. Returns 0 for sizes it refuses.
+int flash_attn_split_kv_splits(int pairs, int rows, int sk, int dk, int dv,
+                               int bf16, int sm_count) {
+  if (pairs <= 0 || pairs > 65535 || rows <= 0 || sk <= 0 || dk <= 0
+      || dv <= 0 || dk > kMaxDim || dv > kMaxDim || sm_count <= 0)
+    return 0;
+  const size_t elem = bf16 ? 2 : 4;
+  const split::Geometry geo = split::geometry(rows, dk, dv, elem);
+  int per_sm = 0;
+  cudaError_t err = bf16
+      ? split::configure_rb<__nv_bfloat16>(geo, &per_sm)
+      : split::configure_rb<float>(geo, &per_sm);
+  if (err != cudaSuccess || per_sm <= 0) return 0;
+  const long long chunks = (rows + geo.rb - 1) / geo.rb;
+  const long long resident = static_cast<long long>(sm_count) * per_sm;
+  const int tiles = (sk + geo.tk - 1) / geo.tk;
+  const double unit_bytes = static_cast<double>(resident) * geo.tk
+                            * (dk + dv) * elem;
+  const double ws_bytes = 4.0 * pairs * rows * (dv + 2);
+  int best = 1;
+  double best_cost = 0.0;
+  for (int s = 1; s <= tiles && s <= split::kMaxSplits; ++s) {
+    const int per_split = (tiles + s - 1) / s;
+    if ((tiles + per_split - 1) / per_split != s) continue;  // none empty
+    const long long waves = (pairs * chunks * s + resident - 1) / resident;
+    double cost = static_cast<double>(waves) * per_split;
+    if (s > 1) cost += (2.0 * s + 1.0) * ws_bytes / unit_bytes;
+    if (s == 1 || cost < best_cost) {
+      best = s;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+// The split route: sizes as for flash_attn_fwd; workspace: splits * b *
+// kv_heads * sq * g * (dv + 2) floats, from the caller; 1 <= splits <=
+// 1024 (a split with no slot weighs 0).
+int flash_attn_split_kv(const void* q, const void* k, const void* v,
+                        const void* pos_q, const void* pos_k, void* out,
+                        void* workspace, int b, int sq, int sk, int kv_heads,
+                        int g, int dk, int dv, int window, float scale,
+                        int bf16, int splits, void* stream) {
+  if (!dims_ok(b, sq, sk, kv_heads, g, dk, dv) || splits < 1
+      || splits > split::kMaxSplits
+      || static_cast<long long>(b) * ((static_cast<long long>(sq) * g + 3)
+                                      / 4) > 65535
+      || static_cast<long long>(b) * kv_heads * sq * g > 2147483647)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return launch_dh<__nv_bfloat16>(dh, q, k, v, pos_q, pos_k, out, b, sq,
-                                    sk, kv_heads, g, window, scale, s);
-  return launch_dh<float>(dh, q, k, v, pos_q, pos_k, out, b, sq, sk,
-                          kv_heads, g, window, scale, s);
+    return split::launch<__nv_bfloat16>(q, k, v, pos_q, pos_k, out,
+                                        workspace, b, sq, sk, kv_heads, g,
+                                        dk, dv, window, scale, splits, s);
+  return split::launch<float>(q, k, v, pos_q, pos_k, out, workspace, b, sq,
+                              sk, kv_heads, g, dk, dv, window, scale, splits,
+                              s);
 }
 
 }  // extern "C"

@@ -1,32 +1,67 @@
-"""Public wrapper of the flash-attention forward kernel.
+"""Public wrapper of the flash-attention forward kernels.
 
-For a CUDA tensor ``flash_attention`` launches the hand-written kernel
+For a CUDA tensor ``flash_attention`` launches a hand-written kernel
 (``csrc/flash_attn.cu``) on the current stream, or raises; for a CPU tensor
 it runs the plain torch version in ``ref.py``. There is no other switch:
-the device of the input decides. The kernel picks its own tiles and takes
-any Sq and Sk, so the reference's block sizes and ``interpret`` have no
-counterpart.
+the device of the input decides whether a kernel runs, and ``route`` alone
+decides which one, from the sizes (never from a failure: a launch that
+returns a CUDA error raises):
+
+- ``"split_kv"`` (``flash_split_kernel`` + ``flash_merge_kernel``) for at
+  most ``SPLIT_MAX_ROWS`` query rows per (batch, kv head) pair, Sq·G: the
+  key slots split over blocks, each block's (m, l, acc) merged in split
+  order by a second kernel (decode);
+- ``"tiled"`` (``flash_tiled_kernel``) otherwise: blocks of query rows
+  walking every key tile (prefill).
+
+Both take any Sq and Sk and head sizes 1 ≤ dk, dv ≤ ``MAX_HEAD_DIM``, and
+pick their own tiles and splits, so the reference's block sizes and
+``interpret`` have no counterpart.
 
 The layout is the models' (``models.attention.chunked_attention``): q
-(B, Sq, KV, G, dh), k/v (B, Sk, KV, dh), pos_q (Sq,), pos_k (B, Sk) or
-(Sk,). The reference's Pallas kernel takes one batch element as
-q (KV·G, Sq, dh), k/v (KV, Sk, dh).
+(B, Sq, KV, G, dk), k (B, Sk, KV, dk), v (B, Sk, KV, dv), pos_q (Sq,),
+pos_k (B, Sk) or (Sk,); the output is (B, Sq, KV, G, dv) in q's dtype. The
+reference's Pallas kernel takes one batch element as q (KV·G, Sq, dh), k/v
+(KV, Sk, dh).
 
-``LAUNCHES["flash_attn"]`` counts kernel launches; a plain-version call
-counts nothing.
+``LAUNCHES["flash_attn"]`` counts calls that launched a kernel (one per
+call, on either route) and ``ROUTES`` splits them by route; a
+plain-version call counts nothing.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
+from ..._device import sm_count as _sm_count
 from . import ref as _ref
 
 LAUNCHES = {"flash_attn": 0}
-HEAD_DIMS = (16, 32, 64, 128)       # the kernel's compiled head sizes
+ROUTES = {"tiled": 0, "split_kv": 0}
+# The largest dk and dv the kernels take: MLA's decode reads a 576-wide
+# latent key (kv_lora_rank 512 + rope 64) and a 512-wide value.
+MAX_HEAD_DIM = 576
+# The most query rows per (batch, kv head) pair, Sq·G, that take the split
+# route: decode (Sq = 1, G <= 16 in every config of the repo) takes it,
+# prefill (Sq·G in the hundreds) the tiled one. 64 is the largest row count
+# timed, not a measured crossover: on one H100 the split route was 3x to
+# 90x faster at 4, 16 and 64 rows, over 144 and 8,192 slots
+# (chip_smoke.py's `route threshold flash_attn` line; PERF.md).
+SPLIT_MAX_ROWS = 64
 
 
 def reset_launches() -> None:
     LAUNCHES["flash_attn"] = 0
+    for r in ROUTES:
+        ROUTES[r] = 0
+
+
+def route(sq: int, g: int) -> str:
+    """Which kernel a card call with ``sq`` queries of ``g`` heads per kv
+    head takes: "split_kv" for ``sq * g <= SPLIT_MAX_ROWS`` query rows per
+    pair, else "tiled"."""
+    return "split_kv" if sq * g <= SPLIT_MAX_ROWS else "tiled"
 
 
 def _on_card(x: torch.Tensor) -> bool:
@@ -44,13 +79,28 @@ def _lib():
     return _build.load("flash_attn")
 
 
+@functools.lru_cache(maxsize=64)
+def _splits(pairs: int, rows: int, sk: int, dk: int, dv: int, bf16: int,
+            index: int) -> int:
+    """The split route's key splits for these sizes (the kernel's own cost
+    rule, which reads the card's SM count and the kernel's occupancy)."""
+    splits = _lib().flash_attn_split_kv_splits(pairs, rows, sk, dk, dv, bf16,
+                                               _sm_count(index))
+    if splits < 1:
+        raise RuntimeError(f"flash_attention: no split count for pairs "
+                           f"{pairs}, rows {rows}, Sk {sk}, dk {dk}, dv {dv}")
+    return splits
+
+
 def _check(q, k, v, pos_q, pos_k):
-    if q.dim() != 5 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"flash_attention: q (B, Sq, KV, G, dh), k/v "
-                         f"(B, Sk, KV, dh); got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
-    B, Sq, KV, G, dh = q.shape
-    if k.shape[0] != B or k.shape[2] != KV or k.shape[3] != dh:
+    if q.dim() != 5 or k.dim() != 4 or v.dim() != 4 \
+            or v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"flash_attention: q (B, Sq, KV, G, dk), k "
+                         f"(B, Sk, KV, dk), v (B, Sk, KV, dv); got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, Sq, KV, G, dk = q.shape
+    if k.shape[0] != B or k.shape[2] != KV or k.shape[3] != dk:
         raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not fit "
                          f"q {tuple(q.shape)}")
     Sk = k.shape[1]
@@ -73,38 +123,59 @@ def _check(q, k, v, pos_q, pos_k):
 
 def flash_attention(q, k, v, pos_q, pos_k, *, window=None,
                     scale=None) -> torch.Tensor:
-    """Masked online-softmax attention forward; returns q's shape and
-    dtype. ``window=None`` means no window; ``scale`` defaults to
-    dh ** -0.5."""
+    """Masked online-softmax attention forward; returns (B, Sq, KV, G, dv)
+    in q's dtype. ``window=None`` means no window; ``scale`` defaults to
+    dk ** -0.5."""
     _check(q, k, v, pos_q, pos_k)
     if not _on_card(q):
         return _ref.ref_flash_attention(q, k, v, pos_q, pos_k, window=window,
                                         scale=scale)
-    B, Sq, KV, G, dh = q.shape
-    Sk = k.shape[1]
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {dh} not in "
-                         f"{HEAD_DIMS}")
+    B, Sq, KV, G, dk = q.shape
+    Sk, dv = k.shape[1], v.shape[-1]
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k, v must be contiguous")
     if window is not None and int(window) < 0:
         raise ValueError(f"flash_attention: window must be >= 0, got "
                          f"{window}")
+    out = torch.empty((B, Sq, KV, G, dv), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    if not (1 <= dk <= MAX_HEAD_DIM and 1 <= dv <= MAX_HEAD_DIM):
+        raise ValueError(f"flash_attention: head sizes dk {dk}, dv {dv}; "
+                         f"the kernels take 1 to {MAX_HEAD_DIM}")
     pos_q = pos_q.to(torch.int32).contiguous()
     pos_k = (pos_k if pos_k.dim() == 2 else pos_k[None, :].expand(B, Sk)
              ).to(torch.int32).contiguous()
-    out = torch.empty_like(q)
-    if q.numel() == 0:
-        return out
-    scale = float(dh ** -0.5 if scale is None else scale)
-    rc = _lib().flash_attn_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_q.data_ptr(),
-        pos_k.data_ptr(), out.data_ptr(), B, Sq, Sk, KV, G, dh,
-        -1 if window is None else int(window), scale,
-        int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    scale = float(dk ** -0.5 if scale is None else scale)
+    return _launch(q, k, v, pos_q, pos_k, out, window, scale, route(Sq, G))
+
+
+def _launch(q, k, v, pos_q, pos_k, out, window, scale, which, splits=None):
+    """Launch the kernel(s) of route ``which`` into ``out`` (int32
+    contiguous positions, pos_k (B, Sk)); ``splits`` overrides the split
+    route's own choice of key splits."""
+    lib = _lib()
+    B, Sq, KV, G, dk = q.shape
+    Sk, dv = k.shape[1], v.shape[-1]
+    bf16 = int(q.dtype == torch.bfloat16)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_q.data_ptr(),
+            pos_k.data_ptr(), out.data_ptr())
+    sizes = (B, Sq, Sk, KV, G, dk, dv, -1 if window is None else int(window),
+             scale, bf16)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if which == "split_kv":
+        if splits is None:
+            splits = _splits(B * KV, Sq * G, Sk, dk, dv, bf16,
+                             q.device.index or 0)
+        workspace = torch.empty(splits * B * KV * Sq * G * (dv + 2),
+                                dtype=torch.float32, device=q.device)
+        rc = lib.flash_attn_split_kv(*args, workspace.data_ptr(), *sizes,
+                                     splits, stream)
+    else:
+        rc = lib.flash_attn_fwd(*args, *sizes, stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {rc}")
+        raise RuntimeError(f"flash_attention kernel launch failed ({which}): "
+                           f"CUDA error {rc}")
     LAUNCHES["flash_attn"] += 1
+    ROUTES[which] += 1
     return out

@@ -26,10 +26,9 @@ them by route; a plain-version call counts nothing.
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
+from ..._device import sm_count as _sm_count
 from . import ref as _ref
 
 LAUNCHES = {"pim_matmul": 0}
@@ -71,11 +70,6 @@ def quantize(w: torch.Tensor, bits: int):
     return _ref.ref_quantize(w, bits)
 
 
-@functools.lru_cache(maxsize=8)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _lib():
     from .. import _build
     return _build.load("pim_matmul")
@@ -115,12 +109,10 @@ def pim_matmul(x: torch.Tensor, w_int: torch.Tensor, scales: torch.Tensor,
     if not _on_card(x):
         return (_ref.ref_pim_matmul_raw(x, w_int, mode=mode, bits=bits)
                 * scales[None, :].to(torch.float32))
-    if not (x.is_contiguous() and w_int.is_contiguous()
-            and scales.is_contiguous()):
-        raise ValueError("pim_matmul: operands must be contiguous")
-    if scales.dtype != torch.float32:
-        raise TypeError(f"pim_matmul: scales must be float32, got "
-                        f"{scales.dtype}")
+    # as the CPU branch and the reference: float32 scales, and the kernels
+    # read row-major operands
+    x, w_int = x.contiguous(), w_int.contiguous()
+    scales = scales.to(torch.float32).contiguous()
     m, k = x.shape
     n = w_int.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)

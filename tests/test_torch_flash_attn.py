@@ -21,6 +21,7 @@ from repro.kernels.flash_attn import flash_attention as pallas_flash  # noqa: E4
 from repro.kernels.flash_attn import ref_flash_attention as jax_oracle  # noqa: E402,E501
 from repro.models.attention import chunked_attention as jax_chunked  # noqa: E402,E501
 from repro_torch.kernels.flash_attn import ops as port_ops  # noqa: E402
+from repro_torch.kernels.flash_attn import ref as fref  # noqa: E402
 from repro_torch.models.attention import chunked_attention  # noqa: E402
 
 F32_ABS = 2e-5
@@ -152,3 +153,134 @@ def test_wrapper_rejects_bad_operands():
         port_ops.flash_attention(q, k.to(torch.bfloat16), v, pq, pk)
     with pytest.raises(ValueError, match="no keys"):
         port_ops.flash_attention(q, k[:, :0], v[:, :0], pq, pk[:, :0])
+    with pytest.raises(ValueError, match="dv"):    # v's slots differ
+        port_ops.flash_attention(q, k, v[:, :7], pq, pk)
+
+
+# (B, KV, G, Sq, Sk, dk, dv): value heads narrower than key heads, as in
+# MLA (dk 192 / dv 128 at prefill, 576 / 512 at decode)
+VALUE_WIDTHS = [(1, 2, 2, 8, 8, 16, 8), (2, 1, 4, 16, 24, 24, 16),
+                (2, 2, 3, 12, 20, 20, 12)]
+
+
+@pytest.mark.parametrize("shape", VALUE_WIDTHS)
+@pytest.mark.parametrize("impl", ["flash", "naive"])
+@pytest.mark.parametrize("ref_impl", ["flash", "naive"])
+def test_chunked_attention_value_width(shape, impl, ref_impl):
+    """dv != dk through the models' entry, both impls, against the
+    reference's chunked_attention (both impls): (B, Sq, KV, G, dv) out,
+    within 1e-5 in float32."""
+    B, KV, G, Sq, Sk, dk, dv = shape
+    rng = np.random.default_rng(dk * 100 + dv)
+    q = rng.normal(size=(B, Sq, KV, G, dk)).astype(np.float32)
+    k = rng.normal(size=(B, Sk, KV, dk)).astype(np.float32)
+    v = rng.normal(size=(B, Sk, KV, dv)).astype(np.float32)
+    pq = np.arange(Sk - Sq, Sk, dtype=np.int32)
+    pk = np.tile(np.arange(Sk, dtype=np.int32), (B, 1))
+    pk[-1, 1] = -1
+    exp = np.asarray(jax_chunked(
+        *map(jnp.asarray, (q, k, v, pq, pk)), q_chunk=4, k_chunk=4,
+        impl=ref_impl))
+    got = chunked_attention(*map(torch.from_numpy, (q, k, v, pq, pk)),
+                            q_chunk=4, k_chunk=4, impl=impl).numpy()
+    assert got.shape == (B, Sq, KV, G, dv) == exp.shape
+    err = float(np.max(np.abs(got - exp)))
+    assert err < 1e-5, f"max abs err {err}"
+
+
+def ring_cache(B, Sc, pos, seed):
+    """kpos of a ring of Sc slots after writing positions 0..pos at slot
+    p % Sc, batch row b holding b fewer tokens: unsorted, −1 where
+    nothing was written."""
+    pk = np.full((B, Sc), -1, np.int32)
+    for b in range(B):
+        for p in range(max(0, pos - b - Sc + 1), pos - b + 1):
+            pk[b, p % Sc] = p
+    return pk
+
+
+# (name, B, KV, G, Sq, Sk, dk, dv, window, splits)
+SPLIT_CASES = [
+    ("one split", 2, 2, 4, 1, 37, 16, 16, None, 1),
+    ("two splits", 2, 2, 4, 1, 37, 16, 8, None, 2),
+    ("three splits, window", 2, 1, 4, 1, 40, 24, 16, 8, 3),
+    ("seven splits", 3, 2, 2, 1, 50, 16, 16, None, 7),
+    ("more splits than slots", 2, 2, 4, 1, 5, 16, 12, None, 9),
+    ("rows of several queries", 2, 2, 4, 4, 33, 20, 12, 16, 3),
+    ("ring cache, window", 3, 1, 10, 1, 16, 16, 16, 16, 3),
+    ("ring cache, short window", 3, 1, 4, 1, 16, 8, 8, 5, 4),
+    ("a row that sees no key", 2, 2, 4, 1, 24, 16, 16, None, 5),
+    ("poisoned unseen values", 2, 2, 4, 1, 30, 16, 16, 12, 4),
+]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=[c[0] for c in SPLIT_CASES])
+def test_split_kv_plain_matches_plain(case):
+    """The split route's algorithm (partial (m, l, acc) per contiguous
+    range of slots, merged in order) equals plain masked softmax: split
+    counts 1, 2, 3, 7 and more than there are slots; windows; ring caches
+    with unsorted kpos; a row that sees no key (which averages V over all
+    slots); unseen slots whose V is poisoned."""
+    name, B, KV, G, Sq, Sk, dk, dv, window, splits = case
+    rng = np.random.default_rng(len(name))
+    q = rng.normal(size=(B, Sq, KV, G, dk)).astype(np.float32)
+    k = rng.normal(size=(B, Sk, KV, dk)).astype(np.float32)
+    v = rng.normal(size=(B, Sk, KV, dv)).astype(np.float32)
+    pos = 40 if "ring" in name else Sk - 1
+    pq = np.arange(pos - Sq + 1, pos + 1, dtype=np.int32)
+    if "ring" in name:
+        pk = ring_cache(B, Sk, pos, 0)
+    else:
+        pk = np.tile(np.arange(Sk, dtype=np.int32), (B, 1))
+        pk[:, Sk - 3:] = -1
+    if "sees no key" in name:
+        pk[1] = -1                    # batch row 1: every slot unseen
+    if "poisoned" in name:
+        v[pk < 0] = 1e4
+        v[:, :pos - window + 1] = 1e4      # outside the window
+    t = [torch.from_numpy(a) for a in (q, k, v, pq, pk)]
+    exp = fref.ref_flash_attention(*t, window=window)
+    got = fref.split_kv_flash_attention(*t, splits=splits, window=window)
+    assert got.shape == (B, Sq, KV, G, dv)
+    err = float((got - exp).abs().max())
+    assert err < 1e-5, f"max abs err {err}"
+    if "sees no key" in name:
+        mean = t[2][1].mean(dim=0)                         # (KV, dv)
+        assert torch.allclose(got[1], mean[None, :, None, :].expand_as(
+            got[1]), atol=1e-5)
+    if "poisoned" in name:
+        assert float(got.abs().max()) < 10.0
+
+
+def test_route_rule():
+    """Up to SPLIT_MAX_ROWS query rows per (batch, kv head) pair take the
+    split route (every decode of the repo's configs: Sq 1, G <= 16); more
+    take the tiled one (prefill)."""
+    n = port_ops.SPLIT_MAX_ROWS
+    assert port_ops.route(1, 4) == "split_kv"
+    assert port_ops.route(1, 16) == "split_kv"
+    assert port_ops.route(1, n) == "split_kv"
+    assert port_ops.route(1, n + 1) == "tiled"
+    assert port_ops.route(128, 4) == "tiled"
+    assert port_ops.route(128, 1) == "tiled"
+    assert set(port_ops.ROUTES) == {"tiled", "split_kv"}
+
+
+@pytest.mark.parametrize("dk,dv", [(16, 16), (64, 64), (128, 128),
+                                   (192, 128), (256, 256), (576, 512)])
+def test_config_head_sizes_on_cpu(dk, dv):
+    """Every head size of the repo's configs goes through flash_attention
+    on the CPU and equals the reference's chunked_attention (its plain
+    scan, which takes dv != dk) on the same inputs, within 1e-5."""
+    rng = np.random.default_rng(dk + dv)
+    q, k, v = (rng.normal(size=s).astype(np.float32) for s in
+               ((1, 2, 1, 2, dk), (1, 6, 1, dk), (1, 6, 1, dv)))
+    pq = np.array([4, 5], np.int32)
+    pk = np.arange(6, dtype=np.int32)[None, :]
+    got = port_ops.flash_attention(*map(torch.from_numpy,
+                                        (q, k, v, pq, pk))).numpy()
+    assert got.shape == (1, 2, 1, 2, dv)
+    exp = np.asarray(jax_chunked(*map(jnp.asarray, (q, k, v, pq, pk)),
+                                 impl="naive"))
+    err = float(np.max(np.abs(got - exp)))
+    assert err < 1e-5, f"max abs err {err}"

@@ -119,7 +119,7 @@ class _FakeLib:
     def __getattr__(self, name):
         def call(*args):
             self.calls.append(name)
-            return 1 if name == "pim_matmul_splits" else 0
+            return 1 if name.endswith("_splits") else 0
         return call
 
 
@@ -150,16 +150,26 @@ def test_cuda_tensors_never_take_the_plain_path(monkeypatch):
         monkeypatch.setattr(ops, "_lib", lambda: lib)
         monkeypatch.setattr(ops._ref, ref_name, plain)
     monkeypatch.setattr(pm, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(fa, "_sm_count", lambda index: 132)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: SimpleNamespace(cuda_stream=0))
     x = torch.zeros((4, 8), dtype=torch.bfloat16)
     pm.pim_matmul(x, torch.zeros((8, 3), dtype=torch.int8), torch.ones(3))
-    q = torch.zeros((1, 2, 1, 2, 16))
+    fa.reset_launches()
+    fa._splits.cache_clear()
+    q = torch.zeros((1, 2, 1, 2, 16))          # 4 rows: the split route
     k = torch.zeros((1, 3, 1, 16))
     fa.flash_attention(q, k, k, torch.arange(1, 3), torch.arange(3))
+    q = torch.zeros((1, 40, 1, 2, 16))         # 80 rows: the tiled route
+    k = torch.zeros((1, 40, 1, 16))
+    fa.flash_attention(q, k, k, torch.arange(40), torch.arange(40))
+    fa._splits.cache_clear()
     assert lib.calls == ["pim_matmul_splits", "pim_matmul",
+                         "flash_attn_split_kv_splits", "flash_attn_split_kv",
                          "flash_attn_fwd"]
-    assert pm.LAUNCHES["pim_matmul"] >= 1 and fa.LAUNCHES["flash_attn"] >= 1
+    assert pm.LAUNCHES["pim_matmul"] >= 1
+    assert fa.ROUTES == {"tiled": 1, "split_kv": 1}
+    assert fa.LAUNCHES["flash_attn"] == 2
     pm.reset_launches()
     fa.reset_launches()
 
