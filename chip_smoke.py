@@ -27,32 +27,37 @@ each, every mismatch fatal:
 6. lm kernels — pim_matmul (M 4 and 512, K x N 2560 x 9728 and 9728 x
                2560, both modes, 4 and 8 bits; each row names the route,
                ``cuda_core`` or ``tensor_core``, that ``ops.route`` gives
-               it) and flash_attn (each row names its route, ``tiled`` or
-               ``split_kv``: Qwen3-4B's heads at prefill and decode, that
-               decode over 8,192 slots, MLA's decode at dk 576 / dv 512,
-               recurrentgemma-2b's decode on a 2,048-slot ring under its
-               window, MLA's prefill at dk 192 / dv 128) against their
-               plain versions on the card (flash in float32 and bf16),
-               with device and per-call times, bound and the time of one
-               PyTorch library call; then both pim_matmul routes at M 8,
-               16 and 64 and both flash routes at 4, 16 and 64 rows per
-               pair (the route thresholds), the tensor-core kernel's K
-               splits at M 512 and the flash split route's key splits at
-               its decode shapes, each timed; the ``ptxas`` report
-               (registers, shared memory, spills) of the tensor-core
-               kernel and of the split route's kernels, and the ``HMMA``
-               count (``cuobjdump -sass``) of the tensor-core kernel,
-               which must be above 0;
+               it) and flash_attn (each row names its route,
+               ``tensor_core``, ``tiled`` or ``split_kv``: Qwen3-4B's heads
+               at prefill and decode, that decode over 8,192 slots, MLA's
+               decode at dk 576 / dv 512, recurrentgemma-2b's decode on a
+               2,048-slot ring under its window, MLA's prefill at dk 192 /
+               dv 128, Qwen3-4B's heads at a 2,048-token prompt) against
+               their plain versions on the card (flash in float32, on the
+               tiled route, and bf16), with device and per-call times,
+               bound and the time of one PyTorch library call (the
+               tensor-core rows also time the tiled route); then both
+               pim_matmul routes at M 8, 16 and 64 and the three flash
+               routes at 4 to 256 rows per pair (the route thresholds),
+               the tensor-core kernel's K splits at M 512 and the flash
+               split route's key splits at its decode shapes, each timed;
+               the ``ptxas`` report (registers, shared memory, spills) of
+               both tensor-core kernels and of the split route's kernels
+               (the run fails if flash's tensor-core instances at 128 /
+               128, 192 / 128 or 256 / 256 spill), and the ``HMMA`` count
+               (``cuobjdump -sass``) of both tensor-core kernels, which
+               must be above 0 in every instance;
 7. serve     — the LM serving path: ``greedy_generate`` on Qwen3-4B
                (pim_w4, shift_add) at full width and depth, weights from a
                seed, batch 4, prompt 128, 16 new tokens (launch counts reset
                just before, read just after, each kernel must run, prefill's
                108 pim_matmul calls on the tensor cores and decode's 1,620
-               on the CUDA cores, prefill's 36 flash_attn calls tiled and
-               decode's 540 split over the keys); ms of prefill and per
-               decode token, GB on the card, decode against prefill, the
-               busy share of one prefill and one decode step, and the
-               decode step's kernel ms;
+               on the CUDA cores, prefill's 36 flash_attn calls on the
+               tensor cores and decode's 540 split over the keys); ms of
+               prefill and per decode token, GB on the card, decode against
+               prefill, the busy share of one prefill and one decode step,
+               and the kernel ms of prefill and of a decode step with
+               flash's share of each;
 8. lm parity — the same model at 2 layers, on the card (kernels) and on the
                CPU (plain versions), logits compared step by step;
 9. ripple    — ``ripple_add`` against its plain version at (512, 2,048) for
@@ -120,13 +125,18 @@ REPLACES = {
 # Tolerances of the LM phases. pim_matmul: the kernel and its plain version
 # compute the same float32 function (exact products, sums over K <= 9,728
 # in another order), so max |kernel - plain| <= 1e-4 of max |plain|.
-# flash_attn: abs 2e-5 for float32 (the reference tests' bound); for bf16
-# tensors 1e-2 of max |plain|: both sides compute in float32 from the same
-# bf16 inputs and round the output to bf16, so they differ by at most about
-# one bf16 ulp of the largest output, which is at most 2^-7 of it. The
-# model's logits, card against CPU and decode against prefill: 2e-2 of max
-# |logit|, the bound the port's CPU tests hold the bf16 model to against
-# the reference (bf16 rounds in other places on either side).
+# flash_attn: abs 2e-5 for float32 (the reference tests' bound; float32
+# stays on the CUDA cores' float32 products, the tiled and split routes);
+# for bf16 tensors 1e-2 of max |plain|: both sides take the same bf16
+# inputs, sum in float32 and round the output to bf16, so they differ by
+# at most about one bf16 ulp of the largest output, which is at most 2^-7
+# of it; the tensor-core route also rounds each softmax weight p to bf16
+# before P V, a relative error of at most 2^-9 per weight, so an output
+# moves by at most 2^-9 times max |v| (sum p |v| / sum p), and by far less
+# as the weights' rounding errors differ in sign. The model's logits, card
+# against CPU and decode against prefill: 2e-2 of max |logit|, the bound
+# the port's CPU tests hold the bf16 model to against the reference (bf16
+# rounds in other places on either side).
 PIM_REL = 1e-4
 FLASH_BF16_REL = 1e-2
 FLASH_F32_ABS = 2e-5
@@ -143,7 +153,8 @@ PIM_SHAPES = ((4, 2560, 9728), (4, 9728, 2560), (512, 2560, 9728),
 # an 8,192-slot cache, MLA's decode (deepseek-v2-lite: one 576-wide latent
 # key head, 512-wide values, 16 query heads), recurrentgemma-2b's decode
 # (one kv head of 256, 10 query heads, a 2,048-slot ring under its 2,048
-# window, positions unsorted) and MLA's prefill (16 heads, dk 192, dv 128)
+# window, positions unsorted), MLA's prefill (16 heads, dk 192, dv 128)
+# and Qwen3-4B's heads at a 2,048-token causal prompt (batch 1)
 FLASH_SHAPES = {
     "prefill": (4, 8, 4, 128, 128, 128, 128, 127, None, False),
     "decode": (4, 8, 4, 128, 128, 1, 144, 135, None, False),
@@ -151,10 +162,12 @@ FLASH_SHAPES = {
     "decode,mla": (4, 1, 16, 576, 512, 1, 2048, 2040, None, False),
     "decode,recurrentgemma": (4, 1, 10, 256, 256, 1, 2048, 5000, 2048, True),
     "prefill,mla": (4, 16, 1, 192, 128, 128, 128, 127, None, False),
+    "prefill,2k": (1, 8, 4, 128, 128, 2048, 2048, 2047, None, False),
 }
-# both flash routes at these query positions per pair (G = 4: 4, 16 and
-# 64 rows) over these key slots: the route threshold
-FLASH_THRESHOLD_SQ = (1, 4, 16)
+# the three flash routes at these query positions per pair (G = 4: 4 to
+# 256 rows) over these key slots: the route threshold
+FLASH_ROUTES = ("split_kv", "tensor_core", "tiled")
+FLASH_THRESHOLD_SQ = (1, 4, 16, 32, 64)
 FLASH_THRESHOLD_SK = (144, 8192)
 # the split route's key split counts timed at each decode shape, beside
 # the one its cost rule picks
@@ -581,11 +594,13 @@ def _kernel_row(torch, kernel, plain, library, nbytes, nops, shape, err,
 
 def _say_row(name, r):
     route = f" [{r['route']}]" if "route" in r else ""
+    tiled = (f", tiled route {r['tiled_ms'] * 1e3:.2f} us"
+             if "tiled_ms" in r else "")
     say(f"kernel {name}{route} {r['shape']}: kernel {r['ms'] * 1e3:.2f} us "
         f"({r['call_ms'] * 1e3:.2f} us per call with the host's launch), "
         f"plain {r['plain_ms'] * 1e3:.2f} us, library "
         f"{r['library_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.3f} us "
-        f"({r['bound_by']}), max_abs_err {r['max_abs_err']:.3e}")
+        f"({r['bound_by']}){tiled}, max_abs_err {r['max_abs_err']:.3e}")
 
 
 def phase_lm_kernels(torch, device):
@@ -667,7 +682,8 @@ def flash_row(torch, device, gen, shape):
     """One flash_attn shape: the kernel of the route ops.route gives it
     against its plain version in float32 and bf16, then timed in bf16
     beside the plain version and SDPA (timed only; the port never calls
-    it)."""
+    it); a tensor-core row also times the tiled route on the same
+    tensors."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attn import ops as fa
     from repro_torch.kernels.flash_attn import ref as fref
@@ -708,8 +724,15 @@ def flash_row(torch, device, gen, shape):
         f"(.., {dv}) bf16{'' if window is None else f', window {window}'}"
         f"{', ring' if ring else ''}, {pairs} seen (query, key) pairs",
         errs["bfloat16"], per_graph=10, reps=10)
-    row["route"] = fa.route(sq, G)
+    row["route"] = fa.route(sq, G, torch.bfloat16, dk, dv)
     row["max_abs_err_f32"] = errs["float32"]
+    if row["route"] == "tensor_core":
+        out = torch.empty(qb.shape[:-1] + (dv,), dtype=qb.dtype,
+                          device=device)
+        row["tiled_ms"] = device_us(lambda: fa._launch(
+            qb, kb, vb, pos_q, pos_k, out, window, dk ** -0.5, "tiled"),
+            torch, 5, 5) / 1e3
+        del out
     if row["route"] == "split_kv":
         row["splits"] = fa._splits(B * KV, sq * G, sk, dk, dv, 1,
                                    device.index or 0)
@@ -718,8 +741,8 @@ def flash_row(torch, device, gen, shape):
 
 
 def flash_routes_timed(torch, device):
-    """Device us of both flash routes, bf16, at Qwen3-4B's heads (B 4, KV
-    8, G 4, dh 128) for each Sq of FLASH_THRESHOLD_SQ and Sk of
+    """Device us of the three flash routes, bf16, at Qwen3-4B's heads (B
+    4, KV 8, G 4, dh 128) for each Sq of FLASH_THRESHOLD_SQ and Sk of
     FLASH_THRESHOLD_SK, the queries at the last positions; then of the
     split route at each count of FLASH_SPLITS and its own at the decode
     shapes of FLASH_SHAPES."""
@@ -738,16 +761,16 @@ def flash_routes_timed(torch, device):
                 which: device_us(lambda which=which: fa._launch(
                     q, k, v, pos_q, pos_k, out, None, 128 ** -0.5, which),
                     torch, 5, 5)
-                for which in ("split_kv", "tiled")}
+                for which in FLASH_ROUTES}
             del q, k, v, out
     say(f"route threshold flash_attn (B 4, KV 8, G 4, dh 128, bf16), "
         f"SPLIT_MAX_ROWS {fa.SPLIT_MAX_ROWS}: " + "; ".join(
-            f"{key}: split_kv {t['split_kv']:.2f} us, tiled "
-            f"{t['tiled']:.2f} us" for key, t in times.items()))
+            f"{key}: " + ", ".join(f"{w} {t[w]:.2f} us" for w in FLASH_ROUTES)
+            for key, t in times.items()))
     splits = {}
     for phase, shape in FLASH_SHAPES.items():
         B, KV, G, dk, dv, sq, sk, last, window, ring = shape
-        if fa.route(sq, G) != "split_kv":
+        if fa.route(sq, G, torch.bfloat16, dk, dv) != "split_kv":
             continue
         q, k, v, pos_q, pos_k, _ = flash_operands(torch, device, gen, shape)
         q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
@@ -850,23 +873,59 @@ def flash_ptxas():
                    + (f" rb{m.group(3)}" if m.group(3) else "")))
 
 
-def tc_sass():
-    """HMMA instructions in each instance of the tensor-core kernel, from
-    ``cuobjdump -sass`` of the built library (bits -> count)."""
+# flash's tensor-core instances that must not spill: the serving path's
+# (128, 128), MLA's prefill (192, 128) and recurrentgemma's (256, 256)
+FLASH_TC_NO_SPILL = ("128/128", "192/128", "256/256")
+
+
+def flash_tc_ptxas():
+    """ptxas's report of each instance of flash's tensor-core kernel
+    ("128/128": dk and dv widths), and its dynamic shared memory at the
+    prefill shapes."""
+    import torch
+    from repro_torch.kernels.flash_attn import ops as fa
+    lib = fa._lib()
+    smem = {}
+    for phase, (_, _, G, dk, dv, sq, sk, *_) in FLASH_SHAPES.items():
+        if fa.route(sq, G, torch.bfloat16, dk, dv) == "tensor_core":
+            smem[phase] = lib.flash_attn_tc_smem_bytes(dk, dv, sk)
+    return {"dynamic_smem_bytes": smem,
+            **ptxas("flash_attn", r"flash_tc_kernelILi(\d+)ELi(\d+)E",
+                    lambda m: f"{m.group(1)}/{m.group(2)}")}
+
+
+def hmma_counts(library, kernel, key):
+    """HMMA instructions in each instance of ``library``'s kernels whose
+    mangled name matches ``kernel``, from ``cuobjdump -sass`` of the built
+    library, under ``key(match)``."""
     import re
     import shutil
     from repro_torch.kernels import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run(
-        [tool, "-sass", str(_build.library_path("pim_matmul"))],
+        [tool, "-sass", str(_build.library_path(library))],
         capture_output=True, text=True, timeout=120, check=True).stdout
     counts = {}
     for part in sass.split("Function : ")[1:]:
-        kernel = re.match(r"\S*pim_matmul_tc_kernelILi(\d+)E", part)
-        if kernel is not None:
-            counts[f"bits{kernel.group(1)}"] = len(re.findall(
+        match = re.match(r"\S*" + kernel, part)
+        if match is not None:
+            counts[key(match)] = len(re.findall(
                 r"/\*[0-9a-f]{4,}\*/\s+HMMA\b", part))
     return counts
+
+
+def tc_sass():
+    """HMMA instructions in each instance of pim_matmul's tensor-core
+    kernel (bits -> count)."""
+    return hmma_counts("pim_matmul", r"pim_matmul_tc_kernelILi(\d+)E",
+                       lambda m: f"bits{m.group(1)}")
+
+
+def flash_tc_sass():
+    """HMMA instructions in each instance of flash's tensor-core kernel
+    ("128/128" -> count)."""
+    return hmma_counts("flash_attn", r"flash_tc_kernelILi(\d+)ELi(\d+)E",
+                       lambda m: f"{m.group(1)}/{m.group(2)}")
 
 
 # ---------------------------------------------------------------------------
@@ -956,9 +1015,9 @@ def run_serve(torch, device):
     if routes != expected:
         raise AssertionError(f"serving routes {routes}, expected "
                              f"{expected}")
-    # prefill's attention (Sq·G = 512 rows per pair) on the tiled kernel,
-    # each decode step's (4 rows) split over the keys
-    expected = {"tiled": L, "split_kv": L * (SERVE_NEW - 1)}
+    # prefill's attention (Sq·G = 512 rows per pair, bf16) on the tensor
+    # cores, each decode step's (4 rows) split over the keys
+    expected = {"tensor_core": L, "tiled": 0, "split_kv": L * (SERVE_NEW - 1)}
     if flash_routes != expected:
         raise AssertionError(f"serving flash routes {flash_routes}, "
                              f"expected {expected}")
@@ -1026,12 +1085,17 @@ def run_serve(torch, device):
         f"(bound {LOGITS_REL}); launches {json.dumps(launches)}")
     for name, sh in shares.items():
         say_share(f"serve {name}", sh)
-    flash_ms = sum(k["ms"] for k in shares["decode step"]["top"]
-                   if "flash_" in k["name"])
+    flash_ms = {name: sum(k["ms"] for k in sh["top"] if "flash_" in k["name"])
+                for name, sh in shares.items()}
+    record["flash_ms"] = flash_ms
+    say(f"serve prefill: {shares['prefill']['device_ms']:.3f} ms of "
+        f"kernels, flash_attn {flash_ms['prefill']:.3f} ms of it (with the "
+        f"tiled kernel at prefill, one H100 took 44.793 ms, flash 3.619 ms "
+        f"of it)")
     say(f"serve decode step: {shares['decode step']['device_ms']:.3f} ms of "
-        f"kernels, flash_attn {flash_ms:.3f} ms of it (with the tiled "
-        f"kernel at decode, one H100 took 20.18-21.01 ms, flash about 2.9 "
-        f"ms of it)")
+        f"kernels, flash_attn {flash_ms['decode step']:.3f} ms of it (with "
+        f"the tiled kernel at decode, one H100 took 20.18-21.01 ms, flash "
+        f"about 2.9 ms of it)")
     del model, caches
     torch.cuda.empty_cache()
     return record, launches, routes, flash_routes
@@ -1652,6 +1716,19 @@ def main() -> int:
         f"{k}: {v['registers']} registers, {v['spill_bytes']} spill bytes"
         for k, v in record["flash_ptxas"].items())
         or "not measured (library not built in this process)"))
+    record["flash_tc_ptxas"] = flash_tc_ptxas()
+    say("ptxas flash_attn[tensor_core]: " + ("; ".join(
+        f"{k}: {v['registers']} registers, {v['spill_bytes']} spill bytes"
+        for k, v in record["flash_tc_ptxas"].items()
+        if k != "dynamic_smem_bytes")
+        or "not measured (library not built in this process)")
+        + "; dynamic smem per block " + ", ".join(
+            f"{k} {v} bytes" for k, v in
+            record["flash_tc_ptxas"]["dynamic_smem_bytes"].items()))
+    spilled = {k: record["flash_tc_ptxas"][k]["spill_bytes"]
+               for k in FLASH_TC_NO_SPILL if k in record["flash_tc_ptxas"]}
+    if any(spilled.values()):
+        raise AssertionError(f"flash tensor-core instances spill: {spilled}")
     record["tc_sass"] = tc_sass()
     say("sass pim_matmul[tc]: " + ", ".join(
         f"{k}: {v} HMMA" for k, v in sorted(record["tc_sass"].items())))
@@ -1659,6 +1736,13 @@ def main() -> int:
             or min(record["tc_sass"].values()) == 0:
         raise AssertionError(f"tensor-core kernel without HMMA: "
                              f"{record['tc_sass']}")
+    record["flash_tc_sass"] = flash_tc_sass()
+    say("sass flash_attn[tensor_core]: " + ", ".join(
+        f"{k}: {v} HMMA" for k, v in sorted(record["flash_tc_sass"].items())))
+    if not set(FLASH_TC_NO_SPILL) <= set(record["flash_tc_sass"]) \
+            or min(record["flash_tc_sass"].values()) == 0:
+        raise AssertionError(f"flash tensor-core kernel without HMMA: "
+                             f"{record['flash_tc_sass']}")
 
     # 7. the serving path, with the launch counts reset just before it and
     # read just after it (inside run_serve)
@@ -1727,8 +1811,8 @@ def main() -> int:
             "library_ms": r["library_ms"]})
     # one row per LM kernel, at the shape of the serving path it runs at
     # (pim_matmul: decode's on the CUDA cores, prefill's first on the
-    # tensor cores; flash_attn: decode's split over the keys, prefill's
-    # tiled); every shape is in chip_smoke.json
+    # tensor cores; flash_attn: decode's split over the keys, prefill's on
+    # the tensor cores); every shape is in chip_smoke.json
     (m, k, n), (pm_, pk, pn) = PIM_SHAPES[0], PIM_SHAPES[2]
     for kernel, row, launched in (
             ("pim_matmul", f"pim_matmul[shift_add,w4] ({m},{k})@({k},{n})",
@@ -1737,7 +1821,8 @@ def main() -> int:
              f"pim_matmul[shift_add,w4] ({pm_},{pk})@({pk},{pn})",
              lm_routes["tensor_core"]),
             ("flash_attn", "flash_attn[decode]", flash_routes["split_kv"]),
-            ("flash_attn", "flash_attn[prefill]", flash_routes["tiled"])):
+            ("flash_attn", "flash_attn[prefill]",
+             flash_routes["tensor_core"])):
         r = lm_rows[row]
         table.append({
             "name": row, "route": "cuda", "source": SOURCES[kernel],

@@ -54,6 +54,9 @@ LIBRARIES = {
         {
             "flash_attn_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _I, _I, _F, _I, _P),
+            "flash_attn_tc": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _F, _P),
+            "flash_attn_tc_smem_bytes": (_I, _I, _I),
             "flash_attn_split_kv_splits": (_I, _I, _I, _I, _I, _I, _I),
             "flash_attn_split_kv": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                     _I, _I, _I, _I, _I, _F, _I, _I, _P),

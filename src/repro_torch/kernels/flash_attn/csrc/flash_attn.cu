@@ -1,7 +1,7 @@
 // Flash-attention forward for Hopper (sm_90a), with a plain C interface
 // loaded through ctypes (repro_torch/kernels/_build.py).
 //
-// Both routes replace the TPU kernel
+// All three routes replace the TPU kernel
 //   src/repro/kernels/flash_attn/flash_attn.py: flash_attention_fwd (:75)
 //   -> _kernel (:37).
 // Online-softmax attention on the models' layout: q (B, Sq, KV, G, DK),
@@ -11,16 +11,16 @@
 // pos_k[j] < window); an unseen key scores -1e30 (not -inf), exactly as in
 // the reference, so a row that sees no key averages V over all Sk keys; a
 // slot past Sk weighs exactly 0; the output is acc / max(l, 1e-30). All
-// arithmetic is float32; q, k, v and out are bf16 or float32. Any DK and
-// DV in 1..576 (MLA's decode takes 576 / 512).
+// arithmetic is float32 (the tensor-core route: bf16 products, float32
+// sums); q, k, v and out are bf16 or float32. Any DK and DV in 1..576
+// (MLA's decode takes 576 / 512); the tensor-core route bf16 up to 256.
 //
 // The G query heads of one kv head are extra query rows: for a (b, kv)
 // pair, row r is (query r / G, group r % G), so K and V are read once for
-// the whole group. ops.py::route picks the kernel from the row count.
+// the whole group. ops.py::route picks the kernel from the row count,
+// the type and the head sizes.
 //
-// flash_tiled_kernel (prefill; many rows). Bound on the card by its bytes
-// at the model's prefill (B 4, KV 8, G 4, Sq = Sk = 128: ~10 MB, 3.1 us);
-// this kernel uses the CUDA cores in float32, tensor cores are later work.
+// flash_tiled_kernel (float32, or heads wider than 256, with many rows).
 // A block owns BQ rows of one (b, kv) and walks every key tile of 32
 // keys: it stages K and V (float32) in shared memory, computes the
 // BQ x 32 scores, updates the running max m and denominator l per row
@@ -30,6 +30,29 @@
 // has a compile-time bound; the extra columns of Q and K are zeros, which
 // add 0 to every score, and those of V are never stored. BQ is 64 where
 // shared memory and registers allow (DVP <= 128, DKP <= 256), else 16.
+//
+// flash_tc_kernel (bf16 prefill; many rows). Bound on the card by its
+// bytes at the model's prefill (B 4, KV 8, G 4, Sq = Sk = 128: ~10 MB,
+// 3.1 us) and by its operations at long prompts (Sq = Sk = 2,048: 34.8
+// us), where the CUDA cores' float32 at ~3% of the bf16 rate was the
+// whole story. So Q K^T and P V run on mma.sync.m16n8k16 (bf16 in,
+// float32 sums). A block owns 128 rows of one (b, kv), 16 per warp; Q is
+// staged once by cp.async and held as A fragments (ldmatrix) where the
+// registers allow; K and V tiles of 64 keys come through a cp.async ring
+// (16-byte copies, rows padded so ldmatrix is conflict-free, slots past
+// Sk zero-filled, the tile's key positions with it). The online softmax
+// stays in registers (a row's scores in the 4 lanes of a quad), and P is
+// rounded to bf16 straight from the score accumulators into the A
+// fragments of P V, with V through ldmatrix.trans. A prologue scans the
+// key positions once per block: a tile that no (row, key) pair of the
+// block can see (its least valid position above the block's greatest
+// pos_q, or, under a window, its greatest too far below the least) is
+// neither loaded nor computed, and a tile that every pair sees skips the
+// mask. Skipped tiles would add exactly 0 to a row that sees a key; a row
+// that sees none must average V over all slots, so a block with such a
+// row walks every tile again. Shared-memory reads (each warp ldmatrixes
+// the whole K and V tile) and the per-tile barrier, not the MMAs, bound
+// it now (PERF.md).
 //
 // flash_split_kernel + flash_merge_kernel (decode; few rows). At decode
 // (Sq = 1) a pair has only G rows, so a tiled block would be mostly
@@ -59,6 +82,7 @@
 // sizes it refuses).
 
 #include <cstddef>
+#include <climits>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,6 +104,33 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared; src-size 0 fills the 16 bytes with zeros
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+// 4 bytes from global to shared (a key position), zero when not valid
+__device__ __forceinline__ void cp_async4(unsigned dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // One block may use up to kMaxSmem bytes of dynamic shared memory; set
@@ -354,33 +405,6 @@ constexpr int kStages = 3;                // tiles in the cp.async ring
 constexpr int kTK = 64;                   // most keys per tile: two a lane
 constexpr int kMaxSplits = 1024;
 constexpr int kMergeThreads = 128;
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared; src-size 0 fills the 16 bytes with zeros
-__device__ __forceinline__ void cp_async16(unsigned dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-
-// 4 bytes from global to shared (a key position), zero when not valid
-__device__ __forceinline__ void cp_async4(unsigned dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
 
 // four neighbouring elements from shared memory, as float32
 __device__ __forceinline__ float4 load4(const float* p) {
@@ -862,6 +886,573 @@ int launch(const void* q, const void* k, const void* v, const void* pos_q,
 
 }  // namespace split
 
+// ---------------------------------------------------------------------------
+// The tensor-core route (bf16, prefill)
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBQ = 16 * kWarps;   // query rows per block: 16 per warp
+constexpr int kBK = 64;            // keys per tile
+constexpr int kMaxDim = 256;       // the largest dk and dv it takes
+constexpr int kScanTiles = 64;     // tiles per pass of the block's tile scan
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4],
+                                            unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr) : "memory");
+}
+
+// c += a (16 x 16, row) * b (16 x 8, col), bf16 in, float32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4],
+                                         const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x by the SFU's approximation (relative error about 2^-22, far below
+// bf16's 2^-9 for P; subnormal results flush to 0): exactly 0 for x =
+// -1e30 or -inf, which the tile skip relies on. exp2f wraps the same
+// instruction in a range check that cost 13% of the kernel at 2k keys.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// two floats rounded to bf16, lo in the low half (the lower column)
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// Shared memory of one block, in bytes: Q [kBQ][DKP + 8], then per stage
+// K [kBK][DKP + 8], V [kBK][DVP + 8] (bf16; the 8 extra columns put the 8
+// rows of an ldmatrix in 8 different 16-byte bank groups) and the tile's
+// key positions, then the tile scan's scratch and the block's position
+// bounds; the two tile bitmasks (words each) come last. The ring has three
+// stages where they fit beside 4 KB of bitmasks (Sk up to 2^20), else two.
+template <int DKP, int DVP>
+struct Layout {
+  static constexpr int kQS = DKP + 8;
+  static constexpr int kVS = DVP + 8;
+  static constexpr int q_bytes = kBQ * kQS * 2;
+  static constexpr int k_bytes = kBK * kQS * 2;
+  static constexpr int v_bytes = kBK * kVS * 2;
+  static constexpr int stage_bytes = k_bytes + v_bytes + kBK * 4;
+  static constexpr int scan_bytes = 3 * 2 * kScanTiles * 4 + 2 * kWarps * 4;
+  static constexpr int kStages =
+      q_bytes + 3 * stage_bytes + scan_bytes + 4096 <= kMaxSmem ? 3 : 2;
+  static constexpr int ring_offset = q_bytes;
+  static constexpr int scan_offset = ring_offset + kStages * stage_bytes;
+  static constexpr int mask_offset = scan_offset + scan_bytes;
+  static_assert(stage_bytes % 16 == 0 && q_bytes % 16 == 0, "alignment");
+  // Q is held in registers as A fragments where they fit beside the
+  // output accumulator (DKP / 4 and DVP / 2 registers a thread), else read
+  // from shared memory at each k step
+  static constexpr bool kQRegs = DKP / 4 + DVP / 2 <= 128;
+};
+
+// One block: query rows row0 .. row0 + kBQ - 1 of the (b, kv) pair
+// blockIdx.y (row r is query r / G, group r % G), the row blocks taken
+// last first so that the blocks that see the most keys start first. vec:
+// 16-byte copies (dk, dv multiples of 8, q, k, v 16-byte aligned), else
+// element loads.
+template <int DKP, int DVP>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                const __nv_bfloat16* __restrict__ k,
+                const __nv_bfloat16* __restrict__ v,
+                const int* __restrict__ pos_q, const int* __restrict__ pos_k,
+                __nv_bfloat16* __restrict__ out, int sq, int sk,
+                int kv_heads, int g, int dk, int dv, int window,
+                float scale_log2, int words, int vec) {
+  using L = Layout<DKP, DVP>;
+  constexpr int kQS = L::kQS, kVS = L::kVS, kStages = L::kStages;
+  constexpr int NT = DVP / 8;          // output n-tiles of 8 columns
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  int* scan_lo = reinterpret_cast<int*>(smem + L::scan_offset);
+  int* scan_hi = scan_lo + 2 * kScanTiles;     // [2 * kScanTiles] halves
+  int* scan_all = scan_hi + 2 * kScanTiles;
+  int* qstat = scan_all + 2 * kScanTiles;      // [kWarps] minima, maxima
+  unsigned* visit = reinterpret_cast<unsigned*>(smem + L::mask_offset);
+  unsigned* full = visit + words;
+  auto stage_k = [&](int s) {
+    return reinterpret_cast<__nv_bfloat16*>(smem + L::ring_offset
+                                            + s * L::stage_bytes);
+  };
+  auto stage_v = [&](int s) { return stage_k(s) + kBK * kQS; };
+  auto stage_pos = [&](int s) {
+    return reinterpret_cast<int*>(stage_v(s) + kBK * kVS);
+  };
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int rows = sq * g;
+  const int row0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int b = blockIdx.y / kv_heads, kvh = blockIdx.y % kv_heads;
+  const int ntiles = (sk + kBK - 1) / kBK;
+  // K/V row of slot j: (b * sk + j) * kv_heads + kvh = kv_row0 + j * KV
+  const long long kv_row0 = static_cast<long long>(b) * sk * kv_heads + kvh;
+  auto q_row = [&](int r) {                    // r < rows - row0
+    const int gr = row0 + r;
+    return ((static_cast<long long>(b) * sq + gr / g) * kv_heads + kvh) * g
+           + gr % g;
+  };
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+
+  // 1. Q (zeros past the rows and past dk), asynchronously
+  if (vec) {
+    const int qc = dk / 8;
+    for (int i = tid; i < kBQ * qc; i += kThreads) {
+      const int r = i / qc, e = i % qc * 8;
+      const bool ok = row0 + r < rows;
+      cp_async16(smem_u32(qs + r * kQS + e), ok ? q + q_row(r) * dk + e : q,
+                 ok);
+    }
+    // columns past dk and dv, never written by a copy: zeroed once
+    const int kpad = DKP - dk, vpad = DVP - dv;
+    for (int i = tid; i < (kBQ + kStages * kBK) * kpad; i += kThreads) {
+      const int r = i / kpad, d = dk + i % kpad;
+      if (r < kBQ)
+        qs[r * kQS + d] = zero;
+      else
+        stage_k((r - kBQ) / kBK)[(r - kBQ) % kBK * kQS + d] = zero;
+    }
+    for (int i = tid; i < kStages * kBK * vpad; i += kThreads) {
+      const int r = i / vpad, d = dv + i % vpad;
+      stage_v(r / kBK)[r % kBK * kVS + d] = zero;
+    }
+  } else {
+    for (int i = tid; i < kBQ * DKP; i += kThreads) {
+      const int r = i / DKP, d = i % DKP;
+      qs[r * kQS + d] = row0 + r < rows && d < dk ? q[q_row(r) * dk + d]
+                                                  : zero;
+    }
+  }
+  cp_async_commit();
+
+  // 2. this thread's two rows (wrow and wrow + 8 of its warp's 16) and the
+  // block's least and greatest query position over its real rows
+  const int wrow = warp * 16 + gq;
+  bool real[2];
+  int pq[2];
+  {
+    int mn = INT_MAX, mx = INT_MIN;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gr = row0 + wrow + 8 * h;
+      real[h] = gr < rows;
+      pq[h] = real[h] ? pos_q[gr / g] : -1;
+      if (real[h]) {
+        mn = min(mn, pq[h]);
+        mx = max(mx, pq[h]);
+      }
+    }
+    mn = __reduce_min_sync(0xffffffffu, mn);
+    mx = __reduce_max_sync(0xffffffffu, mx);
+    if (lane == 0) {
+      qstat[warp] = mn;
+      qstat[kWarps + warp] = mx;
+    }
+  }
+  __syncthreads();
+  int qmin = INT_MAX, qmax = INT_MIN;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    qmin = min(qmin, qstat[w]);
+    qmax = max(qmax, qstat[kWarps + w]);
+  }
+
+  // 3. the tile scan: each tile's least and greatest valid key position
+  // (half a tile per warp step, one redux each), then visit = some (row,
+  // key) pair of the block may be seen, full = every pair is seen (no
+  // mask needed). Conservative: a tile holding a seen pair is visited.
+  const int* pk_b = pos_k + static_cast<long long>(b) * sk;
+  for (int t0 = 0; t0 < ntiles; t0 += kScanTiles) {
+    const int halves = 2 * min(kScanTiles, ntiles - t0);
+#pragma unroll 4
+    for (int h = warp; h < halves; h += kWarps) {
+      const int key = (2 * t0 + h) * 32 + lane;
+      const int p = key < sk ? pk_b[key] : -1;
+      const bool valid = p >= 0;
+      const int lo = __reduce_min_sync(0xffffffffu, valid ? p : INT_MAX);
+      const int hi = __reduce_max_sync(0xffffffffu, valid ? p : INT_MIN);
+      const bool all = __all_sync(0xffffffffu, valid);
+      if (lane == 0) {
+        scan_lo[h] = lo;
+        scan_hi[h] = hi;
+        scan_all[h] = all;
+      }
+    }
+    __syncthreads();
+    if (tid < kScanTiles) {
+      const int t = t0 + tid;
+      bool vis = false, ful = false;
+      if (t < ntiles) {
+        const int lo = min(scan_lo[2 * tid], scan_lo[2 * tid + 1]);
+        const int hi = max(scan_hi[2 * tid], scan_hi[2 * tid + 1]);
+        const bool all = scan_all[2 * tid] && scan_all[2 * tid + 1];
+        vis = hi >= 0 && lo <= qmax
+              && (window < 0
+                  || static_cast<long long>(qmin) - hi < window);
+        ful = vis && all && hi <= qmin
+              && (window < 0
+                  || static_cast<long long>(qmax) - lo < window);
+      }
+      const unsigned vb = __ballot_sync(0xffffffffu, vis);
+      const unsigned fb = __ballot_sync(0xffffffffu, ful);
+      if (lane == 0 && t0 / 32 + warp < words) {
+        visit[t0 / 32 + warp] = vb;
+        full[t0 / 32 + warp] = fb;
+      }
+    }
+    __syncthreads();
+  }
+
+  // the next tile to walk from tile t on: every tile, or the next visited
+  auto next_tile = [&](int t, bool skip) {
+    if (!skip) return t;
+    while (t < ntiles) {
+      const unsigned bits = visit[t >> 5] >> (t & 31);
+      if (bits) return t + __ffs(bits) - 1;
+      t = (t | 31) + 1;
+    }
+    return ntiles;
+  };
+
+  // a thread's 16-byte copies, the same in every tile: K chunk e_k of tile
+  // rows c_k, c_k + k_step, ..., V chunk e_v of rows c_v, ...
+  const int kc = vec ? dk / 8 : 1, vc = vec ? dv / 8 : 1;
+  const int k_step = kThreads / kc, v_step = kThreads / vc;
+  const int c_k = tid < k_step * kc ? tid / kc : kBK;
+  const int c_v = tid < v_step * vc ? tid / vc : kBK;
+  const int e_k = tid % kc * 8, e_v = tid % vc * 8;
+  const __nv_bfloat16* k_src = k + kv_row0 * dk + e_k;
+  const __nv_bfloat16* v_src = v + kv_row0 * dv + e_v;
+  const long long k_stride = static_cast<long long>(kv_heads) * dk;
+  const long long v_stride = static_cast<long long>(kv_heads) * dv;
+
+  // stage s takes tile t: K, V (zeros past sk) and the key positions
+  auto load_tile = [&](int t, int s) {
+    __nv_bfloat16* ks = stage_k(s);
+    __nv_bfloat16* vs = stage_v(s);
+    const int key0 = t * kBK;
+    if (vec) {
+      for (int c = c_k; c < kBK; c += k_step) {
+        const bool ok = key0 + c < sk;
+        cp_async16(smem_u32(ks + c * kQS + e_k),
+                   k_src + (ok ? key0 + c : 0) * k_stride, ok);
+      }
+      for (int c = c_v; c < kBK; c += v_step) {
+        const bool ok = key0 + c < sk;
+        cp_async16(smem_u32(vs + c * kVS + e_v),
+                   v_src + (ok ? key0 + c : 0) * v_stride, ok);
+      }
+    } else {
+      for (int i = tid; i < kBK * DKP; i += kThreads) {
+        const int c = i / DKP, d = i % DKP;
+        const int key = key0 + c;
+        ks[c * kQS + d] = key < sk && d < dk
+            ? k[(kv_row0 + static_cast<long long>(key) * kv_heads) * dk + d]
+            : zero;
+      }
+      for (int i = tid; i < kBK * DVP; i += kThreads) {
+        const int c = i / DVP, d = i % DVP;
+        const int key = key0 + c;
+        vs[c * kVS + d] = key < sk && d < dv
+            ? v[(kv_row0 + static_cast<long long>(key) * kv_heads) * dv + d]
+            : zero;
+      }
+    }
+    if (tid < kBK) {
+      const bool ok = key0 + tid < sk;
+      cp_async4(smem_u32(stage_pos(s) + tid), pk_b + (ok ? key0 + tid : 0),
+                ok);
+    }
+  };
+
+  // ldmatrix lane addresses. A (Q, rows x d): lanes 0-7 rows 0-7 at d 0,
+  // 8-15 rows 8-15 at d 0, 16-23 rows 0-7 at d 8, 24-31 rows 8-15 at d 8.
+  // B of Q K^T (K, keys x d): lanes 0-7 keys 0-7 at d 0, 8-15 keys 0-7 at
+  // d 8, 16-23 keys 8-15 at d 0, 24-31 keys 8-15 at d 8 -> b0, b1 of keys
+  // 0-7, then of keys 8-15. B of P V (V, keys x dv, transposed): lanes 0-7
+  // keys 0-7 at column 0, 8-15 keys 8-15 at 0, 16-23 keys 0-7 at 8, 24-31
+  // keys 8-15 at 8 -> b0, b1 of columns 0-7, then of columns 8-15.
+  const unsigned q_addr = smem_u32(
+      qs + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kQS
+      + (lane >> 4) * 8);
+  const unsigned k_off =
+      (((lane & 7) + ((lane >> 4) << 3)) * kQS + ((lane >> 3) & 1) * 8) * 2;
+  const unsigned v_off =
+      (((lane & 7) + ((lane >> 3) & 1) * 8) * kVS + (lane >> 4) * 8) * 2;
+
+  cp_async_wait<0>();                  // Q has landed for every thread
+  __syncthreads();
+  unsigned qf[L::kQRegs ? DKP / 16 : 1][4];
+  if constexpr (L::kQRegs) {
+#pragma unroll
+    for (int kk = 0; kk < DKP / 16; ++kk)
+      ldmatrix_x4(qf[kk], q_addr + kk * 32);
+  }
+
+  float o[NT][4];
+  float m[2], l[2];
+  for (int pass = 0; pass < 2; ++pass) {
+    // pass 0 skips the tiles the scan found unseen; pass 1 runs only when
+    // a real row ended pass 0 seeing no key, and walks every tile (such a
+    // row averages V over all sk slots, as the reference does)
+    const bool skip = pass == 0;
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+    m[0] = m[1] = kNegInf;
+    l[0] = l[1] = 0.f;
+
+    int t_load = next_tile(0, skip), t_use = t_load;
+#pragma unroll
+    for (int s = 0; s < kStages - 1; ++s) {
+      if (t_load < ntiles) {
+        load_tile(t_load, s);
+        t_load = next_tile(t_load + 1, skip);
+      }
+      cp_async_commit();
+    }
+    for (int it = 0; t_use < ntiles; ++it) {
+      cp_async_wait<kStages - 2>();    // tile it has landed ...
+      __syncthreads();                 // ... for every thread; tile it - 1's
+      if (t_load < ntiles) {           // stage is free again
+        load_tile(t_load, (it + kStages - 1) % kStages);
+        t_load = next_tile(t_load + 1, skip);
+      }
+      cp_async_commit();
+      const int s = it % kStages;
+      const unsigned ks_addr = smem_u32(stage_k(s));
+      const unsigned vs_addr = smem_u32(stage_v(s));
+      const int* ps = stage_pos(s);
+      const int key0 = t_use * kBK;
+      const bool is_full = (full[t_use >> 5] >> (t_use & 31)) & 1u;
+
+      // S = Q K^T: 16 rows x 64 keys per warp, eight n-tiles of 8 keys
+      float sc[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < DKP / 16; ++kk) {
+        unsigned a[4];
+        if constexpr (L::kQRegs) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) a[e] = qf[kk][e];
+        } else {
+          ldmatrix_x4(a, q_addr + kk * 32);
+        }
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          unsigned bb[4];
+          ldmatrix_x4(bb, ks_addr + k_off + (jj * 16 * kQS + kk * 16) * 2);
+          mma_bf16(sc[2 * jj], a, bb[0], bb[1]);
+          mma_bf16(sc[2 * jj + 1], a, bb[2], bb[3]);
+        }
+      }
+
+      // scale (log2 domain) and mask as the reference does: -1e30 for an
+      // unseen key, -inf for a slot past sk; a full tile needs no mask
+      if (is_full) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[j][e] *= scale_log2;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = 8 * j + 2 * tq;
+          const int2 pk = *reinterpret_cast<const int2*>(ps + c);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int p = (e & 1) ? pk.y : pk.x;
+            const int row_pq = pq[e >> 1];
+            bool ok = p >= 0 && p <= row_pq;
+            if (window >= 0) ok = ok && (row_pq - p) < window;
+            const float x = sc[j][e] * scale_log2;
+            sc[j][e] = key0 + c + (e & 1) >= sk ? -CUDART_INF_F
+                       : ok ? x : kNegInf;
+          }
+        }
+      }
+
+      // online softmax in registers: a row's 64 scores lie in the 4 lanes
+      // of a quad, 16 each
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        mx[0] = fmaxf(mx[0], fmaxf(sc[j][0], sc[j][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(sc[j][2], sc[j][3]));
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      }
+      const float corr[2] = {ex2(m[0] - mx[0]), ex2(m[1] - mx[1])};
+      m[0] = mx[0];
+      m[1] = mx[1];
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[j][e] = ex2(sc[j][e] - mx[e >> 1]);
+          sum[e >> 1] += sc[j][e];
+        }
+      l[0] = l[0] * corr[0] + sum[0];      // this lane's part of the row
+      l[1] = l[1] * corr[1] + sum[1];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        o[n][0] *= corr[0];
+        o[n][1] *= corr[0];
+        o[n][2] *= corr[1];
+        o[n][3] *= corr[1];
+      }
+
+      // O += P V: P rounded to bf16 straight from the score accumulators
+      // (n-tiles 2kk and 2kk + 1 form the A fragment of keys 16kk..+15)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const unsigned pa[4] = {
+            pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
+            pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
+            pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
+            pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
+#pragma unroll
+        for (int jj = 0; jj < DVP / 16; ++jj) {
+          unsigned bb[4];
+          ldmatrix_x4_trans(bb, vs_addr + v_off
+                                + (kk * 16 * kVS + jj * 16) * 2);
+          mma_bf16(o[2 * jj], pa, bb[0], bb[1]);
+          mma_bf16(o[2 * jj + 1], pa, bb[2], bb[3]);
+        }
+      }
+      t_use = next_tile(t_use + 1, skip);
+    }
+    cp_async_wait<0>();
+    const bool empty = (real[0] && m[0] == kNegInf)
+                       || (real[1] && m[1] == kNegInf);
+    if (pass == 1 || !__syncthreads_or(empty)) break;
+  }
+
+  // out = acc / max(l, 1e-30) in bf16 (times one reciprocal per row: at
+  // most an ulp of float32 apart, far below bf16's); l summed over the
+  // quad first
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float lh = l[h];
+    lh += __shfl_xor_sync(0xffffffffu, lh, 1);
+    lh += __shfl_xor_sync(0xffffffffu, lh, 2);
+    if (!real[h]) continue;
+    __nv_bfloat16* dst = out + q_row(wrow + 8 * h) * dv;
+    const float inv = 1.f / fmaxf(lh, 1e-30f);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int c = 8 * n + 2 * tq;
+      const float x0 = o[n][2 * h] * inv, x1 = o[n][2 * h + 1] * inv;
+      if (c + 1 < dv && (dv & 1) == 0) {
+        *reinterpret_cast<__nv_bfloat162*>(dst + c) =
+            __floats2bfloat162_rn(x0, x1);
+      } else {
+        if (c < dv) dst[c] = __float2bfloat16_rn(x0);
+        if (c + 1 < dv) dst[c + 1] = __float2bfloat16_rn(x1);
+      }
+    }
+  }
+}
+
+// The operands and sizes of one call.
+struct Call {
+  const void *q, *k, *v, *pos_q, *pos_k;
+  void* out;
+  int b, sq, sk, kv_heads, g, dk, dv, window;
+  float scale;
+  cudaStream_t stream;
+};
+
+// Launches the instance for a's widths; with smem_bytes, only writes the
+// dynamic shared memory that launch would take.
+template <int DKP, int DVP>
+int launch(const Call& a, size_t* smem_bytes) {
+  using L = Layout<DKP, DVP>;
+  const int words = ((a.sk + kBK - 1) / kBK + 31) / 32;
+  const size_t bytes = L::mask_offset + 2 * sizeof(unsigned) * words;
+  if (smem_bytes != nullptr) {
+    *smem_bytes = bytes;
+    return 0;
+  }
+  static bool configured = false;
+  cudaError_t err = allow_smem(flash_tc_kernel<DKP, DVP>, configured);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (bytes > static_cast<size_t>(kMaxSmem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int vec = a.dk % 8 == 0 && a.dv % 8 == 0
+                  && reinterpret_cast<uintptr_t>(a.q) % 16 == 0
+                  && reinterpret_cast<uintptr_t>(a.k) % 16 == 0
+                  && reinterpret_cast<uintptr_t>(a.v) % 16 == 0;
+  const long long blocks =
+      (static_cast<long long>(a.sq) * a.g + kBQ - 1) / kBQ;
+  dim3 grid(static_cast<unsigned>(blocks), a.b * a.kv_heads);
+  flash_tc_kernel<DKP, DVP><<<grid, kThreads, bytes, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q),
+      static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v),
+      static_cast<const int*>(a.pos_q), static_cast<const int*>(a.pos_k),
+      static_cast<__nv_bfloat16*>(a.out), a.sq, a.sk, a.kv_heads, a.g, a.dk,
+      a.dv, a.window, a.scale * kLog2e, words, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dk and dv each round up to the least instantiated width (the repo's
+// prefill head sizes: 64, 128, MLA's 192 / 128, recurrentgemma's 256);
+// the columns past them are zeros, which add 0. A dv above 128 takes a dk
+// width of at least 192, and a dv above 192 the (256, 256) instance: with
+// a narrower dk beside the wide accumulator, ptxas spilled.
+template <int DKP>
+int launch_dv(const Call& a, size_t* smem_bytes) {
+  if (a.dv <= 64) return launch<DKP, 64>(a, smem_bytes);
+  return launch<DKP, 128>(a, smem_bytes);
+}
+
+int launch_widths(const Call& a, size_t* smem_bytes = nullptr) {
+  if (a.dv > 192) return launch<256, 256>(a, smem_bytes);
+  if (a.dv > 128)
+    return a.dk <= 192 ? launch<192, 192>(a, smem_bytes)
+                       : launch<256, 192>(a, smem_bytes);
+  if (a.dk <= 64) return launch_dv<64>(a, smem_bytes);
+  if (a.dk <= 128) return launch_dv<128>(a, smem_bytes);
+  if (a.dk <= 192) return launch_dv<192>(a, smem_bytes);
+  return launch_dv<256>(a, smem_bytes);
+}
+
+}  // namespace tc
+
 bool dims_ok(int b, int sq, int sk, int kv_heads, int g, int dk, int dv) {
   return b > 0 && sq > 0 && sk > 0 && kv_heads > 0 && g > 0 && dk > 0
          && dv > 0 && dk <= kMaxDim && dv <= kMaxDim
@@ -888,6 +1479,33 @@ int flash_attn_fwd(const void* q, const void* k, const void* v,
                          static_cast<cudaStream_t>(stream)};
   return bf16 ? tiled::launch_widths<__nv_bfloat16, 0, 0>(call)
               : tiled::launch_widths<float, 0, 0>(call);
+}
+
+// The tensor-core route: sizes as for flash_attn_fwd, bf16 tensors only,
+// 1 <= dk, dv <= 256.
+int flash_attn_tc(const void* q, const void* k, const void* v,
+                  const void* pos_q, const void* pos_k, void* out, int b,
+                  int sq, int sk, int kv_heads, int g, int dk, int dv,
+                  int window, float scale, void* stream) {
+  if (!dims_ok(b, sq, sk, kv_heads, g, dk, dv) || dk > tc::kMaxDim
+      || dv > tc::kMaxDim)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const tc::Call call{q, k, v, pos_q, pos_k, out, b, sq, sk, kv_heads, g,
+                      dk, dv, window, scale,
+                      static_cast<cudaStream_t>(stream)};
+  return tc::launch_widths(call);
+}
+
+// Bytes of dynamic shared memory the tensor-core route's block takes at
+// these sizes (0 for sizes it refuses).
+int flash_attn_tc_smem_bytes(int dk, int dv, int sk) {
+  if (dk <= 0 || dv <= 0 || sk <= 0 || dk > tc::kMaxDim || dv > tc::kMaxDim)
+    return 0;
+  const tc::Call call{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                      1, 1, sk, 1, 1, dk, dv, -1, 1.f, nullptr};
+  size_t bytes = 0;
+  tc::launch_widths(call, &bytes);
+  return static_cast<int>(bytes);
 }
 
 // How many key splits the split route uses for these sizes: the count

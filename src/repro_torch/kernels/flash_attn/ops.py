@@ -11,11 +11,15 @@ returns a CUDA error raises):
   most ``SPLIT_MAX_ROWS`` query rows per (batch, kv head) pair, Sq·G: the
   key slots split over blocks, each block's (m, l, acc) merged in split
   order by a second kernel (decode);
-- ``"tiled"`` (``flash_tiled_kernel``) otherwise: blocks of query rows
-  walking every key tile (prefill).
+- ``"tensor_core"`` (``flash_tc_kernel``) for more rows in bf16 with dk,
+  dv ≤ ``TC_MAX_HEAD_DIM``: Q·Kᵀ and P·V on the tensor cores, skipping
+  the key tiles no row of a block sees (prefill);
+- ``"tiled"`` (``flash_tiled_kernel``) otherwise: float32, or wider
+  heads; blocks of query rows walking every key tile on the CUDA cores.
 
-Both take any Sq and Sk and head sizes 1 ≤ dk, dv ≤ ``MAX_HEAD_DIM``, and
-pick their own tiles and splits, so the reference's block sizes and
+``split_kv`` and ``tiled`` take any Sq and Sk and head sizes 1 ≤ dk, dv ≤
+``MAX_HEAD_DIM``, ``tensor_core`` bf16 up to ``TC_MAX_HEAD_DIM``; each
+picks its own tiles and splits, so the reference's block sizes and
 ``interpret`` have no counterpart.
 
 The layout is the models' (``models.attention.chunked_attention``): q
@@ -38,16 +42,23 @@ from ..._device import sm_count as _sm_count
 from . import ref as _ref
 
 LAUNCHES = {"flash_attn": 0}
-ROUTES = {"tiled": 0, "split_kv": 0}
+ROUTES = {"tiled": 0, "split_kv": 0, "tensor_core": 0}
 # The largest dk and dv the kernels take: MLA's decode reads a 576-wide
 # latent key (kv_lora_rank 512 + rope 64) and a 512-wide value.
 MAX_HEAD_DIM = 576
+# The largest dk and dv the tensor-core kernel takes: every prefill head
+# size of the repo's configs (64, 128, MLA's 192 / 128, recurrentgemma's
+# 256).
+TC_MAX_HEAD_DIM = 256
 # The most query rows per (batch, kv head) pair, Sq·G, that take the split
 # route: decode (Sq = 1, G <= 16 in every config of the repo) takes it,
-# prefill (Sq·G in the hundreds) the tiled one. 64 is the largest row count
-# timed, not a measured crossover: on one H100 the split route was 3x to
-# 90x faster at 4, 16 and 64 rows, over 144 and 8,192 slots
-# (chip_smoke.py's `route threshold flash_attn` line; PERF.md).
+# prefill (Sq·G in the hundreds) the tensor-core or tiled one. On one H100
+# (chip_smoke.py's `route threshold flash_attn` line; PERF.md) bf16 crosses
+# over between 16 and 64 rows: at 16 the split route was 2.3x faster over
+# 8,192 slots, at 64 the tensor-core route 1.6-1.9x faster over 144 and
+# 8,192. 64 is kept: no call of the repo's paths has 17 to 64 rows, and
+# float32 there would leave the split route for the tiled one (2.6-7.8x
+# slower at 64 rows in those bf16 timings).
 SPLIT_MAX_ROWS = 64
 
 
@@ -57,11 +68,17 @@ def reset_launches() -> None:
         ROUTES[r] = 0
 
 
-def route(sq: int, g: int) -> str:
+def route(sq: int, g: int, dtype: torch.dtype, dk: int, dv: int) -> str:
     """Which kernel a card call with ``sq`` queries of ``g`` heads per kv
-    head takes: "split_kv" for ``sq * g <= SPLIT_MAX_ROWS`` query rows per
-    pair, else "tiled"."""
-    return "split_kv" if sq * g <= SPLIT_MAX_ROWS else "tiled"
+    head, of ``dtype`` and head sizes ``dk``, ``dv``, takes: "split_kv" for
+    ``sq * g <= SPLIT_MAX_ROWS`` query rows per pair; else "tensor_core"
+    for bf16 with dk, dv <= ``TC_MAX_HEAD_DIM``; else "tiled" (float32
+    keeps the CUDA cores' float32 products and its 2e-5 bound)."""
+    if sq * g <= SPLIT_MAX_ROWS:
+        return "split_kv"
+    if dtype == torch.bfloat16 and max(dk, dv) <= TC_MAX_HEAD_DIM:
+        return "tensor_core"
+    return "tiled"
 
 
 def _on_card(x: torch.Tensor) -> bool:
@@ -147,17 +164,22 @@ def flash_attention(q, k, v, pos_q, pos_k, *, window=None,
     pos_k = (pos_k if pos_k.dim() == 2 else pos_k[None, :].expand(B, Sk)
              ).to(torch.int32).contiguous()
     scale = float(dk ** -0.5 if scale is None else scale)
-    return _launch(q, k, v, pos_q, pos_k, out, window, scale, route(Sq, G))
+    return _launch(q, k, v, pos_q, pos_k, out, window, scale,
+                   route(Sq, G, q.dtype, dk, dv))
 
 
 def _launch(q, k, v, pos_q, pos_k, out, window, scale, which, splits=None):
     """Launch the kernel(s) of route ``which`` into ``out`` (int32
     contiguous positions, pos_k (B, Sk)); ``splits`` overrides the split
     route's own choice of key splits."""
-    lib = _lib()
     B, Sq, KV, G, dk = q.shape
     Sk, dv = k.shape[1], v.shape[-1]
     bf16 = int(q.dtype == torch.bfloat16)
+    if which == "tensor_core" and (not bf16 or max(dk, dv) > TC_MAX_HEAD_DIM):
+        raise ValueError(f"flash_attention: the tensor_core route takes bf16 "
+                         f"with dk, dv <= {TC_MAX_HEAD_DIM}, got {q.dtype}, "
+                         f"dk {dk}, dv {dv}")
+    lib = _lib()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_q.data_ptr(),
             pos_k.data_ptr(), out.data_ptr())
     sizes = (B, Sq, Sk, KV, G, dk, dv, -1 if window is None else int(window),
@@ -171,6 +193,8 @@ def _launch(q, k, v, pos_q, pos_k, out, window, scale, which, splits=None):
                                 dtype=torch.float32, device=q.device)
         rc = lib.flash_attn_split_kv(*args, workspace.data_ptr(), *sizes,
                                      splits, stream)
+    elif which == "tensor_core":
+        rc = lib.flash_attn_tc(*args, *sizes[:-1], stream)
     else:
         rc = lib.flash_attn_fwd(*args, *sizes, stream)
     if rc != 0:

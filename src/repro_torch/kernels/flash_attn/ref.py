@@ -12,15 +12,19 @@ models' layout, with a batch axis and per-row key positions:
   −1e30. Returns (B, Sq, KV, G, dv) in q's dtype; the scores and the
   softmax are float32.
 
-``split_kv_flash_attention`` is the split route's algorithm in the same
-math, for the CPU tests of that algorithm; nothing on the main path calls
-it.
+``split_kv_flash_attention`` and ``tensor_core_flash_attention`` are the
+split and tensor-core routes' algorithms in the same math, for the CPU
+tests of those algorithms; nothing on the main path calls them.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
+# query rows per block of the tensor-core kernel (its skip decisions are
+# per block)
+TC_BLOCK_ROWS = 128
 
 
 def _masked_scores(q, k, pos_q, pos_k, window, scale):
@@ -78,3 +82,76 @@ def split_kv_flash_attention(q, k, v, pos_q, pos_k, *, splits, window=None,
         acc = acc + ap * w[..., None]
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.permute(0, 3, 1, 2, 4).to(q.dtype)
+
+
+def tensor_core_flash_attention(q, k, v, pos_q, pos_k, *, window=None,
+                                scale=None, tile=64, skip=True):
+    """The tensor-core route's algorithm. Per (batch, kv head) pair, row r
+    is (query r // G, group r % G), and the rows go in blocks of
+    ``TC_BLOCK_ROWS``. Each block walks the key slots in tiles of ``tile``
+    with an online softmax (m from −1e30, slots past Sk at −inf), P
+    rounded to bf16 before P·V, l summed from the unrounded P. With
+    ``skip`` a block passes over a tile unless some valid key of it may be
+    seen by one of its real rows: least valid position <= the block's
+    greatest pos_q and, under a window, the block's least pos_q − the
+    greatest valid position < window. If a real row of the block then
+    ends with m = −1e30 (it saw no key), the block walks every tile again,
+    so that row averages V over all Sk slots as the reference does."""
+    B, Sq, KV, G, dk = q.shape
+    Sk, dv = k.shape[1], v.shape[-1]
+    R = Sq * G
+    s = _masked_scores(q, k, pos_q, pos_k, window, scale)   # (B,KV,G,Sq,Sk)
+    s = s.permute(0, 1, 3, 2, 4).reshape(B, KV, R, Sk)
+    nt = -(-Sk // tile)
+    pad = nt * tile - Sk
+    s = F.pad(s, (0, pad), value=float("-inf"))
+    vf = F.pad(v.to(torch.float32), (0, 0, 0, 0, 0, pad))
+    pk = pos_k if pos_k.dim() == 2 else pos_k[None, :].expand(B, -1)
+    pk = F.pad(pk.to(torch.int64), (0, pad), value=-1).reshape(B, nt, tile)
+    big = torch.iinfo(torch.int64).max
+    lo = torch.where(pk >= 0, pk, big).amin(-1)          # (B, nt)
+    hi = pk.amax(-1)                                     # -1: no valid key
+    blk = torch.arange(R) // TC_BLOCK_ROWS               # row -> block
+    nb = -(-R // TC_BLOCK_ROWS)
+
+    def per_block(x, fill):
+        """(..., R) -> (..., nb, TC_BLOCK_ROWS), padding rows at fill."""
+        x = F.pad(x, (0, nb * TC_BLOCK_ROWS - R), value=fill)
+        return x.reshape(*x.shape[:-1], nb, TC_BLOCK_ROWS)
+
+    pq = pos_q.to(torch.int64)[torch.arange(R) // G]
+    qmin = per_block(pq, big).amin(-1)                   # (nb,)
+    qmax = per_block(pq, -big).amax(-1)
+    vis = (hi[:, None, :] >= 0) & (lo[:, None, :] <= qmax[None, :, None])
+    if window is not None:
+        vis &= (qmin[None, :, None] - hi[:, None, :]) < window
+    vis = vis[:, blk]                                    # (B, R, nt)
+
+    def walk(visit):
+        m = torch.full((B, KV, R), NEG_INF)
+        l = torch.zeros((B, KV, R))
+        acc = torch.zeros((B, KV, R, dv))
+        for t in range(nt):
+            st = s[..., t * tile:(t + 1) * tile]
+            m_new = torch.maximum(m, st.amax(-1))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(st - m_new[..., None])
+            pv = torch.einsum("bkrs,bskd->bkrd",
+                              p.to(torch.bfloat16).to(torch.float32),
+                              vf[:, t * tile:(t + 1) * tile])
+            on = visit[:, None, :, t]                    # (B, 1, R)
+            m = torch.where(on, m_new, m)
+            l = torch.where(on, l * corr + p.sum(-1), l)
+            acc = torch.where(on[..., None], acc * corr[..., None] + pv, acc)
+        return m, l, acc
+
+    m, l, acc = walk(vis if skip else torch.ones_like(vis))
+    if skip:
+        again = per_block(m == NEG_INF, False).any(-1)[:, :, blk]
+        if bool(again.any()):
+            _, l2, acc2 = walk(torch.ones_like(vis))
+            l = torch.where(again, l2, l)
+            acc = torch.where(again[..., None], acc2, acc)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    out = out.reshape(B, KV, Sq, G, dv).permute(0, 2, 1, 3, 4)
+    return out.to(q.dtype)

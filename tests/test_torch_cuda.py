@@ -1,6 +1,6 @@
 """The port's kernels on the card against their plain versions, at ragged
 shapes and options that ``chip_smoke.py``'s full-width run does not reach
-(``ripple_add`` at every width, ``pim_matmul`` and ``flash_attn`` on both
+(``ripple_add`` at every width, ``pim_matmul`` and ``flash_attn`` on each
 of their routes, odd and random sizes), and the smoke-size serving path on
 the card against the CPU.
 
@@ -15,8 +15,9 @@ the same float32 function, summing in another order); flash, abs 2e-5 in
 float32 (the reference tests' bound) and 1e-2 of max |plain| in bf16 (both
 sides compute in float32 from the same bf16 inputs and round the output,
 so they differ by about one bf16 ulp of the largest output, at most 2^-7
-of it); logits, 2e-2 of max |logit| (the bound the CPU tests hold the
-bf16 model to).
+of it; the tensor-core route also rounds P to bf16, which moves an output
+by at most 2^-9 of max |v|); logits, 2e-2 of max |logit| (the bound the
+CPU tests hold the bf16 model to).
 """
 import numpy as np
 import pytest
@@ -208,13 +209,25 @@ def launch_route(q, k, v, pos_q, pos_k, window, which, splits=None):
                       q.shape[-1] ** -0.5, which, splits)
 
 
+def tc_takes(dtype, dk, dv):
+    """Whether the tensor-core route takes these operands (else it must
+    raise)."""
+    return dtype == torch.bfloat16 and max(dk, dv) <= fa.TC_MAX_HEAD_DIM
+
+
 @pytest.mark.parametrize("shape", ROUTE_SHAPES)
-@pytest.mark.parametrize("which", ["tiled", "split_kv"])
+@pytest.mark.parametrize("which", ["tiled", "split_kv", "tensor_core"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_routes_match_plain(card, shape, which, dtype):
-    """Each route, forced, against the plain version, dv != dk included."""
+    """Each route, forced, against the plain version, dv != dk included;
+    the tensor-core route takes bf16 up to TC_MAX_HEAD_DIM and raises for
+    float32 or wider heads (no fallback)."""
     q, k, v, pos_q, pos_k = flash_operands(shape, dtype, sum(shape[:7]))
     window = shape[7]
+    if which == "tensor_core" and not tc_takes(dtype, shape[5], shape[6]):
+        with pytest.raises(ValueError, match="tensor_core"):
+            launch_route(q, k, v, pos_q, pos_k, window, which)
+        return
     got = launch_route(q, k, v, pos_q, pos_k, window, which)
     exp = fref.ref_flash_attention(q, k, v, pos_q, pos_k, window=window)
     assert got.shape == exp.shape
@@ -252,7 +265,7 @@ def test_flash_split_counts_and_rings(card, splits):
 
 @pytest.mark.parametrize("seed", range(8))
 def test_flash_routes_random_shapes(card, seed):
-    """Both routes on random sizes (head sizes 1-576 with dv apart from dk,
+    """All routes on random sizes (head sizes 1-576 with dv apart from dk,
     shuffled and invalid key positions, a batch row with no key, windows,
     forced split counts, K off 16-byte alignment) against the plain
     version; the split route twice on the same inputs gives the same bits
@@ -288,7 +301,11 @@ def test_flash_routes_random_shapes(card, seed):
         q, k, v = (t.to(dtype) for t in (q, k, v))
         exp = fref.ref_flash_attention(q, k, v, pos_q, pos_k, window=window)
         bound = flash_bound(exp, max(1.0, float(exp.float().abs().max())))
-        for which in ("split_kv", "tiled"):
+        for which in ("split_kv", "tiled", "tensor_core"):
+            if which == "tensor_core" and not tc_takes(dtype, dk, dv):
+                with pytest.raises(ValueError, match="tensor_core"):
+                    launch_route(q, k, v, pos_q, pos_k, window, which)
+                continue
             got = launch_route(q, k, v, pos_q, pos_k, window, which, splits)
             err = float((got.float() - exp.float()).abs().max())
             assert err <= bound, (case, which, err)
@@ -296,6 +313,45 @@ def test_flash_routes_random_shapes(card, seed):
                 again = launch_route(q, k, v, pos_q, pos_k, window, which,
                                      splits)
                 assert torch.equal(got, again), case
+
+
+# (B, Sq, Sk, KV, G, dk, dv, window, shift): prefill shapes on the
+# tensor-core route, the key positions shifted up by ``shift`` so that the
+# first queries see no key (their blocks walk every tile again)
+TC_SHAPES = [(2, 130, 130, 2, 4, 128, 128, None, 0),
+             (1, 300, 300, 2, 4, 128, 128, None, 0),
+             (2, 100, 100, 2, 4, 128, 128, None, 20),
+             (1, 70, 200, 1, 10, 256, 256, 64, 90),
+             (2, 64, 64, 2, 16, 192, 128, None, 30),
+             (1, 150, 150, 3, 1, 64, 64, 40, 0)]
+
+
+@pytest.mark.parametrize("shape", TC_SHAPES)
+def test_flash_tensor_core_skips_and_second_pass(card, shape):
+    """The tensor-core route at causal prefill shapes: skipped key tiles
+    (rows that see few keys) and rows that see no key, whose blocks walk
+    every tile again so those rows average V over all slots, against the
+    plain version; the call counts one tensor_core launch."""
+    B, Sq, Sk, KV, G, dk, dv, window, shift = shape
+    gen = torch.Generator(device="cuda").manual_seed(Sq + Sk + shift)
+    q, k, v = (torch.randn(s, generator=gen, device=card).to(torch.bfloat16)
+               for s in ((B, Sq, KV, G, dk), (B, Sk, KV, dk),
+                         (B, Sk, KV, dv)))
+    pos_q = torch.arange(Sq, dtype=torch.int32, device=card)
+    pos_k = (torch.arange(Sk, dtype=torch.int32, device=card)
+             + shift).repeat(B, 1)
+    fa.reset_launches()
+    got = fa.flash_attention(q, k, v, pos_q, pos_k, window=window)
+    assert fa.ROUTES == {"tiled": 0, "split_kv": 0, "tensor_core": 1}
+    exp = fref.ref_flash_attention(q, k, v, pos_q, pos_k, window=window)
+    err = float((got.float() - exp.float()).abs().max())
+    assert err < flash_bound(exp), f"max abs err {err}"
+    if shift:
+        blind = int(min(shift, Sq))       # queries 0 .. shift - 1
+        mean = v.float().mean(dim=1)      # (B, KV, dv)
+        want = mean[:, None, :, None, :].expand(B, blind, KV, G, dv)
+        assert torch.allclose(got[:, :blind].float(), want, rtol=1e-2,
+                              atol=1e-2)
 
 
 @pytest.mark.parametrize("m", [5, 64])
@@ -328,7 +384,7 @@ def test_launch_counts_and_refusals(card):
     pos = torch.arange(3, dtype=torch.int32, device=card)
     fa.flash_attention(q, k, k, pos[1:], pos)
     assert pm.LAUNCHES["pim_matmul"] == 1 and fa.LAUNCHES["flash_attn"] == 1
-    assert fa.ROUTES == {"tiled": 0, "split_kv": 1}
+    assert fa.ROUTES == {"tiled": 0, "split_kv": 1, "tensor_core": 0}
     with pytest.raises(ValueError, match="576"):
         fa.flash_attention(torch.zeros((1, 2, 1, 2, 640), device=card),
                            torch.zeros((1, 3, 1, 640), device=card),

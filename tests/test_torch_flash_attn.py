@@ -252,18 +252,51 @@ def test_split_kv_plain_matches_plain(case):
         assert float(got.abs().max()) < 10.0
 
 
-def test_route_rule():
+N_SPLIT = port_ops.SPLIT_MAX_ROWS
+N_TC = port_ops.TC_MAX_HEAD_DIM
+BF16, F32 = torch.bfloat16, torch.float32
+# (Sq, G, dtype, dk, dv, route)
+ROUTE_CASES = [
+    (1, 4, F32, 128, 128, "split_kv"), (1, 16, BF16, 128, 128, "split_kv"),
+    (1, N_SPLIT, F32, 128, 128, "split_kv"),
+    (1, N_SPLIT + 1, F32, 128, 128, "tiled"), (128, 4, F32, 128, 128, "tiled"),
+    (128, 1, F32, 128, 128, "tiled"),
+    (1, 16, BF16, 576, 512, "split_kv"),          # MLA decode
+    (1, N_SPLIT + 1, BF16, 128, 128, "tensor_core"),
+    (128, 4, BF16, 128, 128, "tensor_core"),      # Qwen3-4B prefill
+    (128, 16, BF16, 192, 128, "tensor_core"),     # MLA prefill
+    (128, 10, BF16, N_TC, N_TC, "tensor_core"),   # recurrentgemma prefill
+    (128, 4, BF16, 36, 100, "tensor_core"),
+    (128, 4, BF16, N_TC + 1, 128, "tiled"), (128, 4, BF16, 64, N_TC + 8,
+                                             "tiled"),
+    (128, 16, BF16, 576, 512, "tiled"), (128, 4, F32, 64, 64, "tiled"),
+]
+
+
+@pytest.mark.parametrize("case", ROUTE_CASES)
+def test_route_rule(case):
     """Up to SPLIT_MAX_ROWS query rows per (batch, kv head) pair take the
     split route (every decode of the repo's configs: Sq 1, G <= 16); more
-    take the tiled one (prefill)."""
-    n = port_ops.SPLIT_MAX_ROWS
-    assert port_ops.route(1, 4) == "split_kv"
-    assert port_ops.route(1, 16) == "split_kv"
-    assert port_ops.route(1, n) == "split_kv"
-    assert port_ops.route(1, n + 1) == "tiled"
-    assert port_ops.route(128, 4) == "tiled"
-    assert port_ops.route(128, 1) == "tiled"
-    assert set(port_ops.ROUTES) == {"tiled", "split_kv"}
+    take the tensor-core one in bf16 with dk, dv <= TC_MAX_HEAD_DIM
+    (prefill), else the tiled one (float32, wider heads)."""
+    sq, g, dtype, dk, dv, expected = case
+    assert port_ops.route(sq, g, dtype, dk, dv) == expected
+    assert set(port_ops.ROUTES) == {"tiled", "split_kv", "tensor_core"}
+
+
+@pytest.mark.parametrize("dtype,dk,dv", [(F32, 64, 64), (BF16, N_TC + 1, 64),
+                                         (BF16, 64, 576)])
+def test_tensor_core_route_refuses(dtype, dk, dv):
+    """Forced onto the tensor-core route, float32 or a head size above
+    TC_MAX_HEAD_DIM raises before any library is built: no fallback."""
+    q = torch.zeros((1, 2, 1, 64, dk), dtype=dtype)
+    k = torch.zeros((1, 8, 1, dk), dtype=dtype)
+    v = torch.zeros((1, 8, 1, dv), dtype=dtype)
+    pos = torch.arange(8, dtype=torch.int32)
+    out = torch.empty((1, 2, 1, 64, dv), dtype=dtype)
+    with pytest.raises(ValueError, match="tensor_core"):
+        port_ops._launch(q, k, v, pos[-2:], pos[None], out, None, 0.1,
+                         "tensor_core")
 
 
 @pytest.mark.parametrize("dk,dv", [(16, 16), (64, 64), (128, 128),
@@ -284,3 +317,105 @@ def test_config_head_sizes_on_cpu(dk, dv):
                                  impl="naive"))
     err = float(np.max(np.abs(got - exp)))
     assert err < 1e-5, f"max abs err {err}"
+
+
+def tc_inputs(B, KV, G, Sq, Sk, dk, dv, *, seed, ring=False, late_keys=0,
+              empty_batch_row=False):
+    """bf16 model-layout inputs, causal prefill positions (queries at the
+    last Sq positions); ``ring``: Sk slots of a ring after position Sk +
+    40 (unsorted kpos, −1 where nothing was written); ``late_keys``: key
+    positions shifted up, so the first queries see no key;
+    ``empty_batch_row``: the last batch row has no valid key. V at −1
+    slots is poisoned."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.normal(size=s).astype(np.float32) for s in
+               ((B, Sq, KV, G, dk), (B, Sk, KV, dk), (B, Sk, KV, dv)))
+    last = Sk + 40 if ring else Sk - 1
+    pq = np.arange(last - Sq + 1, last + 1, dtype=np.int32)
+    if ring:
+        pk = ring_cache(B, Sk, last, seed)
+    else:
+        pk = np.tile(np.arange(Sk, dtype=np.int32) + late_keys, (B, 1))
+        pk[:, Sk - 3:] = -1
+    if empty_batch_row:
+        pk[-1] = -1
+    v[pk < 0] = 1e4
+    t = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)]
+    return t + [torch.from_numpy(pq), torch.from_numpy(pk)]
+
+
+@pytest.mark.parametrize("G", [1, 4, 10])
+@pytest.mark.parametrize("window", [None, 40])
+def test_tensor_core_plain_matches_pallas(G, window):
+    """The tensor-core route's algorithm (tiles of 64 keys, blocks of 64
+    rows skipping unseen tiles, P in bf16) against the reference's Pallas
+    kernel in interpret mode on the same bf16 inputs, at the reference's
+    bf16 tolerance: causal prefill, Sq = Sk = 130 (three key tiles, the
+    last ragged; up to 21 row blocks)."""
+    rng = np.random.default_rng(G * 7 + (window or 0))
+    B, KV, Sq, Sk, dh = 2, 2, 130, 130, 16
+    q, k, v = (rng.normal(size=s).astype(np.float32) for s in
+               ((B, Sq, KV, G, dh), (B, Sk, KV, dh), (B, Sk, KV, dh)))
+    q, k, v = (np.array(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+               for a in (q, k, v))
+    pq = np.arange(Sq, dtype=np.int32)
+    pk = np.tile(np.arange(Sk, dtype=np.int32), (B, 1))
+    exp = pallas_reference(q, k, v, pq, pk, window, dtype=jnp.bfloat16,
+                           bq=256, bk=512)
+    t = [torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)]
+    got = fref.tensor_core_flash_attention(
+        *t, torch.from_numpy(pq), torch.from_numpy(pk), window=window)
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == q.shape
+    err = float(np.max(np.abs(got.float().numpy() - exp)))
+    assert err < BF16_ABS, f"max abs err {err} (bound {BF16_ABS})"
+
+
+# (name, B, KV, G, Sq, Sk, dk, dv, window, options of tc_inputs)
+TC_CASES = [
+    ("causal prefill, G 4", 2, 2, 4, 130, 130, 32, 32, None, {}),
+    ("G 1", 2, 3, 1, 150, 150, 16, 16, None, {}),
+    ("G 10", 1, 1, 10, 70, 140, 32, 32, None, {}),
+    ("window", 2, 1, 4, 200, 200, 16, 16, 50, {}),
+    ("dv != dk", 2, 2, 4, 96, 96, 48, 24, None, {}),
+    ("dv > dk, Sk not a multiple of 64", 1, 2, 4, 20, 150, 16, 40, None, {}),
+    ("ring cache, unsorted positions, window", 2, 1, 10, 30, 100, 16, 16,
+     64, {"ring": True}),
+    ("a row that sees no key", 2, 2, 4, 100, 100, 16, 16, None,
+     {"late_keys": 20}),
+    ("a batch row with no key", 3, 1, 4, 40, 90, 16, 16, 30,
+     {"empty_batch_row": True}),
+]
+
+
+@pytest.mark.parametrize("case", TC_CASES, ids=[c[0] for c in TC_CASES])
+def test_tensor_core_plain_matches_plain(case):
+    """The tensor-core route's algorithm against plain masked softmax on
+    the same bf16 inputs, within 1e-2 of max |plain| (the card's bf16
+    bound: rounding P to bf16 moves an output by at most 2^-9 of max |v|);
+    with tile skipping equal bit for bit to the full walk when every row
+    sees a key; a row that sees no key averages V over all Sk slots (the
+    block walks every tile again)."""
+    name, B, KV, G, Sq, Sk, dk, dv, window, opts = case
+    t = tc_inputs(B, KV, G, Sq, Sk, dk, dv, seed=len(name), **opts)
+    exp = fref.ref_flash_attention(*t, window=window)
+    got = fref.tensor_core_flash_attention(*t, window=window)
+    full = fref.tensor_core_flash_attention(*t, window=window, skip=False)
+    assert got.shape == exp.shape == (B, Sq, KV, G, dv)
+    assert got.dtype == torch.bfloat16
+    err = float((got.float() - exp.float()).abs().max())
+    bound = 1e-2 * float(exp.float().abs().max())
+    assert err < bound, f"max abs err {err} (bound {bound:.3e})"
+    _, _, _, pq, pk = t
+    seen = (pk[:, None, :] >= 0) & (pk[:, None, :] <= pq[None, :, None])
+    if window is not None:
+        seen &= (pq[None, :, None] - pk[:, None, :]) < window
+    blind = ~seen.any(-1)                               # (B, Sq)
+    if not bool(blind.any()):
+        assert torch.equal(got, full)
+    else:
+        assert "no key" in name
+        mean = t[2].float().mean(dim=1)                 # (B, KV, dv)
+        want = mean[:, None, :, None, :].expand(B, Sq, KV, G, dv)
+        sel = blind[:, :, None, None, None].expand_as(want)
+        assert torch.allclose(got.float()[sel], want[sel], rtol=1e-2)
+        assert torch.equal(got, full)

@@ -163,13 +163,15 @@ def test_cuda_tensors_never_take_the_plain_path(monkeypatch):
     q = torch.zeros((1, 40, 1, 2, 16))         # 80 rows: the tiled route
     k = torch.zeros((1, 40, 1, 16))
     fa.flash_attention(q, k, k, torch.arange(40), torch.arange(40))
+    q, k = q.to(torch.bfloat16), k.to(torch.bfloat16)   # the tensor cores
+    fa.flash_attention(q, k, k, torch.arange(40), torch.arange(40))
     fa._splits.cache_clear()
     assert lib.calls == ["pim_matmul_splits", "pim_matmul",
                          "flash_attn_split_kv_splits", "flash_attn_split_kv",
-                         "flash_attn_fwd"]
+                         "flash_attn_fwd", "flash_attn_tc"]
     assert pm.LAUNCHES["pim_matmul"] >= 1
-    assert fa.ROUTES == {"tiled": 1, "split_kv": 1}
-    assert fa.LAUNCHES["flash_attn"] == 2
+    assert fa.ROUTES == {"tiled": 1, "split_kv": 1, "tensor_core": 1}
+    assert fa.LAUNCHES["flash_attn"] == 3
     pm.reset_launches()
     fa.reset_launches()
 
