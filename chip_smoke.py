@@ -26,8 +26,11 @@ each, every mismatch fatal:
                reset just before, read just after); each kernel must run;
 6. lm kernels — pim_matmul (M 4 and 512, K x N 2560 x 9728 and 9728 x
                2560, both modes, 4 and 8 bits; each row names the route,
-               ``cuda_core`` or ``tensor_core``, that ``ops.route`` gives
-               it) and flash_attn (each row names its route,
+               ``swap_ab`` at M 4 and ``tensor_core`` at M 512, that
+               ``ops.route`` gives it; the M 4 rows cycle over four weight
+               copies, 100 MB, so each call finds its weights outside the
+               50 MB L2 as a decode step does, and also time the
+               ``cuda_core`` route) and flash_attn (each row names its route,
                ``tensor_core``, ``tiled`` or ``split_kv``: Qwen3-4B's heads
                at prefill and decode, that decode over 8,192 slots, MLA's
                decode at dk 576 / dv 512, recurrentgemma-2b's decode on a
@@ -36,28 +39,30 @@ each, every mismatch fatal:
                their plain versions on the card (flash in float32, on the
                tiled route, and bf16), with device and per-call times,
                bound and the time of one PyTorch library call (the
-               tensor-core rows also time the tiled route); then both
-               pim_matmul routes at M 8, 16 and 64 and the three flash
-               routes at 4 to 256 rows per pair (the route thresholds),
-               the tensor-core kernel's K splits at M 512 and the flash
-               split route's key splits at its decode shapes, each timed;
-               the ``ptxas`` report (registers, shared memory, spills) of
-               both tensor-core kernels and of the split route's kernels
-               (the run fails if flash's tensor-core instances at 128 /
-               128, 192 / 128 or 256 / 256 spill), and the ``HMMA`` count
-               (``cuobjdump -sass``) of both tensor-core kernels, which
-               must be above 0 in every instance;
+               tensor-core rows also time the tiled route); then the three
+               pim_matmul routes at M 4, 8, 16 and 64 (``swap_ab`` up to
+               16) and the three flash routes at 4 to 256 rows per pair
+               (the route thresholds), the tensor-core kernel's K splits at
+               M 512, the swapped kernel's at M 4 and the flash split
+               route's key splits at its decode shapes, each timed; the
+               ``ptxas`` report (registers, shared memory, spills) of the
+               pim_matmul tensor-core kernels and of flash's (the run fails
+               if a swapped instance or flash's tensor-core instance at 128
+               / 128, 192 / 128 or 256 / 256 spills), and the ``HMMA``
+               count (``cuobjdump -sass``) of every tensor-core kernel,
+               which must be above 0 in every instance, with the swapped
+               kernel's integer instructions per weight code;
 7. serve     — the LM serving path: ``greedy_generate`` on Qwen3-4B
                (pim_w4, shift_add) at full width and depth, weights from a
                seed, batch 4, prompt 128, 16 new tokens (launch counts reset
                just before, read just after, each kernel must run, prefill's
                108 pim_matmul calls on the tensor cores and decode's 1,620
-               on the CUDA cores, prefill's 36 flash_attn calls on the
-               tensor cores and decode's 540 split over the keys); ms of
-               prefill and per decode token, GB on the card, decode against
-               prefill, the busy share of one prefill and one decode step,
-               and the kernel ms of prefill and of a decode step with
-               flash's share of each;
+               on the swapped operands, none on the CUDA cores, prefill's
+               36 flash_attn calls on the tensor cores and decode's 540
+               split over the keys); ms of prefill and per decode token, GB
+               on the card, decode against prefill, the busy share of one
+               prefill and one decode step, and the kernel ms of prefill
+               and of a decode step with pim_matmul's and flash's shares;
 8. lm parity — the same model at 2 layers, on the card (kernels) and on the
                CPU (plain versions), logits compared step by step;
 9. ripple    — ``ripple_add`` against its plain version at (512, 2,048) for
@@ -147,6 +152,10 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 128, 16
 # prefill (M = batch x prompt); the first is the table's row
 PIM_SHAPES = ((4, 2560, 9728), (4, 9728, 2560), (512, 2560, 9728),
               (512, 9728, 2560))
+# decode-sized calls are timed over this many copies of their weights,
+# cycled (4 x 25 MB of int8 codes, beyond the 50 MB L2), as a decode step
+# reads 108 different weights
+WEIGHT_COPIES = 4
 # flash_attn: (B, KV, G, dk, dv, Sq, Sk, last query position, window,
 # ring). Qwen3-4B's heads at prefill and at decode (the slots after the
 # query's position hold kpos -1 and poisoned values), the same decode over
@@ -172,10 +181,13 @@ FLASH_THRESHOLD_SK = (144, 8192)
 # the split route's key split counts timed at each decode shape, beside
 # the one its cost rule picks
 FLASH_SPLITS = (1, 2, 4, 8, 16, 32, 64)
-# both pim_matmul routes at these M, at (M, 2560) @ (2560, 9728), w4;
-# the tensor-core kernel's K splits timed at the two prefill shapes
-THRESHOLD_MS = (8, 16, 64)
+# the pim_matmul routes at these M, at (M, 2560) @ (2560, 9728), w4
+# (swap_ab below TC_MIN_M); the tensor-core kernel's K splits timed at
+# the two prefill shapes, the swapped kernel's at the two decode shapes
+THRESHOLD_MS = (4, 8, 16, 64)
+PIM_ROUTES = ("tensor_core", "swap_ab", "cuda_core")
 TC_SPLITS = (1, 2, 3)
+SWAP_SPLITS = (1, 2, 3, 4, 6, 8, 13, 16, 24, 32)
 PARITY_LAYERS, PARITY_BATCH, PARITY_PROMPT, PARITY_NEW = 2, 2, 32, 4
 SHIFT_KS = (1, -1, 31, 32, 33, -33, 999, -999, 65535, 65536, 70000)
 # Phases 9-11: ripple_add at the kernel bench's row block and ragged shapes;
@@ -594,13 +606,23 @@ def _kernel_row(torch, kernel, plain, library, nbytes, nops, shape, err,
 
 def _say_row(name, r):
     route = f" [{r['route']}]" if "route" in r else ""
-    tiled = (f", tiled route {r['tiled_ms'] * 1e3:.2f} us"
-             if "tiled_ms" in r else "")
+    beside = "".join(f", {other} route {r[f'{other}_ms'] * 1e3:.2f} us"
+                     for other in ("tiled", "cuda_core")
+                     if f"{other}_ms" in r)
     say(f"kernel {name}{route} {r['shape']}: kernel {r['ms'] * 1e3:.2f} us "
         f"({r['call_ms'] * 1e3:.2f} us per call with the host's launch), "
         f"plain {r['plain_ms'] * 1e3:.2f} us, library "
         f"{r['library_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.3f} us "
-        f"({r['bound_by']}){tiled}, max_abs_err {r['max_abs_err']:.3e}")
+        f"({r['bound_by']}){beside}, max_abs_err {r['max_abs_err']:.3e}")
+
+
+def cycled(copies):
+    """``fn`` -> a callable that calls ``fn(*copies[i % len(copies)])``
+    with i counting its calls: each call finds other operands."""
+    def wrap(fn):
+        calls = iter(range(10**9))
+        return lambda: fn(*copies[next(calls) % len(copies)])
+    return wrap
 
 
 def phase_lm_kernels(torch, device):
@@ -615,22 +637,28 @@ def phase_lm_kernels(torch, device):
         x = torch.randn((m, k), generator=gen, device=device).to(
             torch.bfloat16)
         w = torch.randn((k, n), generator=gen, device=device)
+        decode = m < pm.TC_MIN_M
         for bits in (4, 8):
             w_int, scales = pm.quantize(w, bits)
             w_deq = pref.ref_dequant(w_int, scales, bits).to(
                 torch.bfloat16)
+            # decode: the timed calls cycle over WEIGHT_COPIES copies
+            copies = [(w_int, w_deq)] + [
+                (w_int.clone(), w_deq.clone())
+                for _ in range(WEIGHT_COPIES - 1 if decode else 0)]
+            out = torch.empty((m, n), device=device)
             for mode in ("shift_add", "dequant"):
-                def kernel(x=x, w_int=w_int, scales=scales, mode=mode,
+                def kernel(w_int, w_deq, x=x, scales=scales, mode=mode,
                            bits=bits):
                     return pm.pim_matmul(x, w_int, scales, mode=mode,
                                          bits=bits)
 
-                def plain(x=x, w_int=w_int, scales=scales, mode=mode,
+                def plain(w_int, w_deq, x=x, scales=scales, mode=mode,
                           bits=bits):
                     return pref.ref_pim_matmul_raw(
                         x, w_int, mode=mode, bits=bits) * scales[None, :]
 
-                got, exp = kernel(), plain()
+                got, exp = kernel(w_int, w_deq), plain(w_int, w_deq)
                 torch.cuda.synchronize()
                 err = max_abs_err(got, exp)
                 top = float(exp.abs().max())
@@ -639,14 +667,25 @@ def phase_lm_kernels(torch, device):
                         f"pim_matmul {mode} w{bits} ({m}, {k}, {n}): "
                         f"max abs err {err} > {PIM_REL} x {top}")
                 name = f"pim_matmul[{mode},w{bits}] ({m},{k})@({k},{n})"
+                cyc = cycled(copies)
                 rows[name] = _kernel_row(
-                    torch, kernel, plain,
-                    lambda x=x, w_deq=w_deq: torch.matmul(x, w_deq),
+                    torch, cyc(kernel), cyc(plain),
+                    cyc(lambda w_int, w_deq, x=x: torch.matmul(x, w_deq)),
                     2 * m * k + k * n + 4 * n + 4 * m * n, 2 * m * k * n,
-                    f"x ({m}, {k}) bf16, w ({k}, {n}) int{bits}", err)
+                    f"x ({m}, {k}) bf16, w ({k}, {n}) int{bits}"
+                    + (f", {len(copies)} weight copies cycled"
+                       if decode else ""), err)
                 rows[name]["route"] = pm.route(m, k, n, x.dtype)
+                if decode:
+                    rows[name]["cuda_core_ms"] = device_us(
+                        cyc(lambda w_int, w_deq, x=x, scales=scales,
+                            out=out, mode=mode, bits=bits:
+                            pm._launch(x, w_int, scales, out, mode, bits,
+                                       "cuda_core")),
+                        torch, 5, 5) / 1e3
                 _say_row(name, rows[name])
                 del got, exp
+            del copies
     for phase, shape in FLASH_SHAPES.items():
         name = f"flash_attn[{phase}]"
         rows[name] = flash_row(torch, device, gen, shape)
@@ -787,8 +826,10 @@ def flash_routes_timed(torch, device):
 
 
 def pim_routes_timed(torch, device):
-    """Device us of both pim_matmul routes at the threshold's M, and of the
-    tensor-core kernel at each K split count at M = 512 (w4 shift_add)."""
+    """Device us of the pim_matmul routes at the threshold's M, of the
+    tensor-core kernel at each K split count at M = 512 and of the
+    swapped kernel at each at M = 4 (w4 shift_add); the calls cycle over
+    WEIGHT_COPIES copies of the weights."""
     from repro_torch.kernels.pim_matmul import ops as pm
 
     gen = torch.Generator(device=device).manual_seed(17)
@@ -798,35 +839,46 @@ def pim_routes_timed(torch, device):
             torch.bfloat16)
         w_int, scales = pm.quantize(
             torch.randn((k, n), generator=gen, device=device), 4)
-        return x, w_int, scales, torch.empty((m, n), device=device)
+        copies = [(w_int,)] + [(w_int.clone(),)
+                               for _ in range(WEIGHT_COPIES - 1)]
+        return x, copies, scales, torch.empty((m, n), device=device)
 
     def timed(ops, which, splits=None):
-        x, w_int, scales, out = ops
-        return device_us(lambda: pm._launch(x, w_int, scales, out,
-                                            "shift_add", 4, which, splits),
-                         torch, 5, 5)
+        x, copies, scales, out = ops
+        return device_us(cycled(copies)(
+            lambda w_int: pm._launch(x, w_int, scales, out, "shift_add", 4,
+                                     which, splits)), torch, 5, 5)
 
     threshold = {}
     for m in THRESHOLD_MS:
         ops = operands(m, 2560, 9728)
-        threshold[m] = {r: timed(ops, r) for r in ("tensor_core",
-                                                   "cuda_core")}
-    say(f"route threshold (M, 2560) @ (2560, 9728) w4, TC_MIN_M "
-        f"{pm.TC_MIN_M}: " + "; ".join(
-            f"M {m}: tensor_core {t['tensor_core']:.2f} us, cuda_core "
-            f"{t['cuda_core']:.2f} us" for m, t in threshold.items()))
+        threshold[m] = {r: timed(ops, r) for r in PIM_ROUTES
+                        if r != "swap_ab" or m < pm.TC_MIN_M}
+        del ops
+    say(f"route threshold (M, 2560) @ (2560, 9728) w4, {WEIGHT_COPIES} "
+        f"weight copies cycled, TC_MIN_M {pm.TC_MIN_M}: " + "; ".join(
+            f"M {m}: " + ", ".join(f"{r} {us:.2f} us" for r, us in t.items())
+            for m, t in threshold.items()))
     lib = pm._lib()
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     splits = {}
-    for m, k, n in PIM_SHAPES[2:]:
-        ops = operands(m, k, n)
-        chosen = lib.pim_matmul_tc_splits(m, k, n, 4, sms)
-        times = {s: timed(ops, "tensor_core", s) for s in TC_SPLITS}
-        splits[f"({m},{k})@({k},{n})"] = {"chosen": chosen, "us": times}
-        say(f"splits pim_matmul[tc] ({m},{k})@({k},{n}) w4, chosen "
-            f"{chosen}: " + ", ".join(f"{s}: {t:.2f} us"
-                                      for s, t in times.items()))
-    return {"threshold_us": threshold, "tc_splits": splits}
+    for which, label, rule, counts, shapes in (
+            ("tensor_core", "tc", lib.pim_matmul_tc_splits, TC_SPLITS,
+             PIM_SHAPES[2:]),
+            ("swap_ab", "swap_ab", lib.pim_matmul_swap_splits, SWAP_SPLITS,
+             PIM_SHAPES[:2])):
+        for m, k, n in shapes:
+            ops = operands(m, k, n)
+            chosen = rule(m, k, n, 4, sms)
+            times = {s: timed(ops, which, s)
+                     for s in sorted({chosen, *counts})}
+            splits[f"{label} ({m},{k})@({k},{n})"] = {"chosen": chosen,
+                                                      "us": times}
+            say(f"splits pim_matmul[{label}] ({m},{k})@({k},{n}) w4, "
+                f"chosen {chosen}: " + ", ".join(f"{s}: {t:.2f} us"
+                                                 for s, t in times.items()))
+            del ops
+    return {"threshold_us": threshold, "splits": splits}
 
 
 def ptxas(library, kernel, key):
@@ -894,10 +946,12 @@ def flash_tc_ptxas():
                     lambda m: f"{m.group(1)}/{m.group(2)}")}
 
 
-def hmma_counts(library, kernel, key):
-    """HMMA instructions in each instance of ``library``'s kernels whose
-    mangled name matches ``kernel``, from ``cuobjdump -sass`` of the built
-    library, under ``key(match)``."""
+def sass_opcodes(library, kernel, key):
+    """Opcode counts (a ``collections.Counter``, "IMAD.MOV" counted as
+    "IMAD") of each instance of ``library``'s kernels whose mangled name
+    matches ``kernel``, from ``cuobjdump -sass`` of the built library,
+    under ``key(match)``."""
+    import collections
     import re
     import shutil
     from repro_torch.kernels import _build
@@ -909,9 +963,16 @@ def hmma_counts(library, kernel, key):
     for part in sass.split("Function : ")[1:]:
         match = re.match(r"\S*" + kernel, part)
         if match is not None:
-            counts[key(match)] = len(re.findall(
-                r"/\*[0-9a-f]{4,}\*/\s+HMMA\b", part))
+            counts[key(match)] = collections.Counter(re.findall(
+                r"/\*[0-9a-f]{4,}\*/\s+([A-Z][A-Z0-9]*)", part))
     return counts
+
+
+def hmma_counts(library, kernel, key):
+    """HMMA instructions in each instance of ``library``'s kernels whose
+    mangled name matches ``kernel`` (see ``sass_opcodes``)."""
+    return {k: c["HMMA"] for k, c in sass_opcodes(library, kernel,
+                                                  key).items()}
 
 
 def tc_sass():
@@ -919,6 +980,52 @@ def tc_sass():
     kernel (bits -> count)."""
     return hmma_counts("pim_matmul", r"pim_matmul_tc_kernelILi(\d+)E",
                        lambda m: f"bits{m.group(1)}")
+
+
+SWAP_KERNEL = r"pim_matmul_swap_kernelILi(\d+)ELi(\d+)E"
+
+
+def swap_key(match):
+    return f"bits{match.group(1)} mf{match.group(2)}"
+
+
+def swap_ptxas():
+    """ptxas's report of each instance of pim_matmul's swapped-operand
+    kernel ("bits4 mf1": planes, n8 fragments of the batch)."""
+    return ptxas("pim_matmul", SWAP_KERNEL, swap_key)
+
+
+# The swapped kernel's loop body is two k16 steps, 64 weight codes per lane
+# each; its integer instructions by pipe, at NVIDIA's per-SM rates for
+# compute capability 9.0: logic, shifts, permutes and adds on the 64-lane
+# integer pipe; IMAD on the FMA pipe, 64 lanes; conversions at 16.
+SWAP_CODES_PER_PASS = 2 * 64
+SWAP_PIPES = {"alu": (("LOP3", "PRMT", "SHF", "IADD3", "LEA", "ISETP",
+                       "SEL", "VIADD"), 64),
+              "imad": (("IMAD",), 64),
+              "conversion": (("I2F", "F2FP", "F2F"), 16)}
+
+
+def swap_sass():
+    """Each instance of the swapped kernel: its HMMA count and its integer
+    instructions per weight code by pipe (the static count of the whole
+    kernel over the 128 codes a lane takes in one pass of its two-step
+    loop, so the one-time prologue and epilogue count too)."""
+    out = {}
+    for key, ops in sass_opcodes("pim_matmul", SWAP_KERNEL,
+                                 swap_key).items():
+        out[key] = {"HMMA": ops["HMMA"], "per_code": {
+            pipe: sum(ops[o] for o in names) / SWAP_CODES_PER_PASS
+            for pipe, (names, _) in SWAP_PIPES.items()}}
+    return out
+
+
+def swap_integer_floor_ms(per_code, codes):
+    """The least time ``codes`` weight codes' integer work takes on one
+    H100: the busiest pipe's instructions over its lanes x 132 SMs x 1.98
+    GHz."""
+    return max(per_code[pipe] * codes / (lanes * 132 * 1.98e9)
+               for pipe, (_, lanes) in SWAP_PIPES.items()) * 1e3
 
 
 def flash_tc_sass():
@@ -1010,8 +1117,9 @@ def run_serve(torch, device):
         raise AssertionError(f"serving launches {launches}, expected "
                              f"{expected}")
     # prefill's FFN linears (M = batch x prompt) on the tensor cores, each
-    # decode step's (M = batch) on the CUDA cores
-    expected = {"tensor_core": 3 * L, "cuda_core": 3 * L * (SERVE_NEW - 1)}
+    # decode step's (M = batch) on the swapped operands
+    expected = {"tensor_core": 3 * L, "swap_ab": 3 * L * (SERVE_NEW - 1),
+                "cuda_core": 0}
     if routes != expected:
         raise AssertionError(f"serving routes {routes}, expected "
                              f"{expected}")
@@ -1087,15 +1195,21 @@ def run_serve(torch, device):
         say_share(f"serve {name}", sh)
     flash_ms = {name: sum(k["ms"] for k in sh["top"] if "flash_" in k["name"])
                 for name, sh in shares.items()}
-    record["flash_ms"] = flash_ms
+    # pim_matmul's kernels and the ordered sum of their K splits
+    pim_ms = {name: sum(k["ms"] for k in sh["top"]
+                        if "pim_matmul" in k["name"]
+                        or "reduce_splits" in k["name"])
+              for name, sh in shares.items()}
+    record["flash_ms"], record["pim_matmul_ms"] = flash_ms, pim_ms
     say(f"serve prefill: {shares['prefill']['device_ms']:.3f} ms of "
-        f"kernels, flash_attn {flash_ms['prefill']:.3f} ms of it (with the "
-        f"tiled kernel at prefill, one H100 took 44.793 ms, flash 3.619 ms "
-        f"of it)")
+        f"kernels, pim_matmul {pim_ms['prefill']:.3f} ms and flash_attn "
+        f"{flash_ms['prefill']:.3f} ms of it (with the tiled kernel at "
+        f"prefill, one H100 took 44.793 ms, flash 3.619 ms of it)")
     say(f"serve decode step: {shares['decode step']['device_ms']:.3f} ms of "
-        f"kernels, flash_attn {flash_ms['decode step']:.3f} ms of it (with "
-        f"the tiled kernel at decode, one H100 took 20.18-21.01 ms, flash "
-        f"about 2.9 ms of it)")
+        f"kernels, pim_matmul {pim_ms['decode step']:.3f} ms and flash_attn "
+        f"{flash_ms['decode step']:.3f} ms of it (with the CUDA-core "
+        f"pim_matmul at decode, one H100 took 17.05-17.19 ms, pim_matmul "
+        f"10.048 ms of it)")
     del model, caches
     torch.cuda.empty_cache()
     return record, launches, routes, flash_routes
@@ -1192,10 +1306,7 @@ def phase_ripple(torch, device):
                 raise AssertionError(f"ripple_add w{width} {shape} differs "
                                      "from plain")
 
-    def cycled(fn):
-        calls = iter(range(10**9))
-        return lambda: fn(*pairs[next(calls) % len(pairs)])
-
+    cycled_pairs = cycled(pairs)
     rows = {}
     for width in WIDTHS:
         for pa, pb in pairs:
@@ -1227,13 +1338,13 @@ def phase_ripple(torch, device):
         t_ops = nops / H100_INT32_OPS_PER_S * 1e3
         kernel = lambda x, y, width=width: ops.ripple_add(x, y, width=width)
         r = dict(
-            ms=device_us(cycled(kernel), torch) / 1e3,
-            call_ms=event_us(cycled(kernel), torch) / 1e3,
-            plain_ms=device_us(cycled(lambda x, y, width=width:
+            ms=device_us(cycled_pairs(kernel), torch) / 1e3,
+            call_ms=event_us(cycled_pairs(kernel), torch) / 1e3,
+            plain_ms=device_us(cycled_pairs(lambda x, y, width=width:
                                       ref.ref_ripple_add(x, y, width)),
                                torch) / 1e3,
             library_ms=(None if library is None
-                        else device_us(cycled(library), torch) / 1e3),
+                        else device_us(cycled_pairs(library), torch) / 1e3),
             library=lib_note, bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             bytes=nbytes, ops=nops, max_abs_err=max_abs_err(got, exp),
@@ -1270,9 +1381,10 @@ def phase_ripple(torch, device):
                              "bench's path")
     rec = dict(
         width=8, launches=bench_launches, composed_launches=n_composed,
-        fused_ms=device_us(cycled(lambda x, y: ops.ripple_add(x, y, width=8)),
-                           torch) / 1e3,
-        composed_ms=device_us(cycled(composed_ripple_add), torch) / 1e3,
+        fused_ms=device_us(cycled_pairs(
+            lambda x, y: ops.ripple_add(x, y, width=8)), torch) / 1e3,
+        composed_ms=device_us(cycled_pairs(composed_ripple_add),
+                              torch) / 1e3,
         fused_bytes=12 * n * w,
         composed_bytes=(2 * 12 + 7 * (8 + 12 + 12 + 12)) * n * w)
     say(f"fused ripple_add[w8] {n}x{w}: fused {rec['fused_ms'] * 1e3:.2f} us "
@@ -1288,21 +1400,12 @@ def ripple_sass():
     kernel), counted in ``cuobjdump -sass`` of the built library: what the
     bound's operation count rests on. None where the toolkit has no
     ``cuobjdump``."""
-    import collections
-    import re
     import shutil
-    from repro_torch.kernels import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         return None
-    sass = subprocess.run([tool, "-sass", str(_build.library_path("rowops"))],
-                          capture_output=True, text=True, timeout=120,
-                          check=True).stdout
-    start = sass.index("ripple_add_vec4_kernelILi32E")
-    end = sass.find("Function :", start)
-    opcode = r"/\*[0-9a-f]{4,}\*/\s+([A-Z][A-Z0-9]*)"
-    ops = collections.Counter(re.findall(
-        opcode, sass[start:end if end > 0 else None]))
+    ops = sass_opcodes("rowops", r"ripple_add_vec4_kernelILi32E",
+                       lambda m: "w32")["w32"]
     return {k: ops[k] / 4 for k in ("LOP3", "IMAD", "SHF")}
 
 
@@ -1736,6 +1839,31 @@ def main() -> int:
             or min(record["tc_sass"].values()) == 0:
         raise AssertionError(f"tensor-core kernel without HMMA: "
                              f"{record['tc_sass']}")
+    swap_instances = [f"bits{b} mf{f}" for b in (0, 4, 8) for f in (1, 2)]
+    record["swap_ptxas"] = swap_ptxas()
+    say("ptxas pim_matmul[swap_ab]: " + ("; ".join(
+        f"{k}: {v['registers']} registers, {v['static_smem_bytes']} bytes "
+        f"static smem, {v['spill_bytes']} spill bytes"
+        for k, v in sorted(record["swap_ptxas"].items()))
+        or "not measured (library not built in this process)"))
+    spilled = {k: v["spill_bytes"] for k, v in record["swap_ptxas"].items()
+               if v["spill_bytes"]}
+    if spilled:
+        raise AssertionError(f"swapped-operand instances spill: {spilled}")
+    record["swap_sass"] = swap_sass()
+    (m, k, n), codes = PIM_SHAPES[0], PIM_SHAPES[0][1] * PIM_SHAPES[0][2]
+    for key, v in record["swap_sass"].items():
+        v["integer_floor_ms"] = swap_integer_floor_ms(v["per_code"], codes)
+    say("sass pim_matmul[swap_ab], per weight code: " + "; ".join(
+        f"{key}: {v['HMMA']} HMMA, " + ", ".join(
+            f"{c:.2f} {pipe}" for pipe, c in v["per_code"].items())
+        + f", integer floor {v['integer_floor_ms'] * 1e3:.2f} us at "
+        f"({m},{k})@({k},{n})"
+        for key, v in sorted(record["swap_sass"].items())))
+    if sorted(record["swap_sass"]) != sorted(swap_instances) \
+            or min(v["HMMA"] for v in record["swap_sass"].values()) == 0:
+        raise AssertionError(f"swapped-operand kernel without HMMA: "
+                             f"{record['swap_sass']}")
     record["flash_tc_sass"] = flash_tc_sass()
     say("sass flash_attn[tensor_core]: " + ", ".join(
         f"{k}: {v} HMMA" for k, v in sorted(record["flash_tc_sass"].items())))
@@ -1810,13 +1938,13 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
     # one row per LM kernel, at the shape of the serving path it runs at
-    # (pim_matmul: decode's on the CUDA cores, prefill's first on the
+    # (pim_matmul: decode's on the swapped operands, prefill's first on the
     # tensor cores; flash_attn: decode's split over the keys, prefill's on
     # the tensor cores); every shape is in chip_smoke.json
     (m, k, n), (pm_, pk, pn) = PIM_SHAPES[0], PIM_SHAPES[2]
     for kernel, row, launched in (
             ("pim_matmul", f"pim_matmul[shift_add,w4] ({m},{k})@({k},{n})",
-             lm_routes["cuda_core"]),
+             lm_routes["swap_ab"]),
             ("pim_matmul",
              f"pim_matmul[shift_add,w4] ({pm_},{pk})@({pk},{pn})",
              lm_routes["tensor_core"]),

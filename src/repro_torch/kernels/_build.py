@@ -47,6 +47,9 @@ LIBRARIES = {
             "pim_matmul_tc_smem_bytes": (),
             "pim_matmul_tc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _P),
+            "pim_matmul_swap_splits": (_I, _I, _I, _I, _I),
+            "pim_matmul_swap": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _P),
         },
     ),
     "flash_attn": (

@@ -15,7 +15,7 @@
 // 128), so the kernels and the plain version differ only in the order of
 // float32 additions.
 //
-// Two kernels; ops.py::route picks one from the shapes and X's type alone.
+// Three kernels; ops.py::route picks one from the shapes and X's type alone.
 //
 // pim_matmul_tc_kernel (tensor cores; bf16 X, M >= the route's threshold,
 // K % 8 == 0, N % 16 == 0). Bound on the card at the model's prefill
@@ -57,8 +57,39 @@
 //     unscaled sums to a workspace that reduce_splits_kernel adds in
 //     order, so the result does not depend on timing (no atomics).
 //
-// pim_matmul_kernel (CUDA cores; float32 X, decode-sized M, rows that are
-// not 16-byte multiples). Bound at decode (M = batch = 4) by the bytes of
+// pim_matmul_swap_kernel (tensor cores with the operands swapped; bf16 X
+// with 1 <= M <= 16, K % 8 == 0, N % 16 == 0: decode). Bound at the
+// model's decode shapes (M = batch = 4, K x N = 2560 x 9728 and 9728 x
+// 2560) by the bytes of W: 24.9 MB at 3.35 TB/s, 7.5 us. Design:
+//   - Y^T = W^T X^T on mma.sync.m16n8k16: W^T's 16-row tiles are the A
+//     operand, the batch the B operand's 8 columns (two n8 fragments for
+//     M > 8). The A fragment of plane b is built in registers as in the
+//     tensor-core kernel: one prmt pairs the codes of k rows 2t and 2t+1
+//     (or 2t+8 and 2t+9) into the halves of a word, then plane_frag or
+//     code_frag. All planes add into one float32 accumulator per output.
+//   - W is streamed once, straight into registers: a lane loads 16
+//     neighbouring codes (one 16-byte load, L1 not allocated) at each of
+//     its four k rows of a k16 step, so a warp reads 128 bytes of each of
+//     16 rows: 128 output columns x 16 k per step. Byte 2j of a word is
+//     row g of m16 tile j, byte 2j + 1 row g + 8 (lane g owns columns
+//     16g..16g+15), so the C fragments land on 16 neighbouring columns
+//     per lane. Two steps sit in registers, one computed while the next is
+//     in flight; no load is masked (see the kernel). X's pairs come by
+//     32-bit loads beside them. On the card, 16-byte loads into registers
+//     streamed this pattern about as fast as a contiguous read, while a
+//     per-lane cp.async ring of any depth stayed well below it
+//     (PERF.md, Findings), so the ring lives in registers and a warp's
+//     share of K stays short (about six steps at the decode shapes).
+//   - A block of 8 warps owns 128 columns and one K range, each warp a
+//     contiguous share of its k16 steps; the warps' sums meet in shared
+//     memory and are added in warp order. N = 2560 has only 20 such
+//     strips, so pim_matmul_swap_splits splits K to one wave of blocks
+//     (two per SM at M <= 8): 13 ways at N = 2560, 3 at N = 9728, each
+//     split written unscaled to a workspace that reduce_splits_kernel adds
+//     in order, so the result does not depend on timing.
+//
+// pim_matmul_kernel (CUDA cores; float32 X, rows that are not 16-byte
+// multiples). Bound at decode (M = batch = 4) by the bytes of
 // W (~25 MB). A block owns a BM x BN output tile; X and W tiles of depth
 // kBK are staged in shared memory (X as float32, W as int codes, masked to
 // BITS bits for shift_add); a thread owns TM x TN outputs and keeps one
@@ -478,6 +509,219 @@ cudaError_t launch(const void* x, const void* w, const void* scales,
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// Swapped-operand tensor-core kernel (see the note at the head of the file)
+// ---------------------------------------------------------------------------
+
+namespace swap {
+
+constexpr int kWarps = 8, kThreads = 32 * kWarps;
+constexpr int kBN = 128;        // output columns per block (and per warp)
+constexpr int kMaxM = 16;       // two n8 fragments
+
+// 16 bytes of W; not kept in L1, since each weight byte is read once
+__device__ __forceinline__ uint4 ld_stream(const int8_t* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ unsigned word(const uint4& u, int q) {
+  return q == 0 ? u.x : q == 1 ? u.y : q == 2 ? u.z : u.w;
+}
+
+// One k16 step of a warp: w holds this lane's 16 codes at k rows 2t, 2t+1,
+// 2t+8 and 2t+9; xf[f] X's B fragment of rows 8f..8f+7. Tile j's A rows g
+// and g + 8 are bytes 2j and 2j + 1 of the lane's codes; tiles go four at
+// a time, planes outermost, so MMAs into one accumulator are four apart.
+template <int BITS, int MF>
+__device__ __forceinline__ void step(float (&acc)[8][MF][4],
+                                     const uint4 (&w)[4],
+                                     const unsigned (&xf)[MF][2]) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    unsigned v[4][4];                  // [tile][A register]
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int j = 4 * half + jj, q = j >> 1, lo = 2 * (j & 1);
+      const unsigned w0 = word(w[0], q), w1 = word(w[1], q);
+      const unsigned w8 = word(w[2], q), w9 = word(w[3], q);
+      if constexpr (BITS == 0) {
+        v[jj][0] = tc::code_frag(w0, w1, lo);
+        v[jj][1] = tc::code_frag(w0, w1, lo + 1);
+        v[jj][2] = tc::code_frag(w8, w9, lo);
+        v[jj][3] = tc::code_frag(w8, w9, lo + 1);
+      } else {
+        // byte b of the k row's word into the low byte of the low half,
+        // the k + 1 row's into the high half
+        const unsigned sel_g = lo | (4 + lo) << 8;
+        const unsigned sel_g8 = (lo + 1) | (5 + lo) << 8;
+        v[jj][0] = tc::prmt(w0, w1, sel_g);
+        v[jj][1] = tc::prmt(w0, w1, sel_g8);
+        v[jj][2] = tc::prmt(w8, w9, sel_g);
+        v[jj][3] = tc::prmt(w8, w9, sel_g8);
+      }
+    }
+    if constexpr (BITS == 0) {
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int f = 0; f < MF; ++f)
+          tc::mma_bf16(acc[4 * half + jj][f], v[jj], xf[f][0], xf[f][1]);
+    } else {
+#pragma unroll
+      for (int b = 0; b < BITS; ++b)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const unsigned a[4] = {tc::plane_frag<BITS>(v[jj][0], b),
+                                 tc::plane_frag<BITS>(v[jj][1], b),
+                                 tc::plane_frag<BITS>(v[jj][2], b),
+                                 tc::plane_frag<BITS>(v[jj][3], b)};
+#pragma unroll
+          for (int f = 0; f < MF; ++f)
+            tc::mma_bf16(acc[4 * half + jj][f], a, xf[f][0], xf[f][1]);
+        }
+    }
+  }
+}
+
+// BITS = 0: dequant; BITS = 4 or 8: shift_add over BITS planes. MF: n8
+// fragments of the batch (1 for M <= 8, 2 for M <= 16).
+template <int BITS, int MF>
+__global__ void __launch_bounds__(kThreads, MF == 1 ? 2 : 1)
+pim_matmul_swap_kernel(const __nv_bfloat16* __restrict__ x,
+                       const int8_t* __restrict__ w,
+                       const float* __restrict__ scales,
+                       float* __restrict__ out, float* __restrict__ workspace,
+                       int m, int k, int n, int k_per_split) {
+  __shared__ __align__(16) float sums[kWarps][8][kBN];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * kBN;
+  const int k_begin = blockIdx.y * k_per_split;
+  const int k_end = min(k, k_begin + k_per_split);
+  const int steps = max(0, (k_end - k_begin + 15) / 16);
+  const int per_warp = (steps + kWarps - 1) / kWarps;
+  const int s_begin = warp * per_warp;
+  const int s_end = min(steps, s_begin + per_warp);
+
+  // No load is masked: a lane past N reads the last 16 columns and a
+  // batch row past M reads row M - 1, whose products land only in outputs
+  // that are never stored. K % 8 == 0 and k_per_split % 16 == 0, so only
+  // rows 2t+8, 2t+9 of a K range's last step can lie past its end: they
+  // read rows 2t, 2t+1 again against a zero X pair.
+  // Running pointers, advanced one k16 step per load: W's row 2t of the
+  // step (rows 2t+1, 2t+8, 2t+9 at n, 8n, 9n past it) and X's pair
+  const long long n1 = n, n8 = 8LL * n, step_bytes = 16LL * n;
+  const int8_t* wp = w + static_cast<long long>(k_begin + 16 * s_begin
+                                                + 2 * t) * n
+                     + min(n0 + 16 * g, n - 16);
+  const unsigned* xp[MF];
+#pragma unroll
+  for (int f = 0; f < MF; ++f)
+    xp[f] = reinterpret_cast<const unsigned*>(
+        x + static_cast<long long>(min(8 * f + g, m - 1)) * k + k_begin
+        + 16 * s_begin + 2 * t);
+  int rows_left = k_end - k_begin - 16 * s_begin;   // from the next step
+  auto load = [&](uint4 (&wr)[4], unsigned (&xr)[MF][2]) {
+    const bool hi = rows_left >= 16;
+    const int8_t* p8 = hi ? wp + n8 : wp;
+    wr[0] = ld_stream(wp);
+    wr[1] = ld_stream(wp + n1);
+    wr[2] = ld_stream(p8);
+    wr[3] = ld_stream(p8 + n1);
+#pragma unroll
+    for (int f = 0; f < MF; ++f) {
+      xr[f][0] = __ldg(xp[f]);
+      xr[f][1] = hi ? __ldg(xp[f] + 4) : 0u;
+      xp[f] += 8;
+    }
+    wp += step_bytes;
+    rows_left -= 16;
+  };
+
+  float acc[8][MF][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int f = 0; f < MF; ++f)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[j][f][r] = 0.f;
+
+  // two steps in registers: one computed while the next is in flight
+  const int count = s_end - s_begin;
+  uint4 wa[4], wb[4];
+  unsigned xa[MF][2], xb[MF][2];
+  if (count > 0) load(wa, xa);
+  if (count > 1) load(wb, xb);
+  for (int i = 0; i < count; i += 2) {
+    step<BITS>(acc, wa, xa);
+    if (i + 2 < count) load(wa, xa);
+    if (i + 1 < count) {
+      step<BITS>(acc, wb, xb);
+      if (i + 3 < count) load(wb, xb);
+    }
+  }
+
+  // C fragment of tile j, batch fragment f: rows g, g + 8 -> columns
+  // 16g + 2j, 16g + 2j + 1; columns 2t, 2t+1 -> batch rows 8f + 2t, +1.
+  // The warps' sums meet in shared memory, added in warp order.
+  const bool split = gridDim.y > 1;
+  float* dst = split ? workspace + static_cast<long long>(blockIdx.y) * m * n
+                     : out;
+#pragma unroll
+  for (int f = 0; f < MF; ++f) {
+    if (f) __syncthreads();           // the last fragment's sums are read
+    float4* r0 = reinterpret_cast<float4*>(&sums[warp][2 * t][16 * g]);
+    float4* r1 = reinterpret_cast<float4*>(&sums[warp][2 * t + 1][16 * g]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      r0[i] = make_float4(acc[2 * i][f][0], acc[2 * i][f][2],
+                          acc[2 * i + 1][f][0], acc[2 * i + 1][f][2]);
+      r1[i] = make_float4(acc[2 * i][f][1], acc[2 * i][f][3],
+                          acc[2 * i + 1][f][1], acc[2 * i + 1][f][3]);
+    }
+    __syncthreads();
+    for (int i = tid; i < 8 * kBN; i += kThreads) {
+      const int r = i / kBN, c = i % kBN;
+      const int row = 8 * f + r, col = n0 + c;
+      if (row >= m || col >= n) continue;
+      float s = 0.f;
+#pragma unroll
+      for (int v = 0; v < kWarps; ++v) s += sums[v][r][c];
+      dst[static_cast<long long>(row) * n + col] = split ? s
+                                                         : s * scales[col];
+    }
+  }
+}
+
+template <int BITS, int MF>
+cudaError_t launch(const void* x, const void* w, const void* scales,
+                   void* out, void* workspace, int m, int k, int n,
+                   int splits, cudaStream_t stream) {
+  const int steps = (k + 15) / 16;
+  const int k_per_split = (steps + splits - 1) / splits * 16;
+  dim3 grid((n + kBN - 1) / kBN, splits);
+  pim_matmul_swap_kernel<BITS, MF><<<grid, kThreads, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
+      static_cast<const float*>(scales), static_cast<float*>(out),
+      static_cast<float*>(workspace), m, k, n, k_per_split);
+  return cudaGetLastError();
+}
+
+template <int BITS>
+cudaError_t launch_m(const void* x, const void* w, const void* scales,
+                     void* out, void* workspace, int m, int k, int n,
+                     int splits, cudaStream_t stream) {
+  return m <= 8 ? launch<BITS, 1>(x, w, scales, out, workspace, m, k, n,
+                                   splits, stream)
+                : launch<BITS, 2>(x, w, scales, out, workspace, m, k, n,
+                                  splits, stream);
+}
+
+}  // namespace swap
+
 struct Tile {
   int bm, bn;
 };
@@ -648,6 +892,50 @@ int pim_matmul_tc(const void* x, const void* w, const void* scales,
     err = tc::launch<4>(x, w, scales, out, workspace, m, k, n, splits, s);
   else
     err = tc::launch<8>(x, w, scales, out, workspace, m, k, n, splits, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(reduce_splits(workspace, scales, out, m, n,
+                                         splits, s));
+}
+
+// K splits of the swapped-operand kernel: as many as fit one wave of
+// blocks (two per SM at M <= 8, one above: the registers' limit) over the
+// 128-column strips, at most one per kWarps k16 steps (a step per warp)
+// and 64, none empty. The rule is the same at every width and mode (bits
+// is not read): the weight bytes, not the planes, set the time.
+int pim_matmul_swap_splits(int m, int k, int n, int bits, int sm_count) {
+  (void)bits;
+  if (m <= 0 || n <= 0 || k <= 0 || sm_count <= 0) return 1;
+  const int strips = (n + swap::kBN - 1) / swap::kBN;
+  const int steps = (k + 15) / 16;
+  int splits = (m <= 8 ? 2 : 1) * sm_count / strips;
+  const int most = steps / swap::kWarps;
+  splits = splits > most ? most : splits;
+  splits = splits < 1 ? 1 : (splits > 64 ? 64 : splits);
+  const int per_split = (steps + splits - 1) / splits;
+  return (steps + per_split - 1) / per_split;
+}
+
+// The swapped-operand kernel: x (m, k) bf16 with 1 <= m <= 16, w (k, n)
+// int8 codes, scales (n,) float32, out (m, n) float32; mode and bits as
+// for pim_matmul; workspace: splits * m * n floats (unused when splits ==
+// 1). Takes k % 8 == 0 and n % 16 == 0 and 16-byte aligned x and w.
+int pim_matmul_swap(const void* x, const void* w, const void* scales,
+                    void* out, void* workspace, int m, int k, int n,
+                    int mode, int bits, int splits, void* stream) {
+  if (m <= 0 || m > swap::kMaxM || n <= 0 || k <= 0 || splits < 1
+      || splits > 64 || (mode != 0 && mode != 1) || (bits != 4 && bits != 8)
+      || k % 8 != 0 || n % 16 != 0
+      || reinterpret_cast<uintptr_t>(x) % 16
+      || reinterpret_cast<uintptr_t>(w) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (mode == 1)
+    err = swap::launch_m<0>(x, w, scales, out, workspace, m, k, n, splits, s);
+  else if (bits == 4)
+    err = swap::launch_m<4>(x, w, scales, out, workspace, m, k, n, splits, s);
+  else
+    err = swap::launch_m<8>(x, w, scales, out, workspace, m, k, n, splits, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(reduce_splits(workspace, scales, out, m, n,
                                          splits, s));

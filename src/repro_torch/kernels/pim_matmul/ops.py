@@ -14,12 +14,15 @@ from a failure (a launch that returns a CUDA error raises):
 - ``"tensor_core"`` (``pim_matmul_tc``: bit planes built in registers,
   ``mma.sync`` on the tensor cores) for bf16 X with M >= ``TC_MIN_M``
   (prefill), K % 8 == 0 and N % 16 == 0 (rows of 16-byte multiples, for
-  ``cp.async``);
-- ``"cuda_core"`` (``pim_matmul``) otherwise: float32 X, decode-sized M,
-  rows that are not 16-byte multiples.
+  16-byte copies);
+- ``"swap_ab"`` (``pim_matmul_swap``: the same planes as the A operand of
+  Wᵀ·Xᵀ, the batch as the B operand, W streamed once into registers) for
+  bf16 X with 1 <= M < ``TC_MIN_M`` (decode) and the same K and N;
+- ``"cuda_core"`` (``pim_matmul``) otherwise: float32 X, rows that are not
+  16-byte multiples.
 
-Both take any M, and pick their own tiles and K splits, so the
-reference's block sizes and ``interpret`` have no counterpart.
+Each picks its own tiles and K splits, so the reference's block sizes and
+``interpret`` have no counterpart.
 
 ``LAUNCHES["pim_matmul"]`` counts kernel launches and ``ROUTES`` splits
 them by route; a plain-version call counts nothing.
@@ -32,12 +35,13 @@ from ..._device import sm_count as _sm_count
 from . import ref as _ref
 
 LAUNCHES = {"pim_matmul": 0}
-ROUTES = {"tensor_core": 0, "cuda_core": 0}
-# The least M that takes the tensor cores: prefill takes them, decode
-# (M = batch <= 8) keeps the CUDA-core kernel's thin split-K tiles. On one
-# H100 the tensor-core kernel is already ~11x faster at M = 16
-# (chip_smoke.py's `route threshold` line; PERF.md).
-TC_MIN_M = 16
+ROUTES = {"tensor_core": 0, "swap_ab": 0, "cuda_core": 0}
+# The least M that takes the tensor-core kernel: prefill takes it, decode
+# (M = batch) the swapped-operand kernel, which holds the batch in at most
+# two n8 fragments, so TC_MIN_M must stay <= 17. On one H100 the swapped
+# kernel is still ~2x faster at M = 16 (chip_smoke.py's `route threshold`
+# line times the three routes at M 4, 8, 16 and 64; PERF.md).
+TC_MIN_M = 17
 
 
 def reset_launches() -> None:
@@ -47,12 +51,11 @@ def reset_launches() -> None:
 
 
 def route(m: int, k: int, n: int, dtype: torch.dtype) -> str:
-    """Which kernel a card call of these sizes takes: "tensor_core" for
-    bf16 X with ``m >= TC_MIN_M``, ``k % 8 == 0`` and ``n % 16 == 0``,
-    else "cuda_core"."""
-    if (dtype == torch.bfloat16 and m >= TC_MIN_M and k % 8 == 0
-            and n % 16 == 0):
-        return "tensor_core"
+    """Which kernel a card call of these sizes takes: for bf16 X with
+    ``k % 8 == 0`` and ``n % 16 == 0``, "tensor_core" when ``m >=
+    TC_MIN_M`` and "swap_ab" below; else "cuda_core"."""
+    if dtype == torch.bfloat16 and k % 8 == 0 and n % 16 == 0:
+        return "tensor_core" if m >= TC_MIN_M else "swap_ab"
     return "cuda_core"
 
 
@@ -135,22 +138,26 @@ def _launch(x, w_int, scales, out, mode, bits, which, splits=None):
     m, k = x.shape
     n = w_int.shape[1]
     sms = _sm_count(x.device.index or 0)
-    tensor_core = which == "tensor_core"
-    if tensor_core:
-        x, w_int = _aligned(x), _aligned(w_int)
-        if splits is None:
+    if which != "cuda_core":   # 16-byte loads (scales: the tensor cores')
+        x, w_int, scales = _aligned(x), _aligned(w_int), _aligned(scales)
+    if splits is None:
+        if which == "tensor_core":
             splits = lib.pim_matmul_tc_splits(
                 m, k, n, bits if mode == "shift_add" else 1, sms)
-    elif splits is None:
-        splits = lib.pim_matmul_splits(m, k, n, bits, sms)
+        elif which == "swap_ab":
+            splits = lib.pim_matmul_swap_splits(m, k, n, bits, sms)
+        else:
+            splits = lib.pim_matmul_splits(m, k, n, bits, sms)
     workspace = (torch.empty((splits, m, n), dtype=torch.float32,
                              device=x.device) if splits > 1 else out)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     args = (x.data_ptr(), w_int.data_ptr(), scales.data_ptr(),
             out.data_ptr(), workspace.data_ptr(), m, k, n,
             _ref.MODES.index(mode), bits)
-    if tensor_core:
+    if which == "tensor_core":
         rc = lib.pim_matmul_tc(*args, splits, stream)
+    elif which == "swap_ab":
+        rc = lib.pim_matmul_swap(*args, splits, stream)
     else:
         rc = lib.pim_matmul(*args, int(x.dtype == torch.bfloat16), splits,
                             stream)

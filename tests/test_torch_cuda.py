@@ -62,19 +62,24 @@ def rel_err(a, b):
     return float((a - b).abs().max() / (b.abs().max() + 1e-9))
 
 
-# (M, K, N). The CUDA-core kernel (float32 X everywhere; bf16 X below
-# TC_MIN_M or with unaligned rows): every tile it picks (M <= 4, <= 8,
-# 32-row for 8-bit shift_add, 64-row), with and without the K split,
-# ragged everywhere. The tensor-core kernel (bf16 X from the second row
-# on): M at and just above the threshold (16), both Qwen3-4B prefill
-# shapes, M, N and K ragged against its 128 x 128 x 32 tiles, with and
-# without its K split; then bf16 shapes that stay on the CUDA cores
-# because K % 8 != 0 or N % 16 != 0.
+# (M, K, N). The CUDA-core kernel (float32 X everywhere; bf16 X with
+# unaligned rows): every tile it picks (M <= 4, <= 8, 32-row for 8-bit
+# shift_add, 64-row), with and without the K split, ragged everywhere. The
+# tensor-core kernel (bf16 X from M = TC_MIN_M = 17 on): M at the
+# threshold, both Qwen3-4B prefill shapes, M, N and K ragged against its
+# 128 x 128 x 32 tiles, with and without its K split; then bf16 shapes that
+# stay on the CUDA cores because K % 8 != 0 or N % 16 != 0. The swapped
+# kernel (bf16 X, M 1-16): both Qwen3-4B decode shapes (K split 3 and 13
+# ways), M 1, 4, 8, 9, 15 and 16 (one and two n8 fragments), K an odd
+# number of 8-row halves of its k16 steps, N ragged against its 128-column
+# strips (and below one strip), with and without the K split.
 PIM_SHAPES = [(1, 33, 300), (5, 96, 40), (8, 200, 257), (9, 64, 64),
               (37, 130, 70), (130, 520, 96), (3, 4096, 17),
               (16, 64, 48), (17, 136, 144), (512, 2560, 9728),
               (512, 9728, 2560), (65, 136, 272), (200, 1032, 9728),
-              (128, 260, 64), (128, 256, 40)]
+              (128, 260, 64), (128, 256, 40),
+              (4, 2560, 9728), (4, 9728, 2560), (1, 72, 144),
+              (8, 1032, 272), (15, 520, 400), (16, 4104, 48)]
 
 
 @pytest.mark.parametrize("mkn", PIM_SHAPES)
@@ -99,6 +104,7 @@ def test_pim_matmul_kernel_matches_plain(card, mkn, bits, mode, dtype):
 @pytest.mark.parametrize("mkn,dtype,route", [
     ((6, 70, 33), torch.float32, "cuda_core"),
     ((128, 72, 48), torch.bfloat16, "tensor_core"),
+    ((4, 72, 48), torch.bfloat16, "swap_ab"),
 ])
 def test_pim_matmul_codes_beyond_the_bits(card, mkn, dtype, route):
     """int8 codes outside the 4-bit range: shift_add reads their low 4 bits
@@ -119,30 +125,54 @@ def test_pim_matmul_codes_beyond_the_bits(card, mkn, dtype, route):
 
 
 def test_pim_matmul_routes(card):
-    """A prefill-shaped call takes the tensor cores, a decode-shaped one
-    the CUDA cores: one count each in ROUTES, two in LAUNCHES."""
+    """A prefill-shaped call takes the tensor cores, a decode-shaped bf16
+    one the swapped operands, a decode-shaped float32 one the CUDA cores:
+    one count each in ROUTES, three in LAUNCHES."""
     gen = torch.Generator(device=card).manual_seed(5)
     w_int, scales = pm.quantize(
         torch.randn((256, 512), generator=gen, device=card), 4)
     pm.reset_launches()
-    for m in (512, 4):
-        x = torch.randn((m, 256), generator=gen, device=card).to(
-            torch.bfloat16)
+    for m, dtype in ((512, torch.bfloat16), (4, torch.bfloat16),
+                     (4, torch.float32)):
+        x = torch.randn((m, 256), generator=gen, device=card).to(dtype)
         pm.pim_matmul(x, w_int, scales)
-    assert pm.ROUTES == {"tensor_core": 1, "cuda_core": 1}
-    assert pm.LAUNCHES["pim_matmul"] == 2
-    # a contiguous view 2 bytes past 16-byte alignment: the tensor-core
-    # kernel's 16-byte copies take an aligned copy of it
-    buf = torch.randn(1 + 63 * 256, generator=gen, device=card).to(
-        torch.bfloat16)
-    x = buf[1:].view(63, 256)
-    assert x.is_contiguous() and x.data_ptr() % 16
-    assert pm.route(63, 256, 512, x.dtype) == "tensor_core"
-    got = pm.pim_matmul(x, w_int, scales)
-    assert pm.ROUTES == {"tensor_core": 2, "cuda_core": 1}
+    assert pm.ROUTES == {"tensor_core": 1, "swap_ab": 1, "cuda_core": 1}
+    assert pm.LAUNCHES["pim_matmul"] == 3
+    # contiguous views 2 bytes past 16-byte alignment: the tensor-core and
+    # swapped kernels' 16-byte loads take an aligned copy of them
+    for m, which in ((63, "tensor_core"), (4, "swap_ab")):
+        buf = torch.randn(1 + m * 256, generator=gen, device=card).to(
+            torch.bfloat16)
+        x = buf[1:].view(m, 256)
+        assert x.is_contiguous() and x.data_ptr() % 16
+        assert pm.route(m, 256, 512, x.dtype) == which
+        got = pm.pim_matmul(x, w_int, scales)
+        exp = pref.ref_pim_matmul_raw(x, w_int, mode="shift_add", bits=4) \
+            * scales[None, :]
+        assert rel_err(got, exp) <= PIM_REL
+    assert pm.ROUTES == {"tensor_core": 2, "swap_ab": 2, "cuda_core": 1}
+
+
+@pytest.mark.parametrize("mkn,splits", [
+    ((4, 9728, 2560), None), ((4, 2560, 9728), None), ((3, 200, 272), 1),
+    ((3, 200, 272), 2), ((3, 200, 272), 7), ((12, 200, 272), 40),
+    ((12, 4104, 128), 64)])
+def test_pim_matmul_swap_splits_are_ordered(card, mkn, splits):
+    """The swapped kernel at its own and at forced K split counts (40 and
+    64: more splits than k16 steps at K 200, so some are empty) against
+    the plain version, and bit for bit the same twice: the splits are
+    added in a fixed order, with no atomics."""
+    m, k, n = mkn
+    gen = torch.Generator(device=card).manual_seed(k + n)
+    x = torch.randn((m, k), generator=gen, device=card).to(torch.bfloat16)
+    w_int, scales = pm.quantize(
+        torch.randn((k, n), generator=gen, device=card), 4)
     exp = pref.ref_pim_matmul_raw(x, w_int, mode="shift_add", bits=4) \
         * scales[None, :]
-    assert rel_err(got, exp) <= PIM_REL
+    outs = [pm._launch(x, w_int, scales, torch.empty((m, n), device=card),
+                       "shift_add", 4, "swap_ab", splits) for _ in range(2)]
+    assert rel_err(outs[0], exp) <= PIM_REL
+    assert torch.equal(outs[0], outs[1])
 
 
 # (B, Sq, Sk, KV, G, dh, window, invalid keys at the end of each row)
@@ -356,8 +386,9 @@ def test_flash_tensor_core_skips_and_second_pass(card, shape):
 
 @pytest.mark.parametrize("m", [5, 64])
 def test_pim_matmul_casts_scales_and_strides(card, m):
-    """bf16 scales and non-contiguous X or W give the float32 contiguous
-    call's result, on both routes (M 5: CUDA cores; 64: tensor cores)."""
+    """bf16 scales, float32 scales that do not start on 16 bytes and
+    non-contiguous X or W give the float32 contiguous call's result, on
+    both bf16 routes (M 5: the swapped operands; 64: tensor cores)."""
     gen = torch.Generator(device=card).manual_seed(m)
     w_int, scales = pm.quantize(
         torch.randn((64, 48), generator=gen, device=card), 4)
@@ -371,6 +402,9 @@ def test_pim_matmul_casts_scales_and_strides(card, m):
     exp = pm.pim_matmul(x, w_int, scales)
     assert torch.equal(pm.pim_matmul(xt, w_int, scales), exp)
     assert torch.equal(pm.pim_matmul(x, wt, scales), exp)
+    shifted = torch.cat([torch.zeros(1, device=card), scales])[1:]
+    assert shifted.data_ptr() % 16
+    assert torch.equal(pm.pim_matmul(x, w_int, shifted), exp)
 
 
 def test_launch_counts_and_refusals(card):

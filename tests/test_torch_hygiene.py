@@ -155,6 +155,8 @@ def test_cuda_tensors_never_take_the_plain_path(monkeypatch):
                         lambda device=None: SimpleNamespace(cuda_stream=0))
     x = torch.zeros((4, 8), dtype=torch.bfloat16)
     pm.pim_matmul(x, torch.zeros((8, 3), dtype=torch.int8), torch.ones(3))
+    x = torch.zeros((4, 32), dtype=torch.bfloat16)    # the swapped operands
+    pm.pim_matmul(x, torch.zeros((32, 48), dtype=torch.int8), torch.ones(48))
     fa.reset_launches()
     fa._splits.cache_clear()
     q = torch.zeros((1, 2, 1, 2, 16))          # 4 rows: the split route
@@ -167,6 +169,7 @@ def test_cuda_tensors_never_take_the_plain_path(monkeypatch):
     fa.flash_attention(q, k, k, torch.arange(40), torch.arange(40))
     fa._splits.cache_clear()
     assert lib.calls == ["pim_matmul_splits", "pim_matmul",
+                         "pim_matmul_swap_splits", "pim_matmul_swap",
                          "flash_attn_split_kv_splits", "flash_attn_split_kv",
                          "flash_attn_fwd", "flash_attn_tc"]
     assert pm.LAUNCHES["pim_matmul"] >= 1

@@ -166,8 +166,9 @@ def test_wrapper_rejects_bad_operands():
         port_ops.pim_matmul(x, wi.to(torch.int32), sc)
 
 
-# route(): the tensor cores take bf16 X with M >= TC_MIN_M, K % 8 == 0 and
-# N % 16 == 0; everything else stays on the CUDA-core kernel.
+# route(): bf16 X with K % 8 == 0 and N % 16 == 0 takes the tensor-core
+# kernel at M >= TC_MIN_M and the swapped-operand kernel below it;
+# everything else stays on the CUDA-core kernel.
 @pytest.mark.parametrize("m,k,n,dtype,expected", [
     (port_ops.TC_MIN_M, 2560, 9728, torch.bfloat16, "tensor_core"),
     (port_ops.TC_MIN_M + 1, 2560, 9728, torch.bfloat16, "tensor_core"),
@@ -175,14 +176,19 @@ def test_wrapper_rejects_bad_operands():
     (65, 136, 272, torch.bfloat16, "tensor_core"),
     (200, 1032, 9728, torch.bfloat16, "tensor_core"),
     (128, 8, 16, torch.bfloat16, "tensor_core"),
-    (port_ops.TC_MIN_M - 1, 2560, 9728, torch.bfloat16, "cuda_core"),
-    (4, 2560, 9728, torch.bfloat16, "cuda_core"),
-    (8, 9728, 2560, torch.bfloat16, "cuda_core"),
+    (port_ops.TC_MIN_M - 1, 2560, 9728, torch.bfloat16, "swap_ab"),
+    (4, 2560, 9728, torch.bfloat16, "swap_ab"),
+    (8, 9728, 2560, torch.bfloat16, "swap_ab"),
     (512, 2560, 9728, torch.float32, "cuda_core"),
     (128, 2564, 9728, torch.bfloat16, "cuda_core"),    # K % 8 == 4
     (128, 2560, 9720, torch.bfloat16, "cuda_core"),    # N % 16 == 8
     (130, 520, 96, torch.bfloat16, "tensor_core"),
     (130, 520, 104, torch.bfloat16, "cuda_core"),
+    (1, 8, 16, torch.bfloat16, "swap_ab"),
+    (4, 2564, 9728, torch.bfloat16, "cuda_core"),      # K % 8 == 4
+    (4, 2560, 9720, torch.bfloat16, "cuda_core"),      # N % 16 == 8
+    (4, 2560, 9728, torch.float32, "cuda_core"),
+    (15, 9728, 2560, torch.float32, "cuda_core"),
 ])
 def test_route_rule(m, k, n, dtype, expected):
     assert port_ops.route(m, k, n, dtype) == expected
@@ -235,6 +241,169 @@ def test_packed_plane_fragments_are_exact(bits):
             assert np.array_equal(half.astype(np.int64), expect)
 
 
+def _prmt(a, b, sel):
+    """PTX prmt.b32 (default mode) on numpy uint64 words."""
+    src = [(a >> np.uint64(8 * i)) & np.uint64(0xFF) for i in range(4)] + \
+          [(b >> np.uint64(8 * i)) & np.uint64(0xFF) for i in range(4)]
+    out = np.zeros_like(a)
+    for i in range(4):
+        out |= src[(sel >> (4 * i)) & 7] << np.uint64(8 * i)
+    return out
+
+
+def _bf16_pair(lo, hi):
+    """Two float arrays as the bf16 halves of a word (round to nearest)."""
+    h = torch.from_numpy(np.stack([lo, hi], -1).astype(np.float32)).to(
+        torch.bfloat16).view(torch.int16).numpy().astype(np.int64) & 0xFFFF
+    return (h[..., 0] | (h[..., 1] << 16)).astype(np.uint64)
+
+
+def _halves(word):
+    """The bf16 halves of words, as float32 arrays."""
+    bits = np.stack([word & np.uint64(0xFFFF), word >> np.uint64(16)], -1)
+    return torch.from_numpy(bits.astype(np.int16)).view(
+        torch.bfloat16).float().numpy()
+
+
+def _swap_a_fragments(w_step, mode, bits):
+    """The swapped-operand kernel's A fragments, replayed for one k16 step:
+    ``w_step`` (16, 128) int8 codes (k rows, a block's 128 columns).
+    Returns (32 lanes, 8 tiles, planes, 4 registers) words. Lane (g, t)
+    reads 16 codes at column 16g of k rows 2t, 2t+1, 2t+8, 2t+9 as four
+    little-endian words; tile j's A rows g and g + 8 are bytes 2j and
+    2j + 1 of them (word j // 2)."""
+    lanes = np.arange(32)
+    g, t = lanes >> 2, lanes & 3
+    rows = np.stack([2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9], 1)   # (32, 4)
+    codes = w_step.view(np.uint8).astype(np.uint64)
+    cols = 16 * g[:, None] + np.arange(16)[None, :]                 # (32, 16)
+    # words[lane, r, q]: row r's word q
+    byte = codes[rows[:, :, None], cols[:, None, :]]    # (32, 4, 16)
+    words = sum(byte[:, :, i::4] << np.uint64(8 * i) for i in range(4))
+    planes = [None] if mode == "dequant" else list(range(bits))
+    out = np.zeros((32, 8, len(planes), 4), np.uint64)
+    for j in range(8):
+        q, lo = j >> 1, 2 * (j & 1)
+        w0, w1, w8, w9 = (words[:, r, q] for r in range(4))
+        for p, b in enumerate(planes):
+            if b is None:        # code_frag: bytes as int8, to bf16
+                def frag(a, c, i):
+                    sa = ((a >> np.uint64(8 * i)) & np.uint64(0xFF)).astype(
+                        np.uint8).view(np.int8)
+                    sc = ((c >> np.uint64(8 * i)) & np.uint64(0xFF)).astype(
+                        np.uint8).view(np.int8)
+                    return _bf16_pair(sa, sc)
+                regs = [frag(w0, w1, lo), frag(w0, w1, lo + 1),
+                        frag(w8, w9, lo), frag(w8, w9, lo + 1)]
+            else:                # prmt, then plane_frag
+                sel_g, sel_g8 = lo | (4 + lo) << 8, (lo + 1) | (5 + lo) << 8
+                c_bits = _bf16_bits(port_ref.plane_coeffs(bits)[b])
+                regs = [((v & np.uint64(0x00010001 << b))
+                         * np.uint64(c_bits >> b)) & np.uint64(0xFFFFFFFF)
+                        for v in (_prmt(w0, w1, sel_g), _prmt(w0, w1, sel_g8),
+                                  _prmt(w8, w9, sel_g), _prmt(w8, w9, sel_g8))]
+            out[:, j, p] = np.stack(regs, 1)
+    return out
+
+
+def _swap_column(j, row):
+    """The block column of A row ``row`` of m16 tile ``j``."""
+    return 16 * (row % 8) + 2 * j + row // 8
+
+
+@pytest.mark.parametrize("mode,bits", [("shift_add", 4), ("shift_add", 8),
+                                       ("dequant", 8)])
+def test_swap_fragments_are_the_planes_of_w_transposed(mode, bits):
+    """The swapped-operand kernel's A fragments, built from each lane's
+    word reads, equal the bf16 planes of Wᵀ exactly under its column
+    permutation (m16n8k16 layout: a0 row g, k 2t/2t+1; a1 row g+8; a2 row
+    g, k 2t+8/2t+9; a3 row g+8), for every int8 code."""
+    rng = np.random.default_rng(11)
+    w_step = rng.integers(-128, 128, (16, 128)).astype(np.int8)
+    frags = _swap_a_fragments(w_step, mode, bits)
+    if mode == "dequant":
+        want = [w_step.astype(np.float32)]
+    else:
+        want = [c * p.numpy() for c, p in zip(
+            port_ref.plane_coeffs(bits),
+            port_ref.ref_planes(torch.from_numpy(w_step), bits))]
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        for j in range(8):
+            for p, plane in enumerate(want):
+                halves = _halves(frags[lane, j, p])          # (4, 2)
+                for r, (row, k0) in enumerate(((g, 2 * t), (g + 8, 2 * t),
+                                               (g, 2 * t + 8),
+                                               (g + 8, 2 * t + 8))):
+                    n = _swap_column(j, row)
+                    assert halves[r, 0] == plane[k0, n]
+                    assert halves[r, 1] == plane[k0 + 1, n]
+
+
+@pytest.mark.parametrize("mf", [1, 2])
+def test_swap_outputs_cover_the_block_once(mf):
+    """The C fragments' map back to out[m][n] (tile j, batch fragment f,
+    register c of lane (g, t): column row -> n by the A permutation, batch
+    8f + 2t + c % 2) covers a block's 128 columns x 8·MF rows exactly once,
+    and the lane's float4 stores (row 2t: acc[2i][f][0], acc[2i][f][2],
+    acc[2i+1][f][0], acc[2i+1][f][2] at columns 16g + 4i..) agree with
+    it."""
+    seen = np.zeros((8 * mf, 128), np.int64)
+    for lane in range(32):
+        g, t = lane >> 2, lane & 3
+        place = {}
+        for j in range(8):
+            for f in range(mf):
+                for c in range(4):
+                    row = g + 8 * (c // 2)
+                    m, n = 8 * f + 2 * t + c % 2, _swap_column(j, row)
+                    seen[m, n] += 1
+                    place[(j, f, c)] = (m, n)
+        for f in range(mf):
+            for i in range(4):
+                for h in range(2):
+                    stored = [(2 * i, f, h), (2 * i, f, 2 + h),
+                              (2 * i + 1, f, h), (2 * i + 1, f, 2 + h)]
+                    for e, key in enumerate(stored):
+                        assert place[key] == (8 * f + 2 * t + h,
+                                              16 * g + 4 * i + e)
+    assert (seen == 1).all()
+
+
+def test_swap_replay_matches_plain():
+    """The swapped-operand kernel replayed in numpy over a few k16 steps
+    (A fragments as the kernel builds them, B fragments as 32-bit pairs of
+    X, an m16n8k16 product per plane and tile into one float32
+    accumulator) against the plain version: rel < 1e-5 (float32 sums in
+    another order)."""
+    rng = np.random.default_rng(12)
+    m, k, bits = 5, 48, 4
+    w = rng.integers(-128, 128, (k, 128)).astype(np.int8)
+    x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(
+        torch.bfloat16)
+    xb = np.zeros((8, k), np.float32)
+    xb[:m] = x.float().numpy()
+    acc = np.zeros((8, 128), np.float64)       # (batch row, column)
+    for s in range(k // 16):
+        frags = _swap_a_fragments(w[16 * s:16 * s + 16], "shift_add", bits)
+        for j in range(8):
+            for p in range(bits):
+                a = np.zeros((16, 16), np.float32)
+                for lane in range(32):
+                    g, t = lane >> 2, lane & 3
+                    h = _halves(frags[lane, j, p])
+                    a[g, 2 * t:2 * t + 2] = h[0]
+                    a[g + 8, 2 * t:2 * t + 2] = h[1]
+                    a[g, 2 * t + 8:2 * t + 10] = h[2]
+                    a[g + 8, 2 * t + 8:2 * t + 10] = h[3]
+                prod = a @ xb[:, 16 * s:16 * s + 16].T     # (16 rows, 8)
+                for row in range(16):
+                    acc[:, _swap_column(j, row)] += prod[row]
+    exp = port_ref.ref_pim_matmul_raw(x, torch.from_numpy(w), mode="shift_add",
+                                      bits=bits).numpy()
+    assert rel_err(acc[:m], exp) < 1e-5
+
+
 class _FakeLib:
     """Records which C entries a card call reaches; launches nothing."""
 
@@ -253,8 +422,12 @@ class _FakeLib:
      "tensor_core"),
     (port_ops.TC_MIN_M, torch.bfloat16,
      ["pim_matmul_tc_splits", "pim_matmul_tc"], "tensor_core"),
-    (4, torch.bfloat16, ["pim_matmul_splits", "pim_matmul"], "cuda_core"),
+    (4, torch.bfloat16, ["pim_matmul_swap_splits", "pim_matmul_swap"],
+     "swap_ab"),
     (512, torch.float32, ["pim_matmul_splits", "pim_matmul"], "cuda_core"),
+    (port_ops.TC_MIN_M - 1, torch.bfloat16,
+     ["pim_matmul_swap_splits", "pim_matmul_swap"], "swap_ab"),
+    (4, torch.float32, ["pim_matmul_splits", "pim_matmul"], "cuda_core"),
 ])
 def test_card_calls_take_their_route(monkeypatch, m, dtype, entries, which):
     """A card call goes to the C entries of its route, counted once in
@@ -273,8 +446,10 @@ def test_card_calls_take_their_route(monkeypatch, m, dtype, entries, which):
                         torch.ones(48))
     assert lib.calls == entries
     assert port_ops.LAUNCHES["pim_matmul"] == 1
-    assert port_ops.ROUTES == {"tensor_core": int(which == "tensor_core"),
-                               "cuda_core": int(which == "cuda_core")}
+    assert port_ops.ROUTES == {r: int(r == which)
+                               for r in ("tensor_core", "swap_ab",
+                                         "cuda_core")}
     port_ops.reset_launches()
-    assert port_ops.ROUTES == {"tensor_core": 0, "cuda_core": 0}
+    assert port_ops.ROUTES == {"tensor_core": 0, "swap_ab": 0,
+                               "cuda_core": 0}
     assert port_ops.LAUNCHES["pim_matmul"] == 0
