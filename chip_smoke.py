@@ -9,11 +9,15 @@ each, every mismatch fatal:
 
 1. build     — the three CUDA libraries (rowops, pim_matmul, flash_attn),
                one nvcc per source, all started together;
-2. kernels   — each row kernel against its plain torch version on the
-               card, bit for bit, at the executor's shapes; device times (a
-               CUDA graph of 20 launches, replayed 20 times, median) beside
-               the plain version's, the memory-rate bound and the time of
-               one call with the host's launch (CUDA events, median of 20);
+2. kernels   — the latency of one dependent float32 add (one thread, a
+               chain of 2^20 ``__fadd_rn``: SM cycles from clock64 and ns
+               from CUDA events), which bounds ``meter_fold``; then each row
+               kernel against its plain torch version on the card, bit for
+               bit, at the executor's shapes; device times (a CUDA graph of
+               20 launches, replayed 20 times, median) beside the plain
+               version's, the bound (``meter_fold``: its m adds in order at
+               that latency) and the time of one call with the host's
+               launch (CUDA events, median of 20);
 3. subarray  — recorded programs through ``execute()`` at the paper's
                512 x 2,048 geometry, held exactly against the port's eager
                ISA on the card and ``execute()`` on the CPU;
@@ -88,7 +92,11 @@ each, every mismatch fatal:
                ``run_pipeline`` and one ``run_workload`` equal to the same
                steps flushed one by one;
 11. bitplane parity — phase 10 again on the CPU: reads, counts and every
-               float32 meter identical.
+               float32 meter identical;
+12. fold sweep — ``meter_fold`` at m = 64, 4,001 and the largest table the
+               card's PIM and bit-plane runs of phases 3-4 and 10 folded,
+               each onto 1 and 64 slots: bit for bit against its plain
+               version, device time beside the chain bound.
 
 Then the kernel table as JSON, the card's name and power limit, and the
 result line. Nanoseconds and nanojoules of the DDR3 meter are outputs of
@@ -196,6 +204,12 @@ SHIFT_KS = (1, -1, 31, 32, 33, -33, 999, -999, 65535, 65536, 70000)
 RIPPLE_SHAPE = (512, 2048)
 RIPPLE_PAIRS = 8
 RIPPLE_RAGGED = ((37, 2048), (5, 33))
+# meter_fold's bound: a dependent chain of this many adds in one thread
+FADD_CHAIN = 1 << 20
+# phase 12: tables of these many rows (and the largest the paths fold),
+# folded onto this many slots
+FOLD_ROWS = (64, 4001)
+FOLD_SLOTS = (1, 64)
 WIDTHS = (1, 2, 4, 8, 16, 32)
 VM_WORDS, VM_ROWS = 2048, 64
 VM_ROUTINES = ("add_ripple", "add_kogge_stone", "mul_shift_add", "xtime",
@@ -284,9 +298,47 @@ def max_abs_err(a, b):
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def phase_kernels(torch, device, n: int = 64, w: int = 2048):
+def fadd_latency(torch, device) -> dict:
+    """The latency of one dependent float32 add on the card: one thread
+    adds FADD_CHAIN times in a ``__fadd_rn`` chain (``fadd_chain_kernel``
+    in rowops.cu). SM cycles per add from clock64 inside the kernel; ns per
+    add from CUDA events around the launch."""
+    from repro_torch.kernels.rowops import ops
+    lib = ops._lib()
+    x = torch.tensor([1.0, 2.0**-30], device=device)
+    out = torch.empty(1, device=device)
+    cycles = torch.empty(1, dtype=torch.int64, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+
+    def run():
+        rc = lib.rowops_fadd_chain(x.data_ptr(), out.data_ptr(),
+                                   cycles.data_ptr(), FADD_CHAIN, stream)
+        if rc:
+            raise RuntimeError(f"fadd_chain launch failed: CUDA error {rc}")
+
+    us = event_us(run, torch, reps=5, warmup=1)
+    r = dict(adds=FADD_CHAIN, cycles_per_add=int(cycles.item()) / FADD_CHAIN,
+             ns_per_add=us * 1e3 / FADD_CHAIN)
+    say(f"fadd chain: {FADD_CHAIN} dependent __fadd_rn adds in one thread: "
+        f"{r['cycles_per_add']:.3f} SM cycles per add (clock64), "
+        f"{r['ns_per_add']:.4f} ns per add (CUDA events)")
+    return r
+
+
+def fold_bound_ms(m: int, nbytes: int, fadd: dict):
+    """meter_fold's bound, in ms, and what sets it: each float (slot,
+    field) adds its m increments in table order, so the chains take m
+    dependent adds at the measured latency however many run beside each
+    other; the bytes (each table and meter read once, written once) at
+    the memory rate where they take longer."""
+    t_chain = m * fadd["ns_per_add"] * 1e-6
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    return max(t_chain, t_bytes), ("operations" if t_chain >= t_bytes
+                                   else "bytes")
+
+
+def phase_kernels(torch, device, fadd, n: int = 64, w: int = 2048):
     import numpy as np
-    from repro_torch.core import pim
     from repro_torch.kernels.rowops import ops, ref
 
     x = rows_from_seed(1, (n, w), torch, device)
@@ -311,10 +363,7 @@ def phase_kernels(torch, device, n: int = 64, w: int = 2048):
             err[f"bitwise[{op}]"] = max_abs_err(got, exp)
     # meter_fold at a main-path shape: shift_k(1000)'s event tables folded
     # onto every slot of the full device
-    prog = pim.shift_workload_program(1000, 512, w)
-    f_tab, i_tab = pim.cost_tables(prog)
-    f_tab = torch.from_numpy(np.array(f_tab)).to(device)
-    i_tab = torch.from_numpy(np.array(i_tab)).to(device)
+    f_tab, i_tab = fold_tables_of(torch, device)
     rng = np.random.default_rng(4)
     f0 = torch.from_numpy((rng.random((n, 6)) * 1e5).astype(np.float32)
                           ).to(device)
@@ -369,11 +418,98 @@ def phase_kernels(torch, device, n: int = 64, w: int = 2048):
         r["bound_ms"] = max(t_bytes, t_ops)
         r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         r["max_abs_err"] = err[name]
+        beside = ""
+        if name == "meter_fold":
+            # the adds at the float32 rate would take t_ops; their order
+            # makes them a chain, which takes m add latencies
+            r["throughput_bound_ms"] = r["bound_ms"]
+            r["bound_ms"], r["bound_by"] = fold_bound_ms(m, r["bytes"], fadd)
+            beside = (f" = {m} adds x {fadd['ns_per_add']:.4f} ns; the adds "
+                      f"at the float32 rate {t_ops * 1e3:.3f} us")
         say(f"kernel {name} {r['shape']}: kernel {r['ms'] * 1e3:.2f} us "
             f"({r['call_ms'] * 1e3:.2f} us per call with the host's launch), "
             f"plain {r['plain_ms'] * 1e3:.2f} us, bound "
-            f"{r['bound_ms'] * 1e3:.3f} us ({r['bound_by']}), max_abs_err "
-            f"{r['max_abs_err']}")
+            f"{r['bound_ms'] * 1e3:.3f} us ({r['bound_by']}{beside}), "
+            f"max_abs_err {r['max_abs_err']}")
+    return rows
+
+
+def fold_tables_of(torch, device, m: int | None = None):
+    """shift_workload(1000)'s event tables (4,001 rows) on ``device``, or
+    their first ``m`` rows."""
+    import numpy as np
+    from repro_torch.core import pim
+    f_tab, i_tab = pim.cost_tables(pim.shift_workload_program(1000, 512,
+                                                              2048))
+    return (torch.from_numpy(np.array(f_tab[:m])).to(device),
+            torch.from_numpy(np.array(i_tab[:m])).to(device))
+
+
+class FoldShapes:
+    """Within ``with``, records the tables every ``meter_fold`` call on the
+    card folds and keeps the largest (most rows); the wrapper itself, and
+    its launch count, are untouched."""
+
+    def __init__(self):
+        self.calls, self.largest = 0, None
+
+    def __enter__(self):
+        from repro_torch.kernels.rowops import ops
+        self._ops, self._fold = ops, ops.meter_fold
+
+        def spy(f_tab, i_tab, f0, i0):
+            if f0.device.type == "cuda":
+                self.calls += 1
+                if (self.largest is None
+                        or f_tab.shape[0] > self.largest[0].shape[0]):
+                    self.largest = (f_tab, i_tab)
+            return self._fold(f_tab, i_tab, f0, i0)
+
+        ops.meter_fold = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._ops.meter_fold = self._fold
+        return False
+
+
+def phase_fold_sweep(torch, device, fadd, largest):
+    """meter_fold at FOLD_ROWS rows and at the largest table the paths
+    folded (``largest``: its own field counts), onto FOLD_SLOTS slots: bit
+    for bit against its plain version; device time beside the chain
+    bound."""
+    import numpy as np
+    from repro_torch.kernels.rowops import ops, ref
+
+    tables = [fold_tables_of(torch, device, m) for m in FOLD_ROWS]
+    tables.append(largest)
+    rng = np.random.default_rng(12)
+    rows = []
+    for f_tab, i_tab in tables:
+        m, nf, ni = f_tab.shape[0], f_tab.shape[1], i_tab.shape[1]
+        for slots in FOLD_SLOTS:
+            f0 = torch.from_numpy((rng.random((slots, nf)) * 1e5)
+                                  .astype(np.float32)).to(device)
+            i0 = torch.from_numpy(rng.integers(0, 10**6, (slots, ni))
+                                  .astype(np.int32)).to(device)
+            got = ops.meter_fold(f_tab, i_tab, f0, i0)
+            exp = ref.ref_meter_fold(f_tab, i_tab, f0, i0)
+            if not (torch.equal(got[0].view(torch.int32),
+                                exp[0].view(torch.int32))
+                    and torch.equal(got[1], exp[1])):
+                raise AssertionError(f"meter_fold m={m} slots={slots} "
+                                     "differs from the numpy fold")
+            nbytes = 4 * (m * (nf + ni) + 2 * slots * (nf + ni))
+            bound_ms, bound_by = fold_bound_ms(m, nbytes, fadd)
+            r = dict(m=m, slots=slots, nf=nf, ni=ni, bound_ms=bound_ms,
+                     bound_by=bound_by,
+                     ms=device_us(lambda: ops.meter_fold(f_tab, i_tab, f0,
+                                                         i0), torch) / 1e3)
+            rows.append(r)
+            say(f"fold m={m} slots={slots} ({nf}+{ni} fields): kernel "
+                f"{r['ms'] * 1e3:.2f} us, chain bound "
+                f"{bound_ms * 1e3:.3f} us ({bound_by}), "
+                f"{r['ms'] / bound_ms:.2f}x the bound; bit for bit")
     return rows
 
 
@@ -1327,13 +1463,12 @@ def phase_ripple(torch, device):
                                                             width=width))
                 for pa, pb in pairs):
             library, lib_note = None, f"none ({lib_note} differs)"
-        # Operations: s = a^b and c = a&b, then three three-input logic
-        # operations per two rounds (c1 = s & t0, c2 = t1 & (s ^ t0), s2 =
-        # s ^ t0 ^ t1 with t = c<<1 & interior), as nvcc emits them (LOP3
-        # on the integer pipe); the shift by one issues as a multiply on
-        # the twice as wide FMA pipe beside them and is not counted.
+        # Operations: the masked lane add, ((a & ~H) + (b & ~H)) ^ ((a ^ b)
+        # & H), four logic operations and one add per word at every width,
+        # as nvcc emits them (LOP3 and IADD3 on the integer pipe; the sass
+        # line counts them).
         nbytes = 12 * n * w
-        nops = (2 + (3 * (width - 1) + 1) // 2) * n * w
+        nops = 5 * n * w
         t_bytes = nbytes / H100_BYTES_PER_S * 1e3
         t_ops = nops / H100_INT32_OPS_PER_S * 1e3
         kernel = lambda x, y, width=width: ops.ripple_add(x, y, width=width)
@@ -1396,17 +1531,22 @@ def phase_ripple(torch, device):
 
 
 def ripple_sass():
-    """Instructions per word of ``ripple_add`` at w 32 (the four-word
+    """Instructions per word of ``ripple_add`` at w 32 (the 16-byte-vector
     kernel), counted in ``cuobjdump -sass`` of the built library: what the
-    bound's operation count rests on. None where the toolkit has no
-    ``cuobjdump``."""
+    bound's operation count rests on. A thread adds kRippleVecs vectors
+    and at most one word of the tail, so the counts are divided by 4 x
+    kRippleVecs + 1 words (IADD3 and IMAD include the address arithmetic).
+    None where the toolkit has no ``cuobjdump``."""
+    import re
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         return None
+    vecs = int(re.search(r"constexpr int kRippleVecs = (\d+);",
+                         (ROOT / SOURCES["rowops"]).read_text()).group(1))
     ops = sass_opcodes("rowops", r"ripple_add_vec4_kernelILi32E",
                        lambda m: "w32")["w32"]
-    return {k: ops[k] / 4 for k in ("LOP3", "IMAD", "SHF")}
+    return {k: ops[k] / (4 * vecs + 1) for k in ("LOP3", "IADD3", "IMAD")}
 
 
 # ---------------------------------------------------------------------------
@@ -1716,8 +1856,9 @@ def main() -> int:
             f"{len(SOURCES)} in parallel (nvcc "
             f"{_build.BUILD_SECONDS.get(name, 0.0):.2f} s)")
 
-    # 2. kernels against their plain versions
-    kernel_rows = phase_kernels(torch, device)
+    # 2. the add latency; kernels against their plain versions
+    fadd = record["fadd"] = fadd_latency(torch, device)
+    kernel_rows = phase_kernels(torch, device, fadd)
     record["kernels"] = kernel_rows
 
     # 3-4. the main path, with the launch counts reset just before it and
@@ -1725,8 +1866,9 @@ def main() -> int:
     cfg = pim.paper_device(32, subarrays=2)
     steps = device_steps(cfg)
     ops.reset_launches()
-    sub_results = run_subarray(torch, device)
-    dev_results = run_device(torch, device, cfg, steps)
+    with FoldShapes() as folds:
+        sub_results = run_subarray(torch, device)
+        dev_results = run_device(torch, device, cfg, steps)
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     by_op = dict(ops.LAUNCHES_BY_OP)
@@ -1897,8 +2039,9 @@ def main() -> int:
     # 10. the bit-plane path, with the launch counts reset just before it
     # and read just after it
     ops.reset_launches()
-    bp_values, record["bitplane"] = run_bitplane(torch, device,
-                                                 check_oracles=True)
+    with FoldShapes() as bp_folds:
+        bp_values, record["bitplane"] = run_bitplane(torch, device,
+                                                     check_oracles=True)
     torch.cuda.synchronize()
     bp_launches = {**ops.LAUNCHES, **{f"bitwise[{k}]": v
                                       for k, v in ops.LAUNCHES_BY_OP.items()}}
@@ -1927,6 +2070,14 @@ def main() -> int:
         raise AssertionError("bit-plane path: card and CPU differ")
     say(f"bitplane parity: card == CPU for {len(bp_values)} runs (reads, "
         f"counts, float32 meters); CPU run {cpu_s:.1f} s")
+
+    # 12. meter_fold over table sizes, up to the largest the paths folded
+    largest = max((f.largest for f in (folds, bp_folds)),
+                  key=lambda t: t[0].shape[0])
+    say(f"fold tables on the card: {folds.calls} on the PIM path, largest "
+        f"{folds.largest[0].shape[0]} rows; {bp_folds.calls} on the "
+        f"bit-plane path, largest {bp_folds.largest[0].shape[0]} rows")
+    record["fold_sweep"] = phase_fold_sweep(torch, device, fadd, largest)
 
     table = []
     for name, r in kernel_rows.items():

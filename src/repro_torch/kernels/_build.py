@@ -34,6 +34,7 @@ LIBRARIES = {
             "rowops_bitwise": (_P, _P, _P, _P, _L, _I, _I, _P),
             "rowops_meter_fold": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _P),
+            "rowops_fadd_chain": (_P, _P, _P, _I, _P),
             "rowops_ripple_add": (_P, _P, _P, _L, _I, _I, _P),
         },
     ),

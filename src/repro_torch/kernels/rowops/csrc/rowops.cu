@@ -10,6 +10,7 @@
 // launches without synchronising, allocates nothing and returns
 // cudaGetLastError(). Outputs are always separate buffers (out of place).
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -19,6 +20,25 @@ constexpr int kThreads = 256;
 
 inline unsigned blocks_for(long long n) {
   return static_cast<unsigned>((n + kThreads - 1) / kThreads);
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 4 bytes from global to shared, asynchronously
+__device__ __forceinline__ void cp_async4(unsigned dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -126,102 +146,277 @@ __global__ void bitwise_vec4_kernel(const uint4* __restrict__ a,
 // ---------------------------------------------------------------------------
 // meter_fold — a helper, not a port of a TPU kernel. It replaces the XLA
 // scan _fold_tables (src/repro/core/pim/compile.py), which folds per-event
-// increment tables onto the cost meter in program order.
-// One thread per (slot, field): a strictly sequential loop of __fadd_rn
-// (float fields; no contraction, no reassociation) or wrapping int adds
-// over the m table rows, so the meter equals the eager ISA's to the last
-// ulp. The block stages tiles of the tables in shared memory with
-// coalesced loads, and every thread folds its column from there.
-// Bound on the card: the m*(F+G) dependent adds of one column run in
-// sequence; at m ~ 4,000 events that chain, not the bytes, sets the time.
+// increment tables onto the cost meter in program order:
+//   fout[b, c] = (...((f0[b, c] + ft[0, c]) + ft[1, c]) + ...) + ft[m-1, c]
+// in float32 with __fadd_rn (no contraction, no reassociation; this file
+// builds without -ftz or fast math, so denormals are kept), so the meter
+// equals the eager ISA's to the last ulp, and
+//   iout[b, c] = i0[b, c] + sum_r it[r, c]   in wrap-around uint32.
+// Bound on the card: each float (slot, field) is a chain of m dependent
+// adds, so the least time is m times the latency of one FADD (chip_smoke.py
+// measures it with fadd_chain_kernel below), not the table's bytes or the
+// adds at the float32 rate. The design keeps everything else off the chain:
+// - Wrap-around uint32 addition is associative, so the last block of the
+//   grid sums the int table in any order (16-byte loads, eight in flight
+//   per thread, then shared-memory atomics) and adds the column sums to
+//   every slot's start value.
+// - Every other block runs kFoldChains float chains, one thread each,
+//   field-major (the lanes of a warp share a field, so their loads
+//   broadcast), beside one producer warp that streams the table through a
+//   ring of kFoldStages tiles in shared memory with 4-byte cp.async copies,
+//   transposed so that a field's increments lie contiguous. One barrier
+//   per tile of Shape::kTile rows.
+// - A chain reads its next kFoldChunk increments as 16-byte loads while it
+//   adds the current ones, so no load latency lands on the chain. The last
+//   tile is padded with -0.0, which round-to-nearest addition returns
+//   unchanged for every float (a NaN stays a NaN).
+// - Three warps of chains and the producer, one warp per scheduler of the
+//   SM, so that nothing competes with a chain for its issue slots; more
+//   chains take more blocks, each streaming the whole table.
+// The field count is a template parameter for the CostMeter's 6 and
+// sequential_sum's 1; other counts up to kFoldMaxCols take the generic
+// instance (NF = 0).
 // ---------------------------------------------------------------------------
-constexpr int kFoldTile = 256;          // table rows staged per pass
-constexpr int kFoldMaxCols = 16;        // F + G per row, at most
+constexpr int kFoldMaxCols = 16;        // float or int fields, each at most
+constexpr int kFoldChains = 96;         // float chains per block
+constexpr int kFoldThreads = kFoldChains + 32;      // and the producer warp
+constexpr int kFoldStages = 3;          // tiles in the ring
+constexpr int kFoldChunk = 16;          // increments a chain reads ahead
+constexpr int kFoldIntLoads = 8;        // 16-byte int loads in flight
 
-__global__ void meter_fold_kernel(const float* __restrict__ ftab,
-                                  const int32_t* __restrict__ itab,
-                                  const float* __restrict__ f0,
-                                  const int32_t* __restrict__ i0,
-                                  float* __restrict__ fout,
-                                  int32_t* __restrict__ iout,
-                                  int m, int n_slots, int nf, int ni) {
-  __shared__ float fs[kFoldTile * kFoldMaxCols];
-  __shared__ int32_t is[kFoldTile * kFoldMaxCols];
-  int cols = nf + ni;
-  long long t = static_cast<long long>(blockIdx.x) * blockDim.x
-                + threadIdx.x;
-  bool active = t < static_cast<long long>(n_slots) * cols;
-  int slot = active ? static_cast<int>(t / cols) : 0;
-  int col = active ? static_cast<int>(t % cols) : 0;
-  bool is_f = col < nf;
-  float facc = 0.0f;
-  uint32_t iacc = 0u;
-  if (active) {
-    if (is_f) facc = f0[static_cast<long long>(slot) * nf + col];
-    else iacc = static_cast<uint32_t>(
-        i0[static_cast<long long>(slot) * ni + (col - nf)]);
+template <int NF>
+struct FoldShape {
+  static constexpr int kTile = NF == 0 ? 128 : 512;  // table rows per stage
+  static constexpr int kCols = NF == 0 ? kFoldMaxCols : NF;
+  // floats per field in a stage: room for a chain's look-ahead past the
+  // tile, and fields 20 banks apart so that lanes on six fields do not
+  // conflict
+  static constexpr int kPitch = kTile + kFoldChunk + 4;
+};
+
+// One float chain over a staged tile: ``rows`` (a multiple of kFoldChunk)
+// increments at ``col``, read kFoldChunk ahead of the adds. The last
+// look-ahead reads past the tile, into the pitch's slack, unconditionally:
+// behind a branch, ptxas issued each load only a few adds before its use,
+// and the chain waited on them.
+__device__ __forceinline__ float fold_column(float acc, const float* col,
+                                             int rows) {
+  constexpr int kVecs = kFoldChunk / 4;
+  float4 cur[kVecs];
+#pragma unroll
+  for (int u = 0; u < kVecs; ++u)
+    cur[u] = reinterpret_cast<const float4*>(col)[u];
+  for (int r = 0; r < rows; r += kFoldChunk) {
+    float4 nxt[kVecs];
+#pragma unroll
+    for (int u = 0; u < kVecs; ++u)
+      nxt[u] = reinterpret_cast<const float4*>(col + r + kFoldChunk)[u];
+#pragma unroll
+    for (int u = 0; u < kVecs; ++u) {
+      acc = __fadd_rn(acc, cur[u].x);
+      acc = __fadd_rn(acc, cur[u].y);
+      acc = __fadd_rn(acc, cur[u].z);
+      acc = __fadd_rn(acc, cur[u].w);
+    }
+#pragma unroll
+    for (int u = 0; u < kVecs; ++u) cur[u] = nxt[u];
   }
-  for (int base = 0; base < m; base += kFoldTile) {
-    int rows = min(kFoldTile, m - base);
-    __syncthreads();
-    for (int e = threadIdx.x; e < rows * nf; e += blockDim.x)
-      fs[e] = ftab[static_cast<long long>(base) * nf + e];
-    for (int e = threadIdx.x; e < rows * ni; e += blockDim.x)
-      is[e] = itab[static_cast<long long>(base) * ni + e];
-    __syncthreads();
-    if (active) {
-      if (is_f) {
-        for (int r = 0; r < rows; ++r) facc = __fadd_rn(facc, fs[r * nf + col]);
-      } else {
-        int c = col - nf;
-        for (int r = 0; r < rows; ++r)
-          iacc += static_cast<uint32_t>(is[r * ni + c]);
+  return acc;
+}
+
+// The int block: column sums of the (m, ni) table in wrap-around uint32,
+// then iout = i0 + sums. Thread t adds the elements (16-byte vectors when
+// ``vec4``) t, t + stride, ...; the stride keeps each of its lanes on one
+// column, so it holds one partial sum per lane.
+__device__ void fold_int_columns(const int32_t* __restrict__ itab,
+                                 const int32_t* __restrict__ i0,
+                                 int32_t* __restrict__ iout, int m,
+                                 int n_slots, int ni, int vec4) {
+  __shared__ uint32_t sums[kFoldMaxCols];
+  const int tid = threadIdx.x;
+  if (tid < ni) sums[tid] = 0u;
+  __syncthreads();
+  const long long total = static_cast<long long>(m) * ni;
+  const int width = vec4 ? 4 : 1;             // elements per load
+  // a stride in loads whose width * stride elements are whole rows
+  const int period = ni / (vec4 ? (ni % 4 == 0 ? 4 : ni % 2 == 0 ? 2 : 1)
+                                : 1);
+  const int stride = blockDim.x - blockDim.x % period;
+  const long long loads = total / width;
+  if (tid < stride) {
+    uint32_t acc[4] = {0u, 0u, 0u, 0u};
+    long long i = tid;
+    if (vec4) {
+      const uint4* v = reinterpret_cast<const uint4*>(itab);
+      for (; i + (kFoldIntLoads - 1LL) * stride < loads;
+           i += static_cast<long long>(kFoldIntLoads) * stride) {
+        uint4 x[kFoldIntLoads];
+#pragma unroll
+        for (int u = 0; u < kFoldIntLoads; ++u) x[u] = v[i + u * stride];
+#pragma unroll
+        for (int u = 0; u < kFoldIntLoads; ++u) {
+          acc[0] += x[u].x; acc[1] += x[u].y;
+          acc[2] += x[u].z; acc[3] += x[u].w;
+        }
       }
+      for (; i < loads; i += stride) {
+        uint4 x = v[i];
+        acc[0] += x.x; acc[1] += x.y; acc[2] += x.z; acc[3] += x.w;
+      }
+    } else {
+      const uint32_t* v = reinterpret_cast<const uint32_t*>(itab);
+      for (; i + (kFoldIntLoads - 1LL) * stride < loads;
+           i += static_cast<long long>(kFoldIntLoads) * stride) {
+        uint32_t x[kFoldIntLoads];
+#pragma unroll
+        for (int u = 0; u < kFoldIntLoads; ++u) x[u] = v[i + u * stride];
+#pragma unroll
+        for (int u = 0; u < kFoldIntLoads; ++u) acc[0] += x[u];
+      }
+      for (; i < loads; i += stride) acc[0] += v[i];
+    }
+    for (int k = 0; k < width; ++k)
+      atomicAdd(&sums[(static_cast<long long>(tid) * width + k) % ni],
+                acc[k]);
+  }
+  // the last total % width elements
+  const long long tail = loads * width + tid;
+  if (tail < total)
+    atomicAdd(&sums[tail % ni], static_cast<uint32_t>(itab[tail]));
+  __syncthreads();
+  for (long long e = tid; e < static_cast<long long>(n_slots) * ni;
+       e += blockDim.x)
+    iout[e] = static_cast<int32_t>(static_cast<uint32_t>(i0[e])
+                                   + sums[e % ni]);
+}
+
+template <int NF>
+__global__ void __launch_bounds__(kFoldThreads)
+meter_fold_kernel(const float* __restrict__ ftab,
+                  const int32_t* __restrict__ itab,
+                  const float* __restrict__ f0,
+                  const int32_t* __restrict__ i0,
+                  float* __restrict__ fout, int32_t* __restrict__ iout,
+                  int m, int n_slots, int nf_arg, int ni, int chain_blocks,
+                  int int_vec4) {
+  if (static_cast<int>(blockIdx.x) == chain_blocks) {
+    fold_int_columns(itab, i0, iout, m, n_slots, ni, int_vec4);
+    return;
+  }
+  using Shape = FoldShape<NF>;
+  __shared__ __align__(16) float ring[kFoldStages][Shape::kCols
+                                                   * Shape::kPitch];
+  const int nf = NF ? NF : nf_arg;
+  const int tid = threadIdx.x;
+  const bool producer = tid >= kFoldChains;
+  const long long chain = static_cast<long long>(blockIdx.x) * kFoldChains
+                          + tid;
+  const bool active = !producer
+                      && chain < static_cast<long long>(n_slots) * nf;
+  const int field = active ? static_cast<int>(chain / n_slots) : 0;
+  const int slot = active ? static_cast<int>(chain % n_slots) : 0;
+  float acc = active ? f0[static_cast<long long>(slot) * nf + field] : 0.0f;
+  // a producer lane copies one field of every (32 / nf)-th row
+  const int lane = tid - kFoldChains;
+  const int rows_per_pass = 32 / nf;
+  const int p_field = producer ? lane % nf : 0;
+  const int p_row = producer ? lane / nf : rows_per_pass;
+  const int ntiles = (m + Shape::kTile - 1) / Shape::kTile;
+
+  auto issue = [&](int k) {         // tile k into stage k % kFoldStages
+    if (k < ntiles && p_row < rows_per_pass) {
+      float* dst = ring[k % kFoldStages] + p_field * Shape::kPitch;
+      const int base = k * Shape::kTile;
+      const int rows = min(Shape::kTile, m - base);
+      const int padded = (rows + kFoldChunk - 1) / kFoldChunk * kFoldChunk;
+      const float* src = ftab + static_cast<long long>(base) * nf + p_field;
+      for (int r = p_row; r < rows; r += rows_per_pass)
+        cp_async4(smem_u32(dst + r), src + static_cast<long long>(r) * nf);
+      for (int r = rows + p_row; r < padded; r += rows_per_pass)
+        dst[r] = -0.0f;
+    }
+    cp_async_commit();
+  };
+
+  if (producer)
+    for (int k = 0; k < kFoldStages - 1; ++k) issue(k);
+  for (int k = 0; k < ntiles; ++k) {
+    if (producer) cp_async_wait<kFoldStages - 2>();
+    __syncthreads();                // tile k landed; tile k - 1 folded
+    if (producer) {
+      issue(k + kFoldStages - 1);   // into tile k - 1's stage
+    } else if (active) {
+      const int rows = min(Shape::kTile, m - k * Shape::kTile);
+      acc = fold_column(acc, ring[k % kFoldStages] + field * Shape::kPitch,
+                        (rows + kFoldChunk - 1) / kFoldChunk * kFoldChunk);
     }
   }
-  if (active) {
-    if (is_f) fout[static_cast<long long>(slot) * nf + col] = facc;
-    else iout[static_cast<long long>(slot) * ni + (col - nf)] =
-        static_cast<int32_t>(iacc);
+  if (active) fout[static_cast<long long>(slot) * nf + field] = acc;
+}
+
+template <int NF>
+void launch_meter_fold(const void* ftab, const void* itab, const void* f0,
+                       const void* i0, void* fout, void* iout, int m,
+                       int n_slots, int nf, int ni, cudaStream_t s) {
+  const long long chains = static_cast<long long>(n_slots) * nf;
+  const int chain_blocks = static_cast<int>(
+      (chains + kFoldChains - 1) / kFoldChains);
+  const unsigned blocks = chain_blocks + (ni > 0 ? 1 : 0);
+  const int int_vec4 = reinterpret_cast<uintptr_t>(itab) % 16 == 0;
+  meter_fold_kernel<NF><<<blocks, kFoldThreads, 0, s>>>(
+      static_cast<const float*>(ftab), static_cast<const int32_t*>(itab),
+      static_cast<const float*>(f0), static_cast<const int32_t*>(i0),
+      static_cast<float*>(fout), static_cast<int32_t*>(iout), m, n_slots,
+      nf, ni, chain_blocks, int_vec4);
+}
+
+// The measure of meter_fold's bound: one thread adds ``inc`` to ``acc``
+// n times in a dependent __fadd_rn chain (n a multiple of 8), and records
+// the SM cycles the chain took (clock64).
+__global__ void fadd_chain_kernel(const float* __restrict__ x,
+                                  float* __restrict__ out,
+                                  long long* __restrict__ cycles, int n) {
+  float acc = x[0];
+  const float inc = x[1];
+  const long long t0 = clock64();
+  for (int i = 0; i < n; i += 8) {
+#pragma unroll
+    for (int u = 0; u < 8; ++u) acc = __fadd_rn(acc, inc);
   }
+  const long long t1 = clock64();
+  out[0] = acc;
+  cycles[0] = t1 - t0;
 }
 
 // ---------------------------------------------------------------------------
 // ripple_add — replaces the TPU kernel
 //   src/repro/kernels/rowops/rowops.py: ripple_add -> _ripple_add_kernel.
-// Lane-wise add of horizontally packed w-bit elements, w | 32, as the
-// paper's ripple-carry S/C iteration: s = a^b, c = a&b, then w-1 rounds of
-//   cs = shift_cols(c, +1) & interior;  c = s & cs;  s ^= cs.
-// Because w divides 32, every word starts an element, so the bit that
-// shift_cols(c, +1) carries across a word boundary always lands on an
-// element's bit 0, which the interior mask clears. Each output word thus
-// depends only on the same word of a and b: shift_cols(c, +1) & interior
-// is (c << 1) & interior within the word. One thread keeps s and c in
-// registers for all w-1 rounds (four words per thread through 16-byte
-// loads when aligned), reads each input word once and writes once: the
-// Pallas kernel's one HBM round trip, with no neighbour word and no shared
-// memory. The width is a template parameter, so the rounds unroll.
-// Bound on the card: bytes, 12 per word, at every width. nvcc fuses two
-// rounds into three three-input LOP3s and issues each shift as an
-// IMAD.SHL on the FMA pipe (cuobjdump -sass: 47 LOP3 and 32 IMAD per word
-// at w = 32), so even w = 32 needs less integer time than memory time.
+// Lane-wise add of horizontally packed w-bit elements, w | 32. The TPU
+// kernel runs the paper's ripple-carry S/C iteration (s = a^b, c = a&b,
+// then w-1 rounds of cs = shift_cols(c, +1) & interior; c = s & cs;
+// s ^= cs); its result is a + b mod 2^w in every lane, and because w
+// divides 32 no lane crosses a word. This kernel computes that sum without
+// the iteration: with H the lanes' top bits,
+//   s = ((a & ~H) + (b & ~H)) ^ ((a ^ b) & H)
+// adds the low w-1 bits of each lane (their carry stops in the cleared top
+// bit) and sets the top bit to the carry ^ a's ^ b's. At w 1 that is a ^ b,
+// at w 32 a + b. About five integer instructions per word at every width
+// (chip_smoke.py counts them in the SASS).
+// Bound on the card: bytes, 12 per word, at every width. Each thread keeps
+// kRippleVecs 16-byte loads per operand in flight (a block adds a
+// contiguous run of kThreads * kRippleVecs vectors); the few words past the
+// last whole vector go to block 0's first threads. Rows that are not
+// 16-byte aligned take the one-word-per-thread kernel.
 // ---------------------------------------------------------------------------
+constexpr int kRippleVecs = 2;
+
 template <int W>
-__device__ __forceinline__ uint32_t ripple_word(uint32_t a, uint32_t b) {
+__device__ __forceinline__ uint32_t lane_add(uint32_t a, uint32_t b) {
   constexpr uint32_t kElem = W == 32 ? 0xFFFFFFFFu
                                       : ((1u << (W % 32)) - 1u);
-  constexpr uint32_t kLsb = W == 32 ? 1u
-                                    : 0xFFFFFFFFu / kElem;  // each bit 0
-  constexpr uint32_t kInterior = ~kLsb;
-  uint32_t s = a ^ b;
-  uint32_t c = a & b;
-#pragma unroll
-  for (int r = 0; r < W - 1; ++r) {
-    uint32_t cs = (c << 1) & kInterior;
-    c = s & cs;
-    s ^= cs;
-  }
-  return s;
+  constexpr uint32_t kLsb = 0xFFFFFFFFu / kElem;   // each lane's bit 0
+  constexpr uint32_t kTop = kLsb << (W - 1);       // each lane's top bit
+  return ((a & ~kTop) + (b & ~kTop)) ^ ((a ^ b) & kTop);
 }
 
 template <int W>
@@ -232,39 +427,58 @@ __global__ void ripple_add_kernel(const uint32_t* __restrict__ a,
   long long i = static_cast<long long>(blockIdx.x) * blockDim.x
                 + threadIdx.x;
   if (i >= total) return;
-  out[i] = ripple_word<W>(a[i], b[i]);
+  out[i] = lane_add<W>(a[i], b[i]);
 }
 
 template <int W>
-__global__ void ripple_add_vec4_kernel(const uint4* __restrict__ a,
-                                       const uint4* __restrict__ b,
-                                       uint4* __restrict__ out,
-                                       long long total4) {
-  long long i = static_cast<long long>(blockIdx.x) * blockDim.x
-                + threadIdx.x;
-  if (i >= total4) return;
-  uint4 av = a[i];
-  uint4 bv = b[i];
-  uint4 r;
-  r.x = ripple_word<W>(av.x, bv.x);
-  r.y = ripple_word<W>(av.y, bv.y);
-  r.z = ripple_word<W>(av.z, bv.z);
-  r.w = ripple_word<W>(av.w, bv.w);
-  out[i] = r;
+__global__ void __launch_bounds__(kThreads)
+ripple_add_vec4_kernel(const uint32_t* __restrict__ a,
+                       const uint32_t* __restrict__ b,
+                       uint32_t* __restrict__ out, long long total) {
+  const long long total4 = total / 4;
+  const uint4* a4 = reinterpret_cast<const uint4*>(a);
+  const uint4* b4 = reinterpret_cast<const uint4*>(b);
+  uint4* out4 = reinterpret_cast<uint4*>(out);
+  const long long base = static_cast<long long>(blockIdx.x) * kThreads
+                         * kRippleVecs + threadIdx.x;
+  uint4 av[kRippleVecs], bv[kRippleVecs];
+#pragma unroll
+  for (int u = 0; u < kRippleVecs; ++u) {
+    const long long i = base + u * kThreads;
+    if (i < total4) {
+      av[u] = a4[i];
+      bv[u] = b4[i];
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kRippleVecs; ++u) {
+    const long long i = base + u * kThreads;
+    if (i < total4)
+      out4[i] = make_uint4(
+          lane_add<W>(av[u].x, bv[u].x), lane_add<W>(av[u].y, bv[u].y),
+          lane_add<W>(av[u].z, bv[u].z), lane_add<W>(av[u].w, bv[u].w));
+  }
+  const long long tail = total4 * 4 + threadIdx.x;
+  if (blockIdx.x == 0 && tail < total)
+    out[tail] = lane_add<W>(a[tail], b[tail]);
 }
 
 template <int W>
 void launch_ripple_add(const void* a, const void* b, void* out,
                        long long total, int vec4, cudaStream_t s) {
+  const uint32_t* a1 = static_cast<const uint32_t*>(a);
+  const uint32_t* b1 = static_cast<const uint32_t*>(b);
+  uint32_t* out1 = static_cast<uint32_t*>(out);
   if (vec4) {
-    long long total4 = total / 4;
-    ripple_add_vec4_kernel<W><<<blocks_for(total4), kThreads, 0, s>>>(
-        static_cast<const uint4*>(a), static_cast<const uint4*>(b),
-        static_cast<uint4*>(out), total4);
+    const long long per_block = static_cast<long long>(kThreads)
+                                * kRippleVecs;
+    const unsigned blocks = static_cast<unsigned>(
+        std::max(1LL, (total / 4 + per_block - 1) / per_block));
+    ripple_add_vec4_kernel<W><<<blocks, kThreads, 0, s>>>(a1, b1, out1,
+                                                         total);
   } else {
     ripple_add_kernel<W><<<blocks_for(total), kThreads, 0, s>>>(
-        static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
-        static_cast<uint32_t*>(out), total);
+        a1, b1, out1, total);
   }
 }
 
@@ -308,15 +522,27 @@ int rowops_bitwise(const void* a, const void* b, const void* c, void* out,
 int rowops_meter_fold(const void* ftab, const void* itab, const void* f0,
                       const void* i0, void* fout, void* iout, int m,
                       int n_slots, int nf, int ni, void* stream) {
-  if (nf + ni > kFoldMaxCols) return static_cast<int>(cudaErrorInvalidValue);
-  long long threads = static_cast<long long>(n_slots) * (nf + ni);
-  if (threads <= 0) return static_cast<int>(cudaSuccess);
-  meter_fold_kernel<<<blocks_for(threads), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(ftab), static_cast<const int32_t*>(itab),
-      static_cast<const float*>(f0), static_cast<const int32_t*>(i0),
-      static_cast<float*>(fout), static_cast<int32_t*>(iout), m, n_slots,
-      nf, ni);
+  if (nf < 0 || ni < 0 || nf > kFoldMaxCols || ni > kFoldMaxCols)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_slots <= 0 || nf + ni == 0) return static_cast<int>(cudaSuccess);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (nf) {
+    case 6: launch_meter_fold<6>(ftab, itab, f0, i0, fout, iout, m, n_slots,
+                                 nf, ni, s); break;
+    case 1: launch_meter_fold<1>(ftab, itab, f0, i0, fout, iout, m, n_slots,
+                                 nf, ni, s); break;
+    default: launch_meter_fold<0>(ftab, itab, f0, i0, fout, iout, m,
+                                  n_slots, nf, ni, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int rowops_fadd_chain(const void* x, void* out, void* cycles, int n,
+                      void* stream) {
+  if (n <= 0 || n % 8) return static_cast<int>(cudaErrorInvalidValue);
+  fadd_chain_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<float*>(out),
+      static_cast<long long*>(cycles), n);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -136,7 +136,7 @@ def meter_fold(f_tab: torch.Tensor, i_tab: torch.Tensor, f0: torch.Tensor,
     if not all(t.is_contiguous() for t in (f_tab, i_tab, f0, i0)):
         raise ValueError("meter_fold: operands must be contiguous")
     fout, iout = torch.empty_like(f0), torch.empty_like(i0)
-    if f0.shape[0] == 0:
+    if f0.numel() + i0.numel() == 0:
         return fout, iout
     _raise_on(_lib().rowops_meter_fold(
         f_tab.data_ptr(), i_tab.data_ptr(), f0.data_ptr(), i0.data_ptr(),
@@ -150,7 +150,8 @@ def meter_fold(f_tab: torch.Tensor, i_tab: torch.Tensor, f0: torch.Tensor,
 def ripple_add(a: torch.Tensor, b: torch.Tensor, *, width: int,
                interpret: bool | None = None) -> torch.Tensor:
     """Lane-wise ``a + b`` (mod 2**width) of horizontally packed w-bit
-    elements in (N, W) rows, as the fused S/C carry iteration; ``width``
+    elements in (N, W) rows: what the S/C carry iteration of the plain
+    version computes, as one masked add per word on the card; ``width``
     must divide 32. A new tensor."""
     width = int(width)
     if width < 1 or 32 % width:
@@ -165,7 +166,7 @@ def ripple_add(a: torch.Tensor, b: torch.Tensor, *, width: int,
     if a.numel() == 0:
         return out
     ptrs = (a.data_ptr(), b.data_ptr(), out.data_ptr())
-    vec4 = int(a.numel() % 4 == 0 and all(p % 16 == 0 for p in ptrs))
+    vec4 = int(all(p % 16 == 0 for p in ptrs))  # the kernel adds any tail
     _raise_on(_lib().rowops_ripple_add(
         *ptrs, a.numel(), width, vec4,
         torch.cuda.current_stream(a.device).cuda_stream), "ripple_add")

@@ -1,8 +1,9 @@
 """The port's kernels on the card against their plain versions, at ragged
 shapes and options that ``chip_smoke.py``'s full-width run does not reach
-(``ripple_add`` at every width, ``pim_matmul`` and ``flash_attn`` on each
-of their routes, odd and random sizes), and the smoke-size serving path on
-the card against the CPU.
+(``ripple_add`` at every width, ``meter_fold`` at every table size and
+special value, ``pim_matmul`` and ``flash_attn`` on each of their routes,
+odd and random sizes), and the smoke-size serving path on the card
+against the CPU.
 
 Needs a CUDA card and ``nvcc`` (the kernels build at first use); every test
 here skips elsewhere. It imports nothing of JAX, so on the card machine it
@@ -10,8 +11,11 @@ runs without the repository's conftest:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: ripple_add, exact; pim_matmul, 1e-4 of max |y| (kernel and plain version compute
-the same float32 function, summing in another order); flash, abs 2e-5 in
+Tolerances: ripple_add, exact; meter_fold, exact float32 and int32 bits,
+except that a NaN is compared as a NaN (the card's add returns the
+canonical NaN, numpy's on the host keeps an operand's payload);
+pim_matmul, 1e-4 of max |y| (kernel and plain version compute the same
+float32 function, summing in another order); flash, abs 2e-5 in
 float32 (the reference tests' bound) and 1e-2 of max |plain| in bf16 (both
 sides compute in float32 from the same bf16 inputs and round the output,
 so they differ by about one bf16 ulp of the largest output, at most 2^-7
@@ -505,3 +509,119 @@ def test_ripple_add_launch_count_and_refusals(card):
     empty = torch.empty((0, 64), dtype=torch.int32, device=card)
     assert rops.ripple_add(empty, empty, width=8).shape == (0, 64)
     assert rops.LAUNCHES["ripple_add"] == 1
+
+
+@pytest.mark.parametrize("width", [1, 2, 4, 8, 16, 32])
+def test_ripple_add_carries_to_the_top_bit(card, width):
+    """Lanes whose carry runs through every bit: all ones + 1 (wraps to 0),
+    0x7F.. + 1 (carries into the top bit), all ones + all ones; exact."""
+    lanes = 32 // width
+    one = sum(1 << (e * width) for e in range(lanes))
+    low = sum(((1 << (width - 1)) - 1) << (e * width) for e in range(lanes))
+    words = np.array([[0xFFFFFFFF, one], [low, one], [0xFFFFFFFF,
+                                                      0xFFFFFFFF]],
+                     dtype=np.uint32).view(np.int32)
+    a = torch.as_tensor(np.repeat(words[:, :1], 64, 1), device=card)
+    b = torch.as_tensor(np.repeat(words[:, 1:], 64, 1), device=card)
+    got = rops.ripple_add(a, b, width=width)
+    assert torch.equal(got, rref.ref_ripple_add(a, b, width))
+    assert torch.equal(got.cpu(), rref.ref_ripple_add(a.cpu(), b.cpu(),
+                                                      width))
+
+
+def fold_inputs(m, slots, nf, ni, seed):
+    """Tables with the values a meter can meet: a -0.0 start (slot 0, field
+    0) met by +0.0 and -0.0 increments, denormal increments, signed normals
+    over ten decades and, with six fields or more, +inf, -inf and NaN
+    increments and denormal starts; int increments over the whole int32
+    range, so that every int sum wraps past 2**31. On the card."""
+    rng = np.random.default_rng(seed)
+    f_tab = (rng.random((m, nf)) * 10.0 ** rng.integers(-7, 3, (m, nf))
+             * np.where(rng.random((m, nf)) < 0.3, -1, 1)).astype(np.float32)
+    f0 = (rng.random((slots, nf)) * 1e4).astype(np.float32)
+    f0[0, 0] = -0.0
+    f_tab[: m // 3, 0] = np.where(rng.random(m // 3) < 0.5, -0.0, 0.0)
+    tiny = (rng.random(m) * 2.0**-126).astype(np.float32)
+    if nf < 6:
+        f_tab[m // 3: m // 2, 0] = tiny[m // 3: m // 2]
+    else:
+        f_tab[:, 4] = tiny
+        f0[:, 4] = (rng.random(slots) * 2.0**-126).astype(np.float32)
+        if m >= 4:
+            f_tab[m // 2, 1] = np.inf
+            f_tab[m // 3, 2] = np.nan
+            f_tab[m // 4, 3] = -np.inf
+            f_tab[m // 2, 3] = np.inf        # -inf + inf: NaN from there on
+            f_tab[m - 1, 5] = -np.inf
+    i_tab = rng.integers(-2**31, 2**31, (m, ni), dtype=np.int64)
+    i0 = rng.integers(-2**31, 2**31, (slots, ni), dtype=np.int64)
+    return [torch.as_tensor(x, device="cuda") for x in
+            (f_tab, i_tab.astype(np.int32), f0, i0.astype(np.int32))]
+
+
+def same_bits(got, exp):
+    """Equal bit patterns; a NaN matches any NaN."""
+    got, exp = got.cpu(), exp.cpu()
+    if not got.is_floating_point():
+        return torch.equal(got, exp)
+    nan = torch.isnan(exp)
+    return (torch.equal(torch.isnan(got), nan)
+            and torch.equal(got.view(torch.int32)[~nan],
+                            exp.view(torch.int32)[~nan]))
+
+
+@pytest.mark.parametrize("m", [0, 1, 255, 256, 257, 4001, 20000])
+@pytest.mark.parametrize("slots", [1, 3, 64])
+@pytest.mark.parametrize("nf,ni", [(6, 6), (1, 0)])
+def test_meter_fold_kernel_matches_plain(card, m, slots, nf, ni):
+    """The cost meter's shape (6 + 6 fields) and sequential_sum's (1 + 0),
+    tables shorter than, equal to and past one staged tile, onto 1 to 64
+    slots; exact, in one launch per call."""
+    f_tab, i_tab, f0, i0 = fold_inputs(m, slots, nf, ni, m + 7 * slots + nf)
+    rops.reset_launches()
+    ff, fi = rops.meter_fold(f_tab, i_tab, f0, i0)
+    assert rops.LAUNCHES["meter_fold"] == 1
+    ef, ei = rref.ref_meter_fold(f_tab.cpu(), i_tab.cpu(), f0.cpu(), i0.cpu())
+    assert same_bits(ff, ef) and same_bits(fi, ei)
+    if nf == 6 and m >= 4:
+        assert torch.isnan(ff[:, 2]).all() and torch.isnan(ff[:, 3]).all()
+
+
+def test_meter_fold_other_shapes_and_unaligned_ints(card):
+    """Field counts beside 6 and 1 (the generic instance), a float-only and
+    an int-only fold, and an int table that does not start on 16 bytes
+    (read a word at a time); exact."""
+    for m, slots, nf, ni in ((1001, 65, 3, 5), (300, 2, 16, 16),
+                             (513, 4, 2, 0), (700, 5, 0, 7)):
+        f_tab, i_tab, f0, i0 = fold_inputs(m, slots, max(nf, 1), ni, m)
+        f_tab, f0 = f_tab[:, :nf].contiguous(), f0[:, :nf].contiguous()
+        got = rops.meter_fold(f_tab, i_tab, f0, i0)
+        exp = rref.ref_meter_fold(f_tab.cpu(), i_tab.cpu(), f0.cpu(),
+                                  i0.cpu())
+        assert same_bits(got[0], exp[0]) and same_bits(got[1], exp[1]), m
+    f_tab, i_tab, f0, i0 = fold_inputs(1001, 64, 6, 6, 3)
+    shifted = torch.cat([i_tab.new_zeros(1), i_tab.flatten()])[1:]
+    i_tab = shifted.view(1001, 6)
+    assert i_tab.data_ptr() % 16 and i_tab.is_contiguous()
+    got = rops.meter_fold(f_tab, i_tab, f0, i0)
+    exp = rref.ref_meter_fold(f_tab.cpu(), i_tab.cpu(), f0.cpu(), i0.cpu())
+    assert same_bits(got[0], exp[0]) and same_bits(got[1], exp[1])
+
+
+def test_meter_fold_launch_count_and_refusals(card):
+    rops.reset_launches()
+    f_tab, i_tab, f0, i0 = fold_inputs(40, 2, 6, 6, 1)
+    rops.meter_fold(f_tab, i_tab, f0, i0)
+    assert rops.LAUNCHES["meter_fold"] == 1
+    with pytest.raises(ValueError, match="contiguous"):
+        rops.meter_fold(f_tab.T.contiguous().T, i_tab, f0, i0)
+    with pytest.raises(TypeError):
+        rops.meter_fold(f_tab.double(), i_tab, f0, i0)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        rops.meter_fold(torch.zeros((3, 17), device=card),
+                        torch.zeros((3, 0), dtype=torch.int32, device=card),
+                        torch.zeros((1, 17), device=card),
+                        torch.zeros((1, 0), dtype=torch.int32, device=card))
+    empty = rops.meter_fold(f_tab, i_tab, f0[:0], i0[:0])
+    assert empty[0].shape == (0, 6) and empty[1].shape == (0, 6)
+    assert rops.LAUNCHES["meter_fold"] == 1

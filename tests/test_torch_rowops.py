@@ -120,6 +120,32 @@ def test_meter_fold_matches_reference_fold(m, b):
                               acc.view(np.uint32))
 
 
+@pytest.mark.parametrize("m,b", [(1, 1), (300, 3), (4001, 2)])
+def test_meter_fold_int_columns_wrap(m, b):
+    """Int increments near 2**31 (and negative ones), so that every column
+    sum wraps past 2**31 many times: the port's fold (its plain version
+    here; on the card a tree of wrap-around uint32 adds, in another order)
+    equals the reference's ``_fold_tables`` and the exact sum mod 2**32."""
+    rng = np.random.default_rng(90 + m)
+    f_tab = rng.random((m, 6)).astype(np.float32)
+    i_tab = rng.integers(-2**31, 2**31, (m, 6), dtype=np.int64)
+    i_tab[: m // 2] = rng.integers(2**31 - 9, 2**31, (m // 2, 6))
+    i_tab = i_tab.astype(np.int32)
+    f0 = rng.random((b, 6)).astype(np.float32)
+    i0 = rng.integers(-2**31, 2**31, (b, 6), dtype=np.int64).astype(np.int32)
+    _, fi = port_ops.meter_fold(torch.from_numpy(f_tab),
+                                torch.from_numpy(i_tab),
+                                torch.from_numpy(f0), torch.from_numpy(i0))
+    exact = (i0.astype(np.int64) + i_tab.astype(np.int64).sum(0)) % 2**32
+    assert np.array_equal(fi.numpy().view(np.uint32), exact.astype(np.uint32))
+    for s in range(b):
+        _, ri = ref_compile._fold_tables(jnp.asarray(f_tab),
+                                         jnp.asarray(i_tab),
+                                         jnp.asarray(f0[s]),
+                                         jnp.asarray(i0[s]))
+        assert np.array_equal(fi[s].numpy(), np.asarray(ri))
+
+
 def test_plain_shift_guards_full_row():
     x = to_port(rand_rows((2, 4), 1))
     assert not port_ref.ref_shift_cols(x, 32 * 4).any()
@@ -147,12 +173,50 @@ def test_ripple_add_matches_pallas(width):
     assert np.array_equal(lanes(got), (lanes(a) + lanes(b)) & mask)
 
 
+def lane_add(a: torch.Tensor, b: torch.Tensor, width: int) -> torch.Tensor:
+    """What the CUDA kernel computes per word, in torch int32 bit patterns:
+    with H the lanes' top bits, ``((a & ~H) + (b & ~H)) ^ ((a ^ b) & H)``.
+    The low bits of each lane add with their carry stopping in the cleared
+    top bit; the top bit is that carry ^ a's ^ b's. int32 addition wraps
+    in torch as uint32 addition does."""
+    top = port_ref._as_int32(
+        (0xFFFFFFFF // ((1 << width) - 1)) << (width - 1) & 0xFFFFFFFF)
+    return ((a & ~top) + (b & ~top)) ^ ((a ^ b) & top)
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+def test_ripple_add_lane_identity(width):
+    """The kernel's one masked add per word equals the S/C iteration of
+    the plain version and the reference's Pallas kernel in interpret mode,
+    on random words and on words whose carries run to each lane's top bit
+    (all-ones lanes plus one, 0x7F... plus one)."""
+    a, b = rand_rows((8, 64), 80 + width), rand_rows((8, 64), 90 + width)
+    lanes = 32 // width
+    ones = np.uint32(0xFFFFFFFF)
+    low = np.uint32(sum(((1 << (width - 1)) - 1) << (e * width)
+                        for e in range(lanes)))
+    one = np.uint32(sum(1 << (e * width) for e in range(lanes)))
+    a[0], b[0] = ones, one                   # every lane: all ones + 1
+    a[1], b[1] = low, one                    # every lane: 0x7F.. + 1
+    a[2], b[2] = ones, ones
+    got = lane_add(to_port(a), to_port(b), width)
+    assert torch.equal(got, port_ref.ref_ripple_add(to_port(a), to_port(b),
+                                                    width))
+    exp = np.asarray(ref_ops.ripple_add(jnp.asarray(a), jnp.asarray(b),
+                                        width=width, interpret=True))
+    assert np.array_equal(from_port(got), exp)
+    if width > 1:     # all ones + 1 wraps each lane to 0
+        assert not from_port(got)[0].any()
+    assert np.array_equal(from_port(got)[1], np.full(64, low + one))
+
+
 @pytest.mark.parametrize("width", WIDTHS)
 def test_ripple_add_is_word_local(width):
-    """What the CUDA kernel computes: per word, ``(c << 1) & interior``
-    in place of the cross-word ``shift_cols(c, +1) & interior`` (the bit
-    carried across a word lands on an element's bit 0, which the mask
-    clears). Numpy uint32 math against the plain version."""
+    """The plain version's S/C iteration is word-local: per word, ``(c <<
+    1) & interior`` in place of the cross-word ``shift_cols(c, +1) &
+    interior`` (the bit carried across a word lands on an element's bit 0,
+    which the mask clears), so a kernel may add each word alone. Numpy
+    uint32 math against the plain version."""
     a, b = rand_rows((5, 33), 60 + width), rand_rows((5, 33), 70 + width)
     interior = np.uint32(port_ref._interior_mask(width))
     s, c = a ^ b, a & b
