@@ -17,7 +17,14 @@ each, every mismatch fatal:
                20 launches, replayed 20 times, median) beside the plain
                version's, the bound (``meter_fold``: its m adds in order at
                that latency) and the time of one call with the host's
-               launch (CUDA events, median of 20);
+               launch (CUDA events, median of 20); then the executor's row
+               entries, ``bitwise_rows`` and ``shift_rows``, on (1 and
+               64, 16, 2,048) slot states: bit for bit against their plain
+               versions at every alias (a destination that is a source, a
+               shift in place) and shift length, one launch per call, and
+               each segment timed in place and out of place beside the old
+               lowering of the same segment (the out-of-place kernel plus
+               its gathers, copies and glue, in one CUDA graph);
 3. subarray  — recorded programs through ``execute()`` at the paper's
                512 x 2,048 geometry, held exactly against the port's eager
                ISA on the card and ``execute()`` on the CPU;
@@ -27,7 +34,15 @@ each, every mismatch fatal:
                steps (the second also refreshed), held exactly against the
                CPU run;
 5. launches  — kernel launches over the PIM path of phases 3-4 (counts
-               reset just before, read just after); each kernel must run;
+               reset just before, read just after); each kernel must run,
+               the old out-of-place entries not at all; then the card's
+               operations per run in the profiler window (execute() of
+               shift_workload(1000) and ambit_xor, one schedule() step,
+               each phase-10 routine), the row entries' launches held to
+               one per fused segment and residual SHIFT/TRA/NOT row of the
+               programs run, beside the torch ops the executor dispatched
+               before the row entries (printed after phase 10; the three
+               routines that have that count must halve it);
 6. lm kernels — pim_matmul (M 4 and 512, K x N 2560 x 9728 and 9728 x
                2560, both modes, 4 and 8 bits; each row names the route,
                ``swap_ab`` at M 4 and ``tensor_core`` at M 512, that
@@ -129,7 +144,9 @@ SOURCES = {
 }
 REPLACES = {
     "shift_cols": "src/repro/kernels/rowops/rowops.py:137",
+    "shift_rows": "src/repro/kernels/rowops/rowops.py:137",
     "bitwise": "src/repro/kernels/rowops/rowops.py:120",
+    "bitwise_rows": "src/repro/kernels/rowops/rowops.py:120",
     "meter_fold": "src/repro/core/pim/compile.py:247",
     "pim_matmul": "src/repro/kernels/pim_matmul/pim_matmul.py:61",
     "flash_attn": "src/repro/kernels/flash_attn/flash_attn.py:75",
@@ -198,6 +215,18 @@ TC_SPLITS = (1, 2, 3)
 SWAP_SPLITS = (1, 2, 3, 4, 6, 8, 13, 16, 24, 32)
 PARITY_LAYERS, PARITY_BATCH, PARITY_PROMPT, PARITY_NEW = 2, 2, 32, 4
 SHIFT_KS = (1, -1, 31, 32, 33, -33, 999, -999, 65535, 65536, 70000)
+# phase 2b: the row entries on (B, 16, 2,048) states, B = 1 and 64 (one
+# subarray; the full device's slots); shift chains of these many hops (and
+# 32·W, 32·W + 1), both ways
+ROW_SHAPE = (16, 2048)
+ROW_SLOTS = (1, 64)
+ROW_KS = (1, 2, 5, 31, 32, 33, 40, 999, 1000)
+# torch ops the executor dispatched per run before the row entries (commit
+# edcfc58), counted on the CPU with each kernel wrapper as one (views and
+# copies included): the "before" of the launch counts; the routines run on
+# PimVM(width=8), one bank. The three routines must fall to at most half.
+BEFORE_OPS = {"execute(shift_workload(1000))": 21, "mul_shift_add": 5112,
+              "gf_mul": 4849, "add_ripple": 329}
 # Phases 9-11: ripple_add at the kernel bench's row block and ragged shapes;
 # the bit-plane layer at the crypto case study's sizes (8 KB rows: 2,048
 # words, 8,192 byte lanes)
@@ -346,7 +375,7 @@ def phase_kernels(torch, device, fadd, n: int = 64, w: int = 2048):
     c = rows_from_seed(3, (n, w), torch, device)
     x_cpu = x.cpu()
     err = {"shift_cols": 0, "bitwise[maj]": 0, "bitwise[not]": 0,
-           "meter_fold": 0}
+           "bitwise[and]": 0, "bitwise[xor]": 0, "meter_fold": 0}
     for k in SHIFT_KS:
         got = ops.shift_cols(x, k).cpu()
         for exp in (ref.ref_shift_cols(x, k).cpu(),
@@ -387,6 +416,12 @@ def phase_kernels(torch, device, fadd, n: int = 64, w: int = 2048):
         "bitwise[not]": (lambda: ops.bitwise(x, op="not"),
                          lambda: ref.ref_bitwise(x, op="not"),
                          lambda: torch.bitwise_not(x)),
+        "bitwise[and]": (lambda: ops.bitwise(x, b, op="and"),
+                         lambda: ref.ref_bitwise(x, b, op="and"),
+                         lambda: torch.bitwise_and(x, b)),
+        "bitwise[xor]": (lambda: ops.bitwise(x, b, op="xor"),
+                         lambda: ref.ref_bitwise(x, b, op="xor"),
+                         lambda: torch.bitwise_xor(x, b)),
         "meter_fold": (lambda: ops.meter_fold(f_tab, i_tab, f0, i0),
                        lambda: ref.ref_meter_fold(f_tab, i_tab, f0, i0),
                        None),
@@ -395,6 +430,8 @@ def phase_kernels(torch, device, fadd, n: int = 64, w: int = 2048):
         "shift_cols": (8 * n * w, 0, f"({n}, {w}) int32, k=999"),
         "bitwise[maj]": (4 * 4 * n * w, 0, f"3 x ({n}, {w}) int32"),
         "bitwise[not]": (2 * 4 * n * w, 0, f"({n}, {w}) int32"),
+        "bitwise[and]": (3 * 4 * n * w, 0, f"2 x ({n}, {w}) int32"),
+        "bitwise[xor]": (3 * 4 * n * w, 0, f"2 x ({n}, {w}) int32"),
         "meter_fold": (4 * (m * cols + 2 * n * cols), m * n * cols,
                        f"({m}, 6+6) tables onto ({n}, 6+6)"),
     }
@@ -432,6 +469,231 @@ def phase_kernels(torch, device, fadd, n: int = 64, w: int = 2048):
             f"{r['bound_ms'] * 1e3:.3f} us ({r['bound_by']}{beside}), "
             f"max_abs_err {r['max_abs_err']}")
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 2b: the executor's row entries against their plain versions, beside
+# the lowering they replace
+# ---------------------------------------------------------------------------
+
+def old_lowering(torch, ops, bits, seg, rows, delta=1, k=1000):
+    """One segment as the executor lowered it before the row entries: the
+    out-of-place kernel on gathered source rows, then the glue (row copies;
+    for a shift chain the migration masks and the last hop in torch ops)."""
+    from repro_torch.core.pim.isa import lsr
+    from repro_torch.core.pim.state import EVEN_MASK, ODD_MASK
+
+    def shift1(row):
+        zero = torch.zeros(row.shape[:-1] + (1,), dtype=row.dtype,
+                           device=row.device)
+        if delta > 0:
+            return (row << 1) | lsr(torch.cat([zero, row[..., :-1]], -1), 31)
+        return lsr(row, 1) | (torch.cat([row[..., 1:], zero], -1) << 31)
+
+    if seg == "maj":
+        (a, b, c), dsts = rows
+        m = ops.bitwise(bits[:, a].contiguous(), bits[:, b].contiguous(),
+                        bits[:, c].contiguous(), op="maj")
+        for r in dsts:
+            bits[:, r] = m
+        return None
+    if seg == "not":
+        (src,), (dst,) = rows
+        dcc = ops.bitwise(bits[:, src].contiguous(), op="not")
+        bits[:, dst] = dcc
+        return dcc
+    src, dst = rows
+    y = ops.shift_cols(bits[:, src].contiguous(), delta * (k - 1))
+    mt = y & (EVEN_MASK if delta > 0 else ODD_MASK)
+    mb = y & (ODD_MASK if delta > 0 else EVEN_MASK)
+    bits[:, dst] = shift1(mt) | shift1(mb)
+    return mt, mb
+
+
+def row_cases(r):
+    """(name, segment, in place, rows) of the timed row-entry calls on an
+    (B, r, W) state: a fused MAJ (T0, T1, T2 and dst; in place, dst is a
+    source), a NOT pair (dst and DCC), a 1,000-hop shift chain
+    (``shift_workload(1000)``'s)."""
+    t0, t1, t2 = r - 3, r - 4, r - 5
+    return [("bitwise_rows[maj]", "maj", False, ((0, 1, 2), (t0, t1, t2, 3))),
+            ("bitwise_rows[maj]", "maj", True, ((0, 1, 2), (t0, t1, t2, 0))),
+            ("bitwise_rows[not]", "not", False, ((7,), (8,))),
+            ("bitwise_rows[not]", "not", True, ((7,), (7,))),
+            ("shift_rows", "shift", False, (4, 5)),
+            ("shift_rows", "shift", True, (4, 4))]
+
+
+def phase_row_kernels(torch, device):
+    """``bitwise_rows`` and ``shift_rows`` at ROW_SLOTS slots of ROW_SHAPE
+    rows: bit for bit against their plain versions (every alias; shifts at
+    ROW_KS both ways, in place and out of place), then each segment timed:
+    the kernel's device time and per-call time, its plain version's, and
+    the old lowering's (kernel plus glue, one CUDA graph), beside the bound
+    (bytes: source rows read once, destination rows written once)."""
+    from repro_torch.kernels.rowops import ops, ref
+
+    r, w = ROW_SHAPE
+    checks = 0
+    for n in ROW_SLOTS:
+        base = rows_from_seed(8, (n, r, w), torch, device)
+        for name, seg, in_place, rows in row_cases(r):
+            if seg == "shift":
+                for delta in (1, -1):
+                    for k in ROW_KS + (32 * w, 32 * w + 1):
+                        got, exp = base.clone(), base.clone()
+                        g = ops.shift_rows(got, *rows, delta, k)
+                        e = ref.ref_shift_rows(exp, *rows, delta, k)
+                        if not (torch.equal(got, exp)
+                                and all(map(torch.equal, g, e))):
+                            raise AssertionError(
+                                f"shift_rows {rows} delta {delta} k {k} at "
+                                f"{n} slots differs from plain")
+                        checks += 1
+                continue
+            side = seg == "not"
+            got, exp = base.clone(), base.clone()
+            g = ops.bitwise_rows(got, seg, *rows, side=side)
+            e = ref.ref_bitwise_rows(exp, seg, *rows, side=side)
+            if not (torch.equal(got, exp)
+                    and (not side or torch.equal(g, e))):
+                raise AssertionError(f"{name} {rows} at {n} slots differs "
+                                     "from plain")
+            checks += 1
+    out = {}
+    for n in ROW_SLOTS:
+        for name, seg, in_place, rows in row_cases(r):
+            bits = rows_from_seed(8, (n, r, w), torch, device)
+            if seg == "shift":
+                calls = (lambda: ops.shift_rows(bits, *rows, 1, 1000),
+                         lambda: ref.ref_shift_rows(bits, *rows, 1, 1000))
+                moved = 1 + 3            # the source; dst, mt, mb
+            else:
+                side = seg == "not"
+                calls = (lambda: ops.bitwise_rows(bits, seg, *rows,
+                                                  side=side),
+                         lambda: ref.ref_bitwise_rows(bits, seg, *rows,
+                                                      side=side))
+                moved = len(rows[0]) + len(rows[1]) + side
+            old = lambda: old_lowering(torch, ops, bits, seg, rows)
+            before = dict(ops.LAUNCHES)
+            calls[0]()
+            torch.cuda.synchronize()
+            launched = sum(ops.LAUNCHES[k] - before[k] for k in before)
+            if launched != 1:
+                raise AssertionError(f"{name}: {launched} launches, not 1")
+            nbytes = 4 * moved * n * w
+            key = (f"{name} ({n}, {r}, {w}) "
+                   f"{'in place' if in_place else 'out of place'}")
+            out[key] = dict(
+                name=name, slots=n, in_place=in_place,
+                ms=device_us(calls[0], torch) / 1e3,
+                call_ms=event_us(calls[0], torch) / 1e3,
+                plain_ms=device_us(calls[1], torch) / 1e3,
+                old_ms=device_us(old, torch) / 1e3,
+                old_call_ms=event_us(old, torch) / 1e3,
+                bytes=nbytes, bound_ms=nbytes / H100_BYTES_PER_S * 1e3,
+                bound_by="bytes", library_ms=None, max_abs_err=0)
+    for key, v in out.items():
+        say(f"kernel {key}: kernel {v['ms'] * 1e3:.2f} us "
+            f"({v['call_ms'] * 1e3:.2f} us per call with the host's launch),"
+            f" old lowering {v['old_ms'] * 1e3:.2f} us "
+            f"({v['old_call_ms'] * 1e3:.2f} us per call), plain "
+            f"{v['plain_ms'] * 1e3:.2f} us, bound {v['bound_ms'] * 1e3:.3f} "
+            f"us (bytes), max_abs_err 0")
+    say(f"row entries: {checks} calls bit for bit against their plain "
+        f"versions at {ROW_SLOTS} slots x {r} rows x {w} words, every alias;"
+        " one launch per call")
+    return out
+
+
+class RowTally:
+    """Within ``with``, counts the fused segments and residual SHIFT, TRA
+    and NOT-to-DCC rows of every compiled program the executor runs on the
+    card: the calls the row entries take, one launch each. Read from the
+    compiled programs, not from the wrappers' counts."""
+
+    def __init__(self):
+        self.rows = 0
+
+    def __enter__(self):
+        from repro_torch.core.pim import exec as pim_exec
+        from repro_torch.core.pim import ir
+        from repro_torch.core.pim.compile import (SegMaj, SegNot, SegScan,
+                                                  SegShiftRun)
+        self._exec, self._run = pim_exec, pim_exec._run_segments
+        kinds = (ir.OP_SHIFT, ir.OP_TRA, ir.OP_NOT2DCC)
+
+        def spy(compiled, bits, *args):
+            if bits.device.type == "cuda":
+                for seg in compiled.segments:
+                    if isinstance(seg, (SegMaj, SegNot, SegShiftRun)):
+                        self.rows += 1
+                    elif isinstance(seg, SegScan):
+                        self.rows += sum(op.op in kinds for op in seg.ops)
+            return self._run(compiled, bits, *args)
+
+        pim_exec._run_segments = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._exec._run_segments = self._run
+        return False
+
+
+def launch_count(torch, name, fn) -> dict:
+    """``fn`` once, warm, under the profiler, the segments it runs tallied:
+    the card's operations (kernels, copies and fills) in the window, those
+    of the row entries' kernels, and the segments and rows that took them.
+    Fails unless the row entries launched once per segment and row (their
+    counts), if the profiler saw more row kernels than that, or if an old
+    out-of-place entry ran. The profiler has been seen to miss one kernel
+    record of a few dozen on the card; a row kernel it misses must then
+    show as a runtime launch call without a kernel record."""
+    from repro_torch.kernels.rowops import ops
+    fn()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    with RowTally() as tally:
+        sh = device_share(torch, fn)
+    row_kernels = sum(k["count"] for k in sh["top"]
+                      if "shift_rows_kernel" in k["name"]
+                      or "bitwise_rows_kernel" in k["name"])
+    scratch = ops.SHIFT_ROUTES["scratch"]
+    kernels = sum(k["count"] for k in sh["top"]
+                  if not k["name"].startswith(("Memcpy", "Memset")))
+    rec = dict(device_ops=sum(k["count"] for k in sh["top"]),
+               launch_calls=sh["launch_calls"], kernel_records=kernels,
+               top=sh["top"],
+               row_kernels=row_kernels, rows=tally.rows,
+               wrapper_launches=ops.LAUNCHES["bitwise_rows"]
+               + ops.LAUNCHES["shift_rows"], scratch_copies=scratch,
+               old_entries=(ops.LAUNCHES["bitwise"]
+                            + ops.LAUNCHES["shift_cols"]),
+               before=BEFORE_OPS.get(name), wall_ms=sh["wall_ms"],
+               device_ms=sh["device_ms"])
+    unrecorded = rec["launch_calls"] - kernels
+    if not (rec["wrapper_launches"] == rec["rows"] >= rec["row_kernels"]
+            and rec["rows"] - rec["row_kernels"] <= unrecorded
+            and rec["old_entries"] == 0):
+        raise AssertionError(f"launches {name}: {rec}")
+    return rec
+
+
+def say_launches(counts: dict) -> None:
+    say("launches per run (device operations in the profiler window; row "
+        "kernels = fused segments + residual SHIFT/TRA/NOT rows, one launch "
+        "each; before: torch ops the executor dispatched before the row "
+        "entries, at commit edcfc58, counted on the CPU): " + "; ".join(
+            f"{k} {v['device_ops']} ({v['wrapper_launches']} row-entry "
+            f"launches for {v['rows']} segments and rows, "
+            f"{v['row_kernels']} row kernels in the profiler, "
+            f"{v['launch_calls'] - v['kernel_records']} launch calls "
+            "without a kernel record"
+            + (f", {v['scratch_copies']} scratch copies"
+               if v["scratch_copies"] else "")
+            + (f"; before {v['before']}" if v["before"] else "") + ")"
+            for k, v in counts.items()))
 
 
 def fold_tables_of(torch, device, m: int | None = None):
@@ -691,8 +953,9 @@ def check_device(torch, gpu_results, cpu_results):
 def device_share(torch, fn) -> dict:
     """Run ``fn`` once under ``torch.profiler``: host-clock ms of the
     window, the card's summed kernel time in it, their ratio (the card's
-    busy share; one stream, so kernels do not overlap) and every kernel,
-    the longest first."""
+    busy share; one stream, so kernels do not overlap), every kernel, the
+    longest first, and the host's kernel-launch calls to the CUDA runtime
+    (``launch_calls``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -702,8 +965,10 @@ def device_share(torch, fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    kernels = []
+    kernels, launch_calls = [], 0
     for e in prof.key_averages():
+        if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"):
+            launch_calls += e.count
         # device-side entries only (kernels, copies): an operator's own
         # entry repeats the time of the kernels it launched
         if e.device_type != DeviceType.CUDA:
@@ -717,7 +982,7 @@ def device_share(torch, fn) -> dict:
     return {"wall_ms": wall_ms, "device_ms": busy_ms,
             "busy_share": busy_ms / wall_ms if wall_ms else 0.0,
             "top": [{"name": k[1][:80], "ms": k[0], "count": k[2]}
-                    for k in kernels]}
+                    for k in kernels], "launch_calls": launch_calls}
 
 
 # ---------------------------------------------------------------------------
@@ -1507,6 +1772,7 @@ def phase_ripple(torch, device):
     composed = composed_ripple_add(a, b)
     torch.cuda.synchronize()
     bench_launches = dict(ops.LAUNCHES)
+    bench_ops = dict(ops.LAUNCHES_BY_OP)
     n_composed = bench_launches["bitwise"] + bench_launches["shift_cols"]
     if not torch.equal(fused, composed) or n_composed != 2 + 4 * 7:
         raise AssertionError(f"fused ripple_add != composed ({n_composed} "
@@ -1515,7 +1781,8 @@ def phase_ripple(torch, device):
         raise AssertionError("ripple_add never launched on the kernel "
                              "bench's path")
     rec = dict(
-        width=8, launches=bench_launches, composed_launches=n_composed,
+        width=8, launches=bench_launches, by_op=bench_ops,
+        composed_launches=n_composed,
         fused_ms=device_us(cycled_pairs(
             lambda x, y: ops.ripple_add(x, y, width=8)), torch) / 1e3,
         composed_ms=device_us(cycled_pairs(composed_ripple_add),
@@ -1787,6 +2054,26 @@ def profile_vm(torch, device):
                                                                    rb)))
 
 
+def vm_runs(torch, device, name):
+    """``fn`` for launch_count: each call runs routine ``name`` on the next
+    of two VMs built (8 KB rows, operands loaded) ahead of the window, and
+    reads its result: one flush."""
+    import numpy as np
+    from repro_torch.core.bitplane import PimVM
+    rng = np.random.default_rng(23)
+    vms = []
+    for _ in range(2):
+        vm = PimVM(width=8, num_rows=VM_ROWS, words=VM_WORDS, device=device)
+        vms.append((vm, vm.load(rng.integers(0, 256, vm.lanes)),
+                    vm.load(rng.integers(0, 256, vm.lanes))))
+    it = iter(vms)
+
+    def fn():
+        vm, ra, rb = next(it)
+        return vm.read(_routine(name, vm, ra, rb))
+    return fn
+
+
 def say_bitplane(record):
     for name, r in record["routines"].items():
         say(f"bitplane PimVM(width=8, num_rows={VM_ROWS}, words={VM_WORDS}) "
@@ -1860,6 +2147,7 @@ def main() -> int:
     fadd = record["fadd"] = fadd_latency(torch, device)
     kernel_rows = phase_kernels(torch, device, fadd)
     record["kernels"] = kernel_rows
+    row_rows = record["row_kernels"] = phase_row_kernels(torch, device)
 
     # 3-4. the main path, with the launch counts reset just before it and
     # read just after it
@@ -1871,7 +2159,8 @@ def main() -> int:
         dev_results = run_device(torch, device, cfg, steps)
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
-    by_op = dict(ops.LAUNCHES_BY_OP)
+    by_op = dict(ops.ROWS_BY_OP)
+    routes = dict(ops.SHIFT_ROUTES)
 
     check_subarray(torch, device, sub_results)
     m1 = sub_results["shift_workload(1)"].state.meter
@@ -1932,16 +2221,34 @@ def main() -> int:
     for name, sh in shares.items():
         say_share(name, sh)
 
-    # 5. launches over the main path
-    say("kernels " + json.dumps({**launches, **{f"bitwise[{k}]": v
-                                                for k, v in by_op.items()}}))
-    main_path = {"shift_cols": launches["shift_cols"],
-                 "bitwise[maj]": by_op["maj"], "bitwise[not]": by_op["not"],
+    # 5. launches over the main path: each fused segment and residual
+    # SHIFT/TRA/NOT row one launch of a row entry, the old out-of-place
+    # entries not at all
+    say("kernels " + json.dumps({
+        **launches, **{f"bitwise_rows[{k}]": v for k, v in by_op.items()},
+        **{f"shift_rows[{k}]": v for k, v in routes.items()}}))
+    main_path = {"shift_rows": launches["shift_rows"],
+                 "bitwise_rows[maj]": by_op["maj"],
+                 "bitwise_rows[not]": by_op["not"],
                  "meter_fold": launches["meter_fold"]}
     missing = [k for k, v in main_path.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
+    if launches["shift_cols"] or launches["bitwise"]:
+        raise AssertionError("the main path launched the old out-of-place "
+                             "entries")
+    counts = record["launch_counts"] = {
+        "execute(shift_workload(1000))": launch_count(
+            torch, "execute(shift_workload(1000))",
+            lambda: pim.execute(pim.shift_workload_program(1000), state)),
+        "execute(ambit_xor)": launch_count(
+            torch, "execute(ambit_xor)",
+            lambda: pim.execute(pim.ambit_xor_program(512, 2048), state)),
+        "schedule() step 1": launch_count(
+            torch, "schedule() step 1",
+            lambda: pim.schedule(start, steps[0][0], **steps[0][1])),
+    }
 
     # 6. the LM kernels against their plain versions
     lm_rows = phase_lm_kernels(torch, device)
@@ -2043,8 +2350,11 @@ def main() -> int:
         bp_values, record["bitplane"] = run_bitplane(torch, device,
                                                      check_oracles=True)
     torch.cuda.synchronize()
-    bp_launches = {**ops.LAUNCHES, **{f"bitwise[{k}]": v
-                                      for k, v in ops.LAUNCHES_BY_OP.items()}}
+    bp_launches = {**ops.LAUNCHES,
+                   **{f"bitwise_rows[{k}]": v
+                      for k, v in ops.ROWS_BY_OP.items()},
+                   **{f"shift_rows[{k}]": v
+                      for k, v in ops.SHIFT_ROUTES.items()}}
     check = record["bitplane"].pop("check_launches")
     bp_launches["ripple_add"] -= check
     say("kernels bitplane " + json.dumps(bp_launches)
@@ -2052,8 +2362,9 @@ def main() -> int:
     # The VM records PIM commands, as the reference's does, and never calls
     # ripple_add. Its shifts are chains of fewer than SHIFT_FUSE_MIN (32)
     # columns, which the compiler leaves to the residual interpreter, as
-    # the reference's does: shift_cols is not a kernel of this path either.
-    missing = [k for k in ("bitwise[maj]", "bitwise[not]", "meter_fold")
+    # the reference's does: each hop is one shift_rows launch.
+    missing = [k for k in ("bitwise_rows[maj]", "bitwise_rows[not]",
+                           "shift_rows", "meter_fold")
                if bp_launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the bit-plane "
@@ -2061,6 +2372,14 @@ def main() -> int:
     say_bitplane(record["bitplane"])
     record["bitplane"]["profile"] = profile_vm(torch, device)
     say_share("bitplane mul_shift_add", record["bitplane"]["profile"])
+    for name in VM_ROUTINES:
+        counts[name] = launch_count(torch, name, vm_runs(torch, device, name))
+    say_launches(counts)
+    over = {k: (v["device_ops"], BEFORE_OPS[k]) for k, v in counts.items()
+            if k in VM_ROUTINES and k in BEFORE_OPS
+            and 2 * v["device_ops"] > BEFORE_OPS[k]}
+    if over:
+        raise AssertionError(f"launches not halved: {over}")
 
     # 11. the same path on the CPU: reads, counts and meters identical
     t = time.perf_counter()
@@ -2079,12 +2398,31 @@ def main() -> int:
         f"bit-plane path, largest {bp_folds.largest[0].shape[0]} rows")
     record["fold_sweep"] = phase_fold_sweep(torch, device, fadd, largest)
 
+    # the row entries at the full device's 64 slots, in place (as most of
+    # the main path's segments run); every shape is in chip_smoke.json
     table = []
-    for name, r in kernel_rows.items():
+    for name in ("shift_rows", "bitwise_rows[maj]", "bitwise_rows[not]"):
+        r = row_rows[f"{name} (64, {ROW_SHAPE[0]}, {ROW_SHAPE[1]}) in place"]
         table.append({
             "name": name, "route": "cuda", "source": SOURCES["rowops"],
             "replaces": REPLACES[name.split("[")[0]],
             "launches": main_path[name], "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
+    # meter_fold on the main path; the old out-of-place entries on the
+    # kernel bench's composed adder (phase 9), their only path now
+    bench = record["fused_vs_composed"]["launches"]
+    bench_ops = record["fused_vs_composed"]["by_op"]
+    for name, launched in (("meter_fold", main_path["meter_fold"]),
+                           ("shift_cols", bench["shift_cols"]),
+                           ("bitwise[and]", bench_ops["and"]),
+                           ("bitwise[xor]", bench_ops["xor"])):
+        r = kernel_rows[name]
+        table.append({
+            "name": name, "route": "cuda", "source": SOURCES["rowops"],
+            "replaces": REPLACES[name.split("[")[0]],
+            "launches": launched, "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})

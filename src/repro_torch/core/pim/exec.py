@@ -1,27 +1,31 @@
 """Compiled executor for recorded PIM programs.
 
 Port of ``repro.core.pim.exec``. Lowers the fused segments of a
-:class:`~.compile.CompiledProgram` onto the rowops kernels (``shift_cols``,
-``bitwise``; hand-written CUDA on the card) — a k-long chain of migration
-shifts becomes ONE (k-1)-column kernel shift plus a replay of the last hop,
-an Ambit MAJ idiom one ``bitwise(maj)`` call, a NOT pair one
-``bitwise(not)`` call — with a Python-loop interpreter for the residual
-primitives. The meter comes from the compile-time cost tables, folded in
-program order onto the incoming meter (``meter_fold`` on the card), so the
-final state is bit-exact against the eager ISA: same bits, same
-migration/DCC side state, same CostMeter to the last ulp.
+:class:`~.compile.CompiledProgram` onto the rowops kernels' row entries
+(``shift_rows``, ``bitwise_rows``; hand-written CUDA on the card), each
+ONE launch that reads its source rows of the slot state in place and
+writes every destination, migration and DCC row: a k-long chain of
+migration shifts (the (k-1)-column shift plus the last hop, whose
+migration rows it captures), an Ambit MAJ idiom (T0, T1, T2 and dst), a
+NOT pair (dst and DCC). A Python-loop interpreter runs the residual
+primitives, its one-hop SHIFT, TRA and NOT-to-DCC rows on the same entries
+(one launch each) and its COPY and DCC-to-row rows as one row copy each.
+The meter comes from the compile-time cost tables, folded in program order
+onto the incoming meter (``meter_fold`` on the card), so the final state
+is bit-exact against the eager ISA: same bits, same migration/DCC side
+state, same CostMeter to the last ulp.
 
 Where the reference ``vmap``s a runner over a batch of subarrays, the port's
 runner takes states with a leading slot axis ``B`` and every segment works
-on ``bits[:, row]`` — one kernel launch covers the whole batch. A runner
-clones the incoming rows once and then updates that copy in place: the
-caller's state is never written.
+on row indices of the (B, R, W) state — one kernel launch covers the whole
+batch. A runner clones the incoming rows once and then updates that copy in
+place: the caller's state is never written.
 
-``use_kernels=None`` follows the device: kernels on a CUDA state, the plain
-row math on a CPU state. ``use_kernels=True`` on a CPU state goes through
-the kernel wrappers, which run their plain versions there;
-``use_kernels=False`` on a CUDA state raises. ``interpret`` is accepted for
-signature parity and ignored.
+Every state goes through the entries' wrappers, which launch the CUDA
+kernels for a CUDA state and run their plain versions for a CPU state, so
+``use_kernels`` (``None``: follow the device) changes nothing on the CPU,
+and ``use_kernels=False`` on a CUDA state raises. ``interpret`` is
+accepted for signature parity and ignored.
 """
 from __future__ import annotations
 
@@ -35,10 +39,9 @@ from .compile import (CompiledProgram, SegHost, SegMaj, SegNot, SegScan,
                       SegShiftRun, compile_program, fold_tables,
                       sequential_sum)
 from .isa import T0 as isa_T0, T1 as isa_T1, T2 as isa_T2
-from .isa import lsr, maj3_words, shift_row_words
-from .state import (EVEN_MASK, ODD_MASK, CostMeter, SubarrayState,
-                    as_rows, make_subarray)
+from .state import CostMeter, SubarrayState, as_rows, make_subarray
 from .timing import DDR3Timing, DEFAULT_TIMING, apply_refresh
+from ...kernels.rowops import ops as kops
 
 
 @dataclasses.dataclass
@@ -74,59 +77,11 @@ def _kernels_for(use_kernels, device: torch.device) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# Row math on (B, W) slot batches
-# ---------------------------------------------------------------------------
-
-def _shift_row(row, k: int, use_kernels: bool):
-    if k == 0:
-        return row
-    if use_kernels:
-        from ...kernels.rowops import ops as kops
-        return kops.shift_cols(row.contiguous(), k)
-    return shift_row_words(row, k)
-
-
-def _maj_rows(a, b, c, use_kernels: bool):
-    if use_kernels:
-        from ...kernels.rowops import ops as kops
-        return kops.bitwise(a.contiguous(), b.contiguous(), c.contiguous(),
-                            op="maj")
-    return maj3_words(a, b, c)
-
-
-def _not_row(a, use_kernels: bool):
-    if use_kernels:
-        from ...kernels.rowops import ops as kops
-        return kops.bitwise(a.contiguous(), op="not")
-    return ~a
-
-
-def _shift1(row, delta: int):
-    """One 1-bit shift, exactly mirroring ``shift_row_words(row, ±1)``."""
-    zero = torch.zeros(row.shape[:-1] + (1,), dtype=row.dtype,
-                       device=row.device)
-    if delta > 0:
-        carry = lsr(torch.cat([zero, row[..., :-1]], dim=-1), 31)
-        return (row << 1) | carry
-    carry = torch.cat([row[..., 1:], zero], dim=-1) << 31
-    return lsr(row, 1) | carry
-
-
-def _migrate(row, delta: int):
-    """The migration rows a 1-bit shift of ``row`` captures, and the
-    shifted row they merge into."""
-    mt = row & (EVEN_MASK if delta > 0 else ODD_MASK)
-    mb = row & (ODD_MASK if delta > 0 else EVEN_MASK)
-    return mt, mb, _shift1(mt, delta) | _shift1(mb, delta)
-
-
-# ---------------------------------------------------------------------------
 # Residual-op interpreter
 # ---------------------------------------------------------------------------
 
 _SCAN_COPY, _SCAN_TRA, _SCAN_NOT2DCC, _SCAN_DCC2 = 0, 1, 2, 3
 _SCAN_SHIFT_R, _SCAN_SHIFT_L = 4, 5
-_SCAN_MAJ, _SCAN_NOTPAIR = 6, 7          # fused macro rows (SegMaj / SegNot)
 
 _SCAN_CODE = {ir.OP_ROWCLONE: _SCAN_COPY, ir.OP_DRA: _SCAN_COPY,
               ir.OP_COPY: _SCAN_COPY, ir.OP_TRA: _SCAN_TRA,
@@ -135,10 +90,10 @@ _SCAN_CODE = {ir.OP_ROWCLONE: _SCAN_COPY, ir.OP_DRA: _SCAN_COPY,
 
 @dataclasses.dataclass(frozen=True)
 class _SegTable:
-    """Coalesced table: residual primitives plus fused MAJ/NOT macro rows,
-    run by one Python loop (the reference's one ``lax.scan``)."""
+    """Coalesced table of residual primitives, run by one Python loop (the
+    reference's one ``lax.scan``)."""
 
-    rows: tuple  # of (code, a, b, c, d)
+    rows: tuple  # of (code, a, b, c)
 
 
 def _op_rows(op: ir.PimOp):
@@ -146,13 +101,13 @@ def _op_rows(op: ir.PimOp):
         code = _SCAN_SHIFT_R if op.delta > 0 else _SCAN_SHIFT_L
     else:
         code = _SCAN_CODE[op.op]
-    return (code, op.a, op.b, op.c, 0)
+    return (code, op.a, op.b, op.c)
 
 
-def _coalesce(segments, use_kernels):
-    """With kernel lowering off, merge contiguous residual segments (incl.
-    MAJ/NOT macros) into single _SegTable loops; with it on, MAJ and NOT
-    stay segments of their own so that they reach the kernel."""
+def _coalesce(segments):
+    """Merge contiguous residual segments into single _SegTable loops. The
+    reference also folds MAJ/NOT macros into its scan when kernel lowering
+    is off; here they stay segments of their own, one row-entry call each."""
     out, rows = [], []
 
     def flush():
@@ -163,10 +118,6 @@ def _coalesce(segments, use_kernels):
     for seg in segments:
         if isinstance(seg, SegScan):
             rows.extend(_op_rows(op) for op in seg.ops)
-        elif not use_kernels and isinstance(seg, SegMaj):
-            rows.append((_SCAN_MAJ, seg.a, seg.b, seg.c, seg.dst))
-        elif not use_kernels and isinstance(seg, SegNot):
-            rows.append((_SCAN_NOTPAIR, seg.src, seg.dst, 0, 0))
         else:
             flush()
             out.append(seg)
@@ -174,37 +125,22 @@ def _coalesce(segments, use_kernels):
     return tuple(out)
 
 
-def _set(bits, rows, value) -> None:
-    for r in rows:
-        bits[:, r] = value
-
-
-def _table_segment(seg: _SegTable, bits, mt, mb, dcc, num_rows: int):
+def _table_segment(seg: _SegTable, bits, mt, mb, dcc):
     """Run one coalesced table on (B, R, W) ``bits`` in place; returns the
     new migration and DCC rows."""
-    t0, t1, t2 = (t % num_rows for t in (isa_T0, isa_T1, isa_T2))
-    for code, a, b, c, d in seg.rows:
+    for code, a, b, c in seg.rows:
         if code == _SCAN_COPY:
             if a != b:
                 bits[:, b] = bits[:, a]
         elif code == _SCAN_TRA:
-            _set(bits, (a, b, c), maj3_words(bits[:, a], bits[:, b],
-                                             bits[:, c]))
+            kops.bitwise_rows(bits, "maj", (a, b, c), (a, b, c))
         elif code == _SCAN_NOT2DCC:
-            dcc = ~bits[:, a]
+            dcc = kops.bitwise_rows(bits, "not", (a,), side=True)
         elif code == _SCAN_DCC2:
             bits[:, b] = dcc
-        elif code in (_SCAN_SHIFT_R, _SCAN_SHIFT_L):
-            mt, mb, merged = _migrate(bits[:, a],
-                                      1 if code == _SCAN_SHIFT_R else -1)
-            bits[:, b] = merged
-        elif code == _SCAN_MAJ:
-            _set(bits, (t0, t1, t2, d), maj3_words(bits[:, a], bits[:, b],
-                                                   bits[:, c]))
         else:
-            assert code == _SCAN_NOTPAIR, code
-            dcc = ~bits[:, a]
-            bits[:, b] = dcc
+            mt, mb = kops.shift_rows(bits, a, b,
+                                     1 if code == _SCAN_SHIFT_R else -1, 1)
     return mt, mb, dcc
 
 
@@ -212,32 +148,26 @@ def _table_segment(seg: _SegTable, bits, mt, mb, dcc, num_rows: int):
 # Segment walk
 # ---------------------------------------------------------------------------
 
-def _run_segments(compiled: CompiledProgram, bits, mt, mb, dcc, payloads,
-                  use_kernels: bool):
+def _run_segments(compiled: CompiledProgram, bits, mt, mb, dcc, payloads):
     """Run the segments on a (B, R, W) slot batch, updating ``bits`` in
     place. ``payloads`` is ``(B, n_payloads, W)`` or ``(n_payloads, W)``.
     Returns ``(mt, mb, dcc, reads)`` with (B, W) read rows."""
     reads = []
-    for seg in _coalesce(compiled.segments, use_kernels):
+    t0, t1, t2 = (t % compiled.num_rows for t in (isa_T0, isa_T1, isa_T2))
+    for seg in _coalesce(compiled.segments):
         if isinstance(seg, SegShiftRun):
-            # k chained 1-bit shifts: shift (k-1) columns in one kernel call,
-            # then replay the last hop so mig_top/mig_bot match eager exactly.
-            y = _shift_row(bits[:, seg.src], seg.delta * (seg.k - 1),
-                           use_kernels)
-            mt, mb, merged = _migrate(y, seg.delta)
-            bits[:, seg.dst] = merged
+            # k chained 1-bit shifts in one call, the last hop's migration
+            # rows captured so that mig_top/mig_bot match eager exactly
+            mt, mb = kops.shift_rows(bits, seg.src, seg.dst, seg.delta,
+                                     seg.k)
         elif isinstance(seg, SegMaj):
-            m = _maj_rows(bits[:, seg.a], bits[:, seg.b], bits[:, seg.c],
-                          use_kernels)
-            t0, t1, t2 = (t % compiled.num_rows
-                          for t in (isa_T0, isa_T1, isa_T2))
-            _set(bits, (t0, t1, t2, seg.dst), m)
+            kops.bitwise_rows(bits, "maj", (seg.a, seg.b, seg.c),
+                              (t0, t1, t2, seg.dst))
         elif isinstance(seg, SegNot):
-            dcc = _not_row(bits[:, seg.src], use_kernels)
-            bits[:, seg.dst] = dcc
+            dcc = kops.bitwise_rows(bits, "not", (seg.src,), (seg.dst,),
+                                    side=True)
         elif isinstance(seg, _SegTable):
-            mt, mb, dcc = _table_segment(seg, bits, mt, mb, dcc,
-                                         compiled.num_rows)
+            mt, mb, dcc = _table_segment(seg, bits, mt, mb, dcc)
         elif isinstance(seg, SegHost):
             op = seg.op
             if op.op == ir.OP_READ:
@@ -300,11 +230,11 @@ def make_runner(program, cfg: DDR3Timing = DEFAULT_TIMING, *,
         return hit
 
     def raw(bits, mt, mb, dcc, meter: CostMeter, payloads=None):
-        kernels = _kernels_for(use_kernels, bits.device)
+        _kernels_for(use_kernels, bits.device)    # False on the card raises
         f_tab, i_tab, recorded = device_consts(bits.device)
         mt, mb, dcc, reads = _run_segments(
             compiled, bits, mt, mb, dcc,
-            recorded if payloads is None else payloads, kernels)
+            recorded if payloads is None else payloads)
         f0, i0 = meter.stacked()
         ff, fi = fold_tables(f_tab, i_tab, f0.contiguous(), i0.contiguous())
         meter = CostMeter.from_stacked(ff, fi)

@@ -31,7 +31,12 @@ LIBRARIES = {
         (_HERE / "rowops" / "csrc" / "rowops.cu",),
         {
             "rowops_shift_cols": (_P, _P, _I, _I, _I, _P),
-            "rowops_bitwise": (_P, _P, _P, _P, _L, _I, _I, _P),
+            "rowops_bitwise": (_P, _P, _P, _P, _L, _I, _P),
+            "rowops_bitwise_rows": (_P, _P, _P, _P, _P, _P, _P, _I, _P, _I,
+                                    _I, _L, _I, _P),
+            "rowops_shift_rows_cluster_words": (),
+            "rowops_shift_rows": (_P, _P, _L, _P, _P, _P, _I, _I, _L, _I,
+                                  _P),
             "rowops_meter_fold": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _P),
             "rowops_fadd_chain": (_P, _P, _P, _I, _P),

@@ -8,11 +8,18 @@
 //
 // Every entry takes device pointers, int sizes and the caller's stream,
 // launches without synchronising, allocates nothing and returns
-// cudaGetLastError(). Outputs are always separate buffers (out of place).
+// cudaGetLastError(). shift_cols, meter_fold and ripple_add write separate
+// output buffers; bitwise and shift_rows take rows of the executor's slot
+// state as base pointers and strides and write them in place, where a
+// destination row may also be a source row (their notes say how each
+// stays right under that aliasing).
 
 #include <algorithm>
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -90,57 +97,224 @@ __global__ void shift_cols_kernel(const uint32_t* __restrict__ x,
 // ---------------------------------------------------------------------------
 // bitwise — replaces the TPU kernel
 //   src/repro/kernels/rowops/rowops.py: bitwise -> _bitwise_kernel.
-// Elementwise not/and/or/xor/maj, maj = (a&b)|(b&c)|(a&c).
-// Bound on the card: bytes, 4*(ops+1)*N*W (ops = operands read).
-// At the executor's shapes (N = 1..64, W = 2048) it is launch-bound, like
-// shift_cols, and batched per stream group the same way. Four words per
-// thread through 16-byte loads when every pointer is 16-byte aligned and
-// the count divides by 4.
+// Elementwise not/and/or/xor/maj, maj = (a&b)|(b&c)|(a&c), of up to three
+// source rows into up to four destination rows and a side row, in one
+// launch. Each row is a base pointer; the rows' slots lie ``stride`` words
+// apart, the side row's W:
+// - the executor passes rows of its (B, R, W) slot state in place (bits +
+//   row*W, stride R*W): a fused MAJ writes T0, T1, T2 and its destination,
+//   a TRA its three operands, a NOT its destination and, as the side row,
+//   a new (B, W) DCC row, all from one launch;
+// - the out-of-place entry (rowops_bitwise) passes separate buffers as one
+//   row of N*W words.
+// A destination may be a source, so no pointer is __restrict__: each
+// thread loads every source word it needs before it stores any, and no
+// thread reads a word that another thread writes.
+// Bound on the card: bytes, 4*W*B*(sources + destinations).
+// At the executor's shapes (B = 1..64 slots, W = 2048) it is bound by the
+// launch, so the point of the design is one launch per segment, with no
+// gathers or row copies around it. Four words per thread through 16-byte
+// loads and stores when every row pointer is 16-byte aligned and every
+// stride a multiple of four words; the last W % 4 words of each row then
+// take one word per thread in the same launch. The op is a template
+// parameter: with it at run time (and a stride per row), the parameter
+// loads ahead of the first row load cost about 0.3 us a launch on one H100.
 // ---------------------------------------------------------------------------
 enum BitOp { kNot = 0, kAnd = 1, kOr = 2, kXor = 3, kMaj = 4 };
+constexpr int kMaxSrc = 3;
+constexpr int kMaxDst = 5;              // four rows, then the side row
 
-template <typename T>
-__device__ __forceinline__ T apply_op(int op, T a, T b, T c) {
-  switch (op) {
-    case kNot: return ~a;
-    case kAnd: return a & b;
-    case kOr:  return a | b;
-    case kXor: return a ^ b;
-    default:   return (a & b) | (b & c) | (a & c);
+struct RowSet {
+  const uint32_t* src[kMaxSrc];
+  uint32_t* dst[kMaxDst];
+  long long stride;       // words between slots, every row but the side row
+  int n_dst;              // rows, then the side row (stride w) if any
+  int side;
+};
+
+template <int kOp, typename T>
+__device__ __forceinline__ T apply_op(T a, T b, T c) {
+  if (kOp == kNot) return ~a;
+  if (kOp == kAnd) return a & b;
+  if (kOp == kOr) return a | b;
+  if (kOp == kXor) return a ^ b;
+  return (a & b) | (b & c) | (a & c);
+}
+
+template <int kOp>
+__device__ __forceinline__ uint4 apply_op4(uint4 a, uint4 b, uint4 c) {
+  return make_uint4(apply_op<kOp>(a.x, b.x, c.x),
+                    apply_op<kOp>(a.y, b.y, c.y),
+                    apply_op<kOp>(a.z, b.z, c.z),
+                    apply_op<kOp>(a.w, b.w, c.w));
+}
+
+template <bool kVec, int kOp>
+__global__ void __launch_bounds__(kThreads)
+bitwise_rows_kernel(RowSet rs, int w) {
+  constexpr int kSrc = kOp == kNot ? 1 : kOp == kMaj ? 3 : 2;
+  const int vecs = kVec ? w / 4 : 0;
+  const int v = blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= vecs + (w - 4 * vecs)) return;
+  const long long off = blockIdx.y * rs.stride;
+  const long long side_off = static_cast<long long>(blockIdx.y) * w;
+  if (kVec && v < vecs) {
+    uint4 x[kMaxSrc] = {};
+#pragma unroll
+    for (int i = 0; i < kSrc; ++i)
+      x[i] = *reinterpret_cast<const uint4*>(rs.src[i] + off + 4 * v);
+    const uint4 r = apply_op4<kOp>(x[0], x[1], x[2]);
+#pragma unroll
+    for (int d = 0; d < kMaxDst - 1; ++d)
+      if (d < rs.n_dst)
+        *reinterpret_cast<uint4*>(rs.dst[d] + off + 4 * v) = r;
+    if (rs.side)
+      *reinterpret_cast<uint4*>(rs.dst[kMaxDst - 1] + side_off + 4 * v) = r;
+  } else {
+    const int j = 4 * vecs + (v - vecs);
+    uint32_t x[kMaxSrc] = {};
+#pragma unroll
+    for (int i = 0; i < kSrc; ++i) x[i] = rs.src[i][off + j];
+    const uint32_t r = apply_op<kOp>(x[0], x[1], x[2]);
+#pragma unroll
+    for (int d = 0; d < kMaxDst - 1; ++d)
+      if (d < rs.n_dst) rs.dst[d][off + j] = r;
+    if (rs.side) rs.dst[kMaxDst - 1][side_off + j] = r;
   }
 }
 
-__global__ void bitwise_kernel(const uint32_t* __restrict__ a,
-                               const uint32_t* __restrict__ b,
-                               const uint32_t* __restrict__ c,
-                               uint32_t* __restrict__ out,
-                               long long total, int op) {
-  long long i = static_cast<long long>(blockIdx.x) * blockDim.x
-                + threadIdx.x;
-  if (i >= total) return;
-  uint32_t av = a[i];
-  uint32_t bv = (op != kNot) ? b[i] : 0u;
-  uint32_t cv = (op == kMaj) ? c[i] : 0u;
-  out[i] = apply_op<uint32_t>(op, av, bv, cv);
+template <int kOp>
+void launch_op(const RowSet& rs, dim3 grid, int w, bool vec,
+               cudaStream_t s) {
+  if (vec)
+    bitwise_rows_kernel<true, kOp><<<grid, kThreads, 0, s>>>(rs, w);
+  else
+    bitwise_rows_kernel<false, kOp><<<grid, kThreads, 0, s>>>(rs, w);
 }
 
-__global__ void bitwise_vec4_kernel(const uint4* __restrict__ a,
-                                    const uint4* __restrict__ b,
-                                    const uint4* __restrict__ c,
-                                    uint4* __restrict__ out,
-                                    long long total4, int op) {
-  long long i = static_cast<long long>(blockIdx.x) * blockDim.x
-                + threadIdx.x;
-  if (i >= total4) return;
-  uint4 av = a[i];
-  uint4 bv = (op != kNot) ? b[i] : make_uint4(0u, 0u, 0u, 0u);
-  uint4 cv = (op == kMaj) ? c[i] : make_uint4(0u, 0u, 0u, 0u);
-  uint4 r;
-  r.x = apply_op<uint32_t>(op, av.x, bv.x, cv.x);
-  r.y = apply_op<uint32_t>(op, av.y, bv.y, cv.y);
-  r.z = apply_op<uint32_t>(op, av.z, bv.z, cv.z);
-  r.w = apply_op<uint32_t>(op, av.w, bv.w, cv.w);
-  out[i] = r;
+int launch_bitwise_rows(const RowSet& rs, int n_slots, long long w, int op,
+                        cudaStream_t s) {
+  if (n_slots <= 0 || w <= 0) return static_cast<int>(cudaSuccess);
+  if (n_slots > 65535 || w > (1LL << 31) - 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_src = op == kNot ? 1 : op == kMaj ? 3 : 2;
+  bool vec = rs.stride % 4 == 0 && (!rs.side || w % 4 == 0);
+  for (int i = 0; i < n_src; ++i)
+    vec = vec && reinterpret_cast<uintptr_t>(rs.src[i]) % 16 == 0;
+  for (int d = 0; d < kMaxDst; ++d)
+    if (d < rs.n_dst || (d == kMaxDst - 1 && rs.side))
+      vec = vec && reinterpret_cast<uintptr_t>(rs.dst[d]) % 16 == 0;
+  const long long units = vec ? w / 4 + w % 4 : w;
+  const dim3 grid(blocks_for(units), n_slots);
+  const int wi = static_cast<int>(w);
+  switch (op) {
+    case kNot: launch_op<kNot>(rs, grid, wi, vec, s); break;
+    case kAnd: launch_op<kAnd>(rs, grid, wi, vec, s); break;
+    case kOr: launch_op<kOr>(rs, grid, wi, vec, s); break;
+    case kXor: launch_op<kXor>(rs, grid, wi, vec, s); break;
+    case kMaj: launch_op<kMaj>(rs, grid, wi, vec, s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// shift_rows — the executor's form of shift_cols: it replaces the same TPU
+// kernel (rowops.py: shift_cols) on the path that calls it, the
+// reference's lowering of a fused migration-shift chain
+// (src/repro/core/pim/exec.py: _run_segments, SegShiftRun) and, as k = 1,
+// of a one-hop SHIFT row of its scan (_scan_segment, do_shift). For every
+// slot s of a (B, R, W) state, x = bits[s, src], a k-hop chain in
+// direction delta (+1: toward higher columns):
+//   y  = shift(x, delta*(k-1))
+//   mt = y & (delta > 0 ? EVEN : ODD),  mb = y & (delta > 0 ? ODD : EVEN)
+//        (new (B, W) rows: the migration cells the last hop captures)
+//   bits[s, dst] = shift1(mt, delta) | shift1(mb, delta) = shift(x, delta*k)
+//        (mt and mb split y's bits, and zero-filled shifts compose)
+// src may be dst (in mul_shift_add, 71 of 175 one-hop shifts run in
+// place), so every source word of a row must be read before any word of
+// it is written, and an output word reads source words up to k/32 words
+// away, which another block may hold. The design:
+// - in place, the blocks of one slot row form one thread-block cluster, at
+//   most kShiftClusterMax blocks of at most kShiftTileMax words (rows of up
+//   to 65,536 words, the RS subarray's, in one launch); each block copies
+//   the source words its tile reads into shared memory, the cluster
+//   synchronises (barrier.cluster: release, then acquire), then every
+//   block computes its tile and stores it. A row of at most kShiftTileMax
+//   words is one block, and the block's own barrier suffices;
+// - out of place, the tiles (kShiftTile words) are independent;
+// - an in-place row above the cluster's reach is written to a scratch row
+//   and copied back: two launches, a route of its own.
+// Bound on the card: bytes, 4*W*B*(1 row read + 3 rows written).
+// ---------------------------------------------------------------------------
+constexpr int kShiftTile = 2048;        // words per block, out of place
+constexpr int kShiftTileMax = 8192;     // words per block of a cluster
+constexpr int kShiftClusterMax = 8;     // blocks per cluster (portable)
+constexpr int kShiftLoads = 16;         // loads in flight per thread
+constexpr uint32_t kEven = 0x55555555u, kOdd = 0xAAAAAAAAu;
+
+// word j of shift(x, +(32*kw + kb)) from hi = x[j - kw], lo = x[j - kw - 1]
+__device__ __forceinline__ uint32_t shl_pair(uint32_t hi, uint32_t lo,
+                                             int kb) {
+  return kb ? (hi << kb) | (lo >> (32 - kb)) : hi;
+}
+
+// word j of shift(x, -(32*kw + kb)) from lo = x[j + kw], hi = x[j + kw + 1]
+__device__ __forceinline__ uint32_t shr_pair(uint32_t lo, uint32_t hi,
+                                             int kb) {
+  return kb ? (lo >> kb) | (hi << (32 - kb)) : lo;
+}
+
+// Block b: slot b / parts, output words [j0, j0 + tile) of its row. y
+// shifts by kw1 words and kb1 bits, the destination by kw2 (kw1 or
+// kw1 + 1) and kb2; kw = W stands for "shifted wholly out".
+__global__ void __launch_bounds__(kThreads)
+shift_rows_kernel(const uint32_t* src, long long src_stride, uint32_t* dst,
+                  long long dst_stride, uint32_t* mt, uint32_t* mb, int w,
+                  int tile, int parts,
+                  int kw1, int kb1, int kw2, int kb2, int up, int cluster) {
+  __shared__ uint32_t buf[kShiftTileMax + 2];
+  const long long slot = blockIdx.x / parts;
+  const int j0 = (blockIdx.x % parts) * tile;
+  const int len = min(tile, w - j0);
+  const uint32_t* x = src + slot * src_stride;
+  // buf[i] = x[base + i], 0 outside the row: the words this tile reads,
+  // kShiftLoads loads in flight per thread before their stores to buf
+  const long long base = up ? static_cast<long long>(j0) - kw1 - 2
+                            : static_cast<long long>(j0) + kw1;
+  for (int i0 = threadIdx.x; i0 < len + 2;
+       i0 += kShiftLoads * kThreads) {
+    uint32_t v[kShiftLoads];
+#pragma unroll
+    for (int u = 0; u < kShiftLoads; ++u) {
+      const int i = i0 + u * kThreads;
+      const long long g = base + i;
+      v[u] = (i < len + 2 && g >= 0 && g < w) ? x[g] : 0u;
+    }
+#pragma unroll
+    for (int u = 0; u < kShiftLoads; ++u) {
+      const int i = i0 + u * kThreads;
+      if (i < len + 2) buf[i] = v[u];
+    }
+  }
+  __syncthreads();
+  if (cluster) cg::this_cluster().sync();   // the row read everywhere
+  const int dw = kw2 - kw1;
+  uint32_t* out = dst + slot * dst_stride;
+  const long long mrow = slot * w;
+  for (int t = threadIdx.x; t < len; t += kThreads) {
+    uint32_t y, d;
+    if (up) {
+      y = shl_pair(buf[t + 2], buf[t + 1], kb1);
+      d = shl_pair(buf[t + 2 - dw], buf[t + 1 - dw], kb2);
+    } else {
+      y = shr_pair(buf[t], buf[t + 1], kb1);
+      d = shr_pair(buf[t + dw], buf[t + 1 + dw], kb2);
+    }
+    mt[mrow + j0 + t] = y & (up ? kEven : kOdd);
+    mb[mrow + j0 + t] = y & (up ? kOdd : kEven);
+    out[j0 + t] = d;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -502,21 +676,115 @@ int rowops_shift_cols(const void* x, void* out, int n, int w, int k,
 }
 
 int rowops_bitwise(const void* a, const void* b, const void* c, void* out,
-                   long long total, int op, int vec4, void* stream) {
-  if (total <= 0) return static_cast<int>(cudaSuccess);
+                   long long total, int op, void* stream) {
+  RowSet rs = {};
+  rs.src[0] = static_cast<const uint32_t*>(a);
+  rs.src[1] = static_cast<const uint32_t*>(b);
+  rs.src[2] = static_cast<const uint32_t*>(c);
+  rs.dst[0] = static_cast<uint32_t*>(out);
+  rs.stride = total;
+  rs.n_dst = 1;
+  return launch_bitwise_rows(rs, 1, total, op,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// Rows s0..s2 (as many as ``op`` takes) into rows d0..d3 (the first
+// n_dst) of a state whose slots lie ``stride`` words apart, and into
+// ``side`` ((n_slots, w) words) unless it is null.
+int rowops_bitwise_rows(const void* s0, const void* s1, const void* s2,
+                        void* d0, void* d1, void* d2, void* d3, int n_dst,
+                        void* side, int n_slots, int w, long long stride,
+                        int op, void* stream) {
+  if (n_dst < 0 || n_dst > 4 || (n_dst == 0 && side == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  RowSet rs = {};
+  rs.src[0] = static_cast<const uint32_t*>(s0);
+  rs.src[1] = static_cast<const uint32_t*>(s1);
+  rs.src[2] = static_cast<const uint32_t*>(s2);
+  void* dsts[4] = {d0, d1, d2, d3};
+  for (int d = 0; d < n_dst; ++d)
+    rs.dst[d] = static_cast<uint32_t*>(dsts[d]);
+  rs.dst[kMaxDst - 1] = static_cast<uint32_t*>(side);
+  rs.stride = stride;
+  rs.n_dst = n_dst;
+  rs.side = side != nullptr;
+  return launch_bitwise_rows(rs, n_slots, w, op,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// The longest row shift_rows shifts in place in one launch.
+int rowops_shift_rows_cluster_words() {
+  return kShiftTileMax * kShiftClusterMax;
+}
+
+// Row ``src`` of every slot (``stride`` words apart) shifted by ``shift``
+// = |delta|*(k-1) columns (``up``: delta > 0) into ``mt`` and ``mb``
+// (masked, (n_slots, w)) and by one column more into row ``dst``. An
+// in-place row longer than rowops_shift_rows_cluster_words() needs
+// ``scratch``, (n_slots, w) words: the shift goes there, then a 2-D copy
+// into ``dst``.
+int rowops_shift_rows(const void* src, void* dst, long long stride,
+                      void* mt, void* mb, void* scratch, int n_slots, int w,
+                      long long shift, int up, void* stream) {
+  if (n_slots <= 0 || w <= 0) return static_cast<int>(cudaSuccess);
+  if (shift < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec4) {
-    long long total4 = total / 4;
-    bitwise_vec4_kernel<<<blocks_for(total4), kThreads, 0, s>>>(
-        static_cast<const uint4*>(a), static_cast<const uint4*>(b),
-        static_cast<const uint4*>(c), static_cast<uint4*>(out), total4, op);
-  } else {
-    bitwise_kernel<<<blocks_for(total), kThreads, 0, s>>>(
-        static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
-        static_cast<const uint32_t*>(c), static_cast<uint32_t*>(out), total,
-        op);
+  int kw1 = w, kb1 = 0, kw2 = w, kb2 = 0;     // beyond 32 W: zeros
+  if (shift < 32LL * w) {
+    kw1 = static_cast<int>(shift / 32);
+    kb1 = static_cast<int>(shift % 32);
+    if (shift + 1 < 32LL * w) {
+      kw2 = static_cast<int>((shift + 1) / 32);
+      kb2 = static_cast<int>((shift + 1) % 32);
+    }
   }
-  return static_cast<int>(cudaGetLastError());
+  const bool in_place = src == dst;
+  const bool via_scratch = in_place
+                           && w > kShiftTileMax * kShiftClusterMax;
+  if (via_scratch && scratch == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  uint32_t* out = static_cast<uint32_t*>(via_scratch ? scratch : dst);
+  const long long out_stride = via_scratch ? w : stride;
+  const uint32_t* x = static_cast<const uint32_t*>(src);
+  uint32_t* mt1 = static_cast<uint32_t*>(mt);
+  uint32_t* mb1 = static_cast<uint32_t*>(mb);
+  if (in_place && !via_scratch) {
+    const int parts = (w + kShiftTileMax - 1) / kShiftTileMax;
+    const int tile = (w + parts - 1) / parts;
+    if (parts == 1) {
+      shift_rows_kernel<<<n_slots, kThreads, 0, s>>>(
+          x, stride, out, out_stride, mt1, mb1, w, tile, 1, kw1, kb1, kw2,
+          kb2, up, 0);
+      return static_cast<int>(cudaGetLastError());
+    }
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(static_cast<unsigned>(n_slots) * parts);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = 0;
+    cfg.stream = s;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = parts;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t e = cudaLaunchKernelEx(
+        &cfg, shift_rows_kernel, x, stride, out, out_stride, mt1, mb1, w,
+        tile, parts, kw1, kb1, kw2, kb2, up, 1);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int parts = (w + kShiftTile - 1) / kShiftTile;
+  shift_rows_kernel<<<static_cast<unsigned>(n_slots) * parts, kThreads,
+                      0, s>>>(x, stride, out, out_stride, mt1, mb1, w,
+                           kShiftTile, parts, kw1, kb1, kw2, kb2, up, 0);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || !via_scratch) return static_cast<int>(e);
+  e = cudaMemcpy2DAsync(dst, stride * sizeof(uint32_t), scratch,
+                        w * sizeof(uint32_t), w * sizeof(uint32_t), n_slots,
+                        cudaMemcpyDeviceToDevice, s);
+  return static_cast<int>(e);
 }
 
 int rowops_meter_fold(const void* ftab, const void* itab, const void* f0,

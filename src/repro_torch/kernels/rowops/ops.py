@@ -6,23 +6,37 @@ runs the plain torch version in ``ref.py``. There is no other switch: the
 device of the input decides. ``interpret`` is accepted for signature parity
 with the reference's Pallas wrappers and is ignored here.
 
+``bitwise`` and ``shift_cols`` take and return separate (N, W) rows.
+``bitwise_rows`` and ``shift_rows`` are the executor's entries: they take
+a (B, R, W) slot state and row indices, and run a whole fused segment or
+one-hop row (every source read, every destination, migration and DCC row
+written) in one launch, in place.
+
 ``LAUNCHES`` counts kernel launches per wrapper (``LAUNCHES_BY_OP`` splits
-``bitwise`` by op); a plain-version call counts nothing.
+``bitwise`` by op, ``ROWS_BY_OP`` ``bitwise_rows``, and ``SHIFT_ROUTES``
+``shift_rows`` by route: out of place, in place, or in place through a
+scratch row, which adds one row copy); a plain-version call counts
+nothing.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from . import ref as _ref
 
-LAUNCHES = {"shift_cols": 0, "bitwise": 0, "meter_fold": 0, "ripple_add": 0}
+LAUNCHES = {"shift_cols": 0, "bitwise": 0, "shift_rows": 0,
+            "bitwise_rows": 0, "meter_fold": 0, "ripple_add": 0}
 LAUNCHES_BY_OP = {op: 0 for op in _ref.OPS}
+ROWS_BY_OP = {op: 0 for op in _ref.OPS}
+SHIFT_ROUTES = {"out_of_place": 0, "in_place": 0, "scratch": 0}
 
 _N_OPERANDS = {"not": 1, "and": 2, "or": 2, "xor": 2, "maj": 3}
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, LAUNCHES_BY_OP):
+    for counts in (LAUNCHES, LAUNCHES_BY_OP, ROWS_BY_OP, SHIFT_ROUTES):
         for k in counts:
             counts[k] = 0
 
@@ -102,14 +116,112 @@ def bitwise(a: torch.Tensor, b: torch.Tensor | None = None,
         return out
     ptrs = [x.data_ptr() for x in args]
     ptrs += [ptrs[0]] * (3 - len(ptrs))        # unused operands: never read
-    vec4 = int(a.numel() % 4 == 0
-               and all(p % 16 == 0 for p in ptrs + [out.data_ptr()]))
     _raise_on(_lib().rowops_bitwise(
-        *ptrs, out.data_ptr(), a.numel(), _ref.OPS.index(op), vec4,
+        *ptrs, out.data_ptr(), a.numel(), _ref.OPS.index(op),
         torch.cuda.current_stream(a.device).cuda_stream), "bitwise")
     LAUNCHES["bitwise"] += 1
     LAUNCHES_BY_OP[op] += 1
     return out
+
+
+def _check_state(name: str, bits: torch.Tensor, rows) -> bool:
+    """Check a (B, R, W) int32 state and its row indices; True on the
+    card, where the state must also be contiguous."""
+    if bits.dtype != torch.int32:
+        raise TypeError(f"{name}: rows must be int32 bit patterns, got "
+                        f"{bits.dtype}")
+    if bits.dim() != 3:
+        raise ValueError(f"{name}: the state must be (B, R, W), got "
+                         f"{tuple(bits.shape)}")
+    for r in rows:
+        if not 0 <= r < bits.shape[1]:
+            raise ValueError(f"{name}: row {r} outside 0..{bits.shape[1]}")
+    on_card = _on_card(bits)
+    if on_card and not bits.is_contiguous():
+        raise ValueError(f"{name}: the state must be contiguous")
+    return on_card
+
+
+def bitwise_rows(bits: torch.Tensor, op: str, srcs, dsts=(),
+                 side: bool = False):
+    """``op`` of rows ``srcs`` of every slot of the (B, R, W) state
+    ``bits``, written to rows ``dsts`` (at most four) in place, in one
+    launch: a fused MAJ (T0, T1, T2, dst), a TRA (its three operands), a
+    NOT (its destination, and the DCC row as ``side``). A destination may
+    be a source. Returns the result as a new (B, W) row when ``side``,
+    else None."""
+    if op not in _N_OPERANDS:
+        raise ValueError(op)
+    srcs, dsts = tuple(srcs), tuple(dsts)
+    if len(srcs) != _N_OPERANDS[op]:
+        raise ValueError(f"{op} needs {_N_OPERANDS[op]} source rows, got "
+                         f"{len(srcs)}")
+    if len(dsts) > 4 or not (dsts or side):
+        raise ValueError(f"bitwise_rows writes 1-4 rows or a side row, got "
+                         f"{len(dsts)} rows, side={side}")
+    if not _check_state("bitwise_rows", bits, srcs + dsts):
+        return _ref.ref_bitwise_rows(bits, op, srcs, dsts, side)
+    n, r, w = bits.shape
+    out = (torch.empty((n, w), dtype=torch.int32, device=bits.device)
+           if side else None)
+    if bits.numel() == 0:
+        return out
+    base, row = bits.data_ptr(), 4 * w
+    ps = [base + s * row for s in srcs]
+    ps += [ps[0]] * (3 - len(ps))              # unused operands: never read
+    pd = [base + d * row for d in dsts] + [None] * (4 - len(dsts))
+    side_ptr = None if out is None else out.data_ptr()
+    _raise_on(_lib().rowops_bitwise_rows(
+        *ps, *pd, len(dsts), side_ptr, n, w, r * w, _ref.OPS.index(op),
+        torch.cuda.current_stream(bits.device).cuda_stream), "bitwise_rows")
+    LAUNCHES["bitwise_rows"] += 1
+    ROWS_BY_OP[op] += 1
+    return out
+
+
+@functools.cache
+def shift_rows_cluster_words() -> int:
+    """The longest row ``shift_rows`` shifts in place in one launch (one
+    thread-block cluster per row); longer in-place rows take a scratch row
+    and a copy."""
+    return int(_lib().rowops_shift_rows_cluster_words())
+
+
+def shift_rows(bits: torch.Tensor, src: int, dst: int, delta: int, k: int):
+    """A k-hop migration-shift chain (direction ``delta`` = ±1) from row
+    ``src`` to row ``dst`` of every slot of the (B, R, W) state ``bits``,
+    in place, in one launch: ``dst`` gets the row shifted k columns, and
+    the returned new (B, W) rows ``(mt, mb)`` are the migration cells of
+    the last hop (the row shifted k - 1 columns, masked even / odd). ``src``
+    may be ``dst``; |k - 1| beyond 32·W shifts everything out."""
+    if delta not in (1, -1):
+        raise ValueError(f"shift_rows: delta must be +1 or -1, got {delta}")
+    k = int(k)
+    if k < 1:
+        raise ValueError(f"shift_rows: a chain has k >= 1 hops, got {k}")
+    if not _check_state("shift_rows", bits, (src, dst)):
+        return _ref.ref_shift_rows(bits, src, dst, delta, k)
+    n, r, w = bits.shape
+    mt = torch.empty((n, w), dtype=torch.int32, device=bits.device)
+    mb = torch.empty((n, w), dtype=torch.int32, device=bits.device)
+    if bits.numel() == 0:
+        return mt, mb
+    route, scratch = "out_of_place", None
+    if src == dst:
+        route = "in_place"
+        if w > shift_rows_cluster_words():
+            route = "scratch"
+            scratch = torch.empty((n, w), dtype=torch.int32,
+                                  device=bits.device)
+    base, row = bits.data_ptr(), 4 * w
+    _raise_on(_lib().rowops_shift_rows(
+        base + src * row, base + dst * row, r * w, mt.data_ptr(),
+        mb.data_ptr(), None if scratch is None else scratch.data_ptr(), n,
+        w, min(k - 1, 32 * w), int(delta > 0),
+        torch.cuda.current_stream(bits.device).cuda_stream), "shift_rows")
+    LAUNCHES["shift_rows"] += 1
+    SHIFT_ROUTES[route] += 1
+    return mt, mb
 
 
 def meter_fold(f_tab: torch.Tensor, i_tab: torch.Tensor, f0: torch.Tensor,

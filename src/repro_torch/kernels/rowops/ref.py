@@ -61,6 +61,37 @@ def ref_shift_cols(x: torch.Tensor, k: int) -> torch.Tensor:
     return v
 
 
+# The migration masks (``repro_torch.core.pim.state.EVEN_MASK`` and
+# ``ODD_MASK``) as int32 bit patterns.
+EVEN_MASK = 0x5555_5555
+ODD_MASK = 0xAAAA_AAAA - (1 << 32)
+
+
+def ref_bitwise_rows(bits: torch.Tensor, op: str, srcs, dsts=(),
+                     side: bool = False):
+    """``op`` of rows ``srcs`` of every slot of the (B, R, W) state
+    ``bits``, written to rows ``dsts`` in place (a destination may be a
+    source: every source is read first); returns the result as a new
+    (B, W) side row when ``side``, else None."""
+    m = ref_bitwise(*(bits[:, r] for r in srcs), op=op)
+    for r in dsts:
+        bits[:, r] = m
+    return m if side else None
+
+
+def ref_shift_rows(bits: torch.Tensor, src: int, dst: int, delta: int,
+                   k: int):
+    """A k-hop migration-shift chain from row ``src`` to row ``dst`` of
+    every slot, in place, as the reference's executor composes it: shift
+    ``k - 1`` columns, capture the last hop's migration rows, merge them
+    one column on. Returns the new (B, W) migration rows ``(mt, mb)``."""
+    y = ref_shift_cols(bits[:, src], delta * (k - 1))
+    mt = y & (EVEN_MASK if delta > 0 else ODD_MASK)
+    mb = y & (ODD_MASK if delta > 0 else EVEN_MASK)
+    bits[:, dst] = ref_shift_cols(mt, delta) | ref_shift_cols(mb, delta)
+    return mt, mb
+
+
 def ref_meter_fold(f_tab: torch.Tensor, i_tab: torch.Tensor,
                    f0: torch.Tensor, i0: torch.Tensor):
     """Sequential fold of ``(m, F)`` float32 / ``(m, G)`` int32 increment

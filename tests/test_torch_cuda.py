@@ -625,3 +625,194 @@ def test_meter_fold_launch_count_and_refusals(card):
     empty = rops.meter_fold(f_tab, i_tab, f0[:0], i0[:0])
     assert empty[0].shape == (0, 6) and empty[1].shape == (0, 6)
     assert rops.LAUNCHES["meter_fold"] == 1
+
+
+# ---------------------------------------------------------------------------
+# The executor's row entries: bitwise_rows and shift_rows, in place on a
+# (B, R, W) state, against their plain versions on the same state, exact
+# ---------------------------------------------------------------------------
+
+ROWS_R = 12
+ROW_WIDTHS = [1, 3, 2048, 65536]
+# (op, sources, destinations, side): every alias pattern of the executor
+ROW_CASES = [
+    ("maj", (0, 1, 2), (9, 10, 11, 3), False),     # SegMaj, disjoint
+    ("maj", (0, 1, 2), (9, 10, 11, 1), False),     # SegMaj, dst is b
+    ("maj", (9, 1, 2), (9, 10, 11, 0), False),     # a is T0
+    ("maj", (4, 5, 6), (4, 5, 6), False),          # TRA onto its operands
+    ("maj", (4, 4, 6), (4, 4, 6), False),          # TRA, a repeated row
+    ("not", (7,), (7,), True),                     # SegNot in place + DCC
+    ("not", (7,), (8,), True),                     # SegNot out of place
+    ("not", (7,), (), True),                       # NOT2DCC: DCC only
+    ("and", (2, 3), (2,), False),
+    ("or", (2, 3), (3,), False),
+    ("xor", (2, 3), (5,), True),
+]
+
+
+def state_on(card, slots, rows, words, seed, offset=0):
+    """A contiguous (slots, rows, words) int32 state from a seed, starting
+    ``offset`` words into its storage."""
+    x = torch.randint(-2**31, 2**31, (offset + slots * rows * words,),
+                      dtype=torch.int64, generator=torch.Generator()
+                      .manual_seed(seed)).to(torch.int32).to(card)
+    return x[offset:].view(slots, rows, words)
+
+
+def rows_agree(card_fn, plain_fn, bits):
+    """Run the kernel on ``bits`` and the plain version on a copy; the
+    states and every returned row must be equal."""
+    exp_bits = bits.clone()
+    got = card_fn(bits)
+    exp = plain_fn(exp_bits)
+    torch.cuda.synchronize()
+    assert torch.equal(bits, exp_bits)
+    got = got if isinstance(got, tuple) else (got,)
+    exp = exp if isinstance(exp, tuple) else (exp,)
+    for g, e in zip(got, exp):
+        assert (g is None) == (e is None)
+        if g is not None:
+            assert g.device.type == "cuda" and torch.equal(g, e)
+
+
+@pytest.mark.parametrize("slots", [1, 64])
+@pytest.mark.parametrize("words", ROW_WIDTHS)
+@pytest.mark.parametrize("case", ROW_CASES, ids=str)
+def test_bitwise_rows_kernel_matches_plain(card, slots, words, case):
+    op, srcs, dsts, side = case
+    bits = state_on(card, slots, ROWS_R, words, seed=words + slots)
+    rows_agree(lambda b: rops.bitwise_rows(b, op, srcs, dsts, side),
+               lambda b: rref.ref_bitwise_rows(b, op, srcs, dsts, side),
+               bits)
+
+
+@pytest.mark.parametrize("offset,words,srcs,dsts", [
+    (1, 2048, (0, 1, 2), (9, 10, 11, 0)),    # every row 4 bytes off
+    (0, 2050, (0, 1, 2), (9, 10, 11, 1)),    # odd rows 8 bytes off
+    (0, 6, (0, 2, 4), (6, 8, 10, 2)),        # aligned: one vector + 2 words
+    (0, 7, (0, 4, 8), (4, 8, 1, 2)),         # scalar throughout
+])
+def test_bitwise_rows_unaligned_rows_and_tails(card, offset, words, srcs,
+                                               dsts):
+    for slots in (1, 5):
+        bits = state_on(card, slots, ROWS_R, words, seed=3, offset=offset)
+        rows_agree(lambda b: rops.bitwise_rows(b, "maj", srcs, dsts),
+                   lambda b: rref.ref_bitwise_rows(b, "maj", srcs, dsts),
+                   bits)
+        rows_agree(lambda b: rops.bitwise_rows(b, "not", srcs[:1],
+                                               dsts[:1], True),
+                   lambda b: rref.ref_bitwise_rows(b, "not", srcs[:1],
+                                                   dsts[:1], True),
+                   bits)
+
+
+def shift_ks(words):
+    return [1, 2, 31, 32, 33, 999, 32 * words, 32 * words + 1,
+            32 * words + 40]
+
+
+@pytest.mark.parametrize("slots", [1, 64])
+@pytest.mark.parametrize("words", ROW_WIDTHS)
+@pytest.mark.parametrize("which_k", range(9))
+def test_shift_rows_kernel_matches_plain(card, slots, words, which_k):
+    """Both directions, in place and out of place (source above and below
+    the destination), k at word and row edges and beyond 32·W."""
+    k = shift_ks(words)[which_k]
+    bits = state_on(card, slots, 6, words, seed=which_k)
+    for delta in (1, -1):
+        for src, dst in ((2, 2), (2, 3), (3, 2)):
+            rows_agree(lambda b: rops.shift_rows(b, src, dst, delta, k),
+                       lambda b: rref.ref_shift_rows(b, src, dst, delta, k),
+                       bits)
+
+
+@pytest.mark.parametrize("words,route", [
+    (8192, "in_place"),          # one block per row
+    (8193, "in_place"),          # a cluster of 2
+    (65536, "in_place"),         # the cluster route's longest row: 8 blocks
+    (65540, "scratch"),          # above it: scratch row and a copy
+    (65536 + 8192 + 3, "scratch"),
+])
+def test_shift_rows_cluster_limit_and_scratch_route(card, words, route):
+    assert rops.shift_rows_cluster_words() == 65536
+    for slots in (1, 3):
+        bits = state_on(card, slots, 3, words, seed=words)
+        for delta, k in ((1, 1), (-1, 1), (1, 32 * 8192 + 7),
+                         (-1, 32 * 4096 + 31), (1, 999)):
+            rops.reset_launches()
+            rows_agree(lambda b: rops.shift_rows(b, 1, 1, delta, k),
+                       lambda b: rref.ref_shift_rows(b, 1, 1, delta, k),
+                       bits)
+            assert rops.LAUNCHES["shift_rows"] == 1
+            assert rops.SHIFT_ROUTES[route] == 1
+        rops.reset_launches()
+        rows_agree(lambda b: rops.shift_rows(b, 0, 2, 1, 40),
+                   lambda b: rref.ref_shift_rows(b, 0, 2, 1, 40), bits)
+        assert rops.SHIFT_ROUTES["out_of_place"] == 1
+
+
+def test_row_entries_launch_counts_and_refusals(card):
+    rops.reset_launches()
+    bits = torch.zeros((2, 8, 64), dtype=torch.int32, device=card)
+    dcc = rops.bitwise_rows(bits, "not", (0,), (0,), side=True)
+    assert dcc.shape == (2, 64) and bool((dcc == -1).all())
+    rops.bitwise_rows(bits, "maj", (0, 1, 2), (3, 4, 5, 6))
+    mt, mb = rops.shift_rows(bits, 0, 0, 1, 5)
+    assert mt.shape == mb.shape == (2, 64)
+    assert rops.LAUNCHES["bitwise_rows"] == 2
+    assert rops.LAUNCHES["shift_rows"] == 1
+    assert rops.ROWS_BY_OP["not"] == 1 and rops.ROWS_BY_OP["maj"] == 1
+    assert rops.SHIFT_ROUTES["in_place"] == 1
+    assert rops.LAUNCHES["bitwise"] == rops.LAUNCHES["shift_cols"] == 0
+    strided = bits.transpose(0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        rops.bitwise_rows(strided, "not", (0,), (1,))
+    with pytest.raises(ValueError, match="contiguous"):
+        rops.shift_rows(strided, 0, 1, 1, 1)
+    with pytest.raises(TypeError):
+        rops.shift_rows(bits.float(), 0, 1, 1, 1)
+    assert rops.LAUNCHES["bitwise_rows"] == 2
+    assert rops.LAUNCHES["shift_rows"] == 1
+    empty = torch.zeros((0, 8, 64), dtype=torch.int32, device=card)
+    assert rops.shift_rows(empty, 0, 0, 1, 3)[0].shape == (0, 64)
+    assert rops.bitwise_rows(empty, "not", (0,), side=True).shape == (0, 64)
+    assert rops.LAUNCHES["bitwise_rows"] == 2
+
+
+@pytest.mark.parametrize("slots", [1, 3])
+def test_executor_row_entries_card_matches_cpu(card, slots):
+    """A program with every alias of the row entries through execute() on
+    the card (one launch per segment and row) and on the CPU."""
+    from repro_torch.core import pim
+    rows, words = 32, 2048
+    b = pim.ProgramBuilder(rows, words)
+    b.issue().reserve_control_rows()
+    b.ambit_maj(0, 1, 2, 0).ambit_xor(3, 4, 3).ambit_not(5, 5)
+    b.shift_k(6, 6, 40).shift_k(7, 8, -999).shift_k(9, 9, 3)
+    b.shift(10, 10, -1).tra(11, 12, 13).not_to_dcc(14).rowclone(14, 15)
+    b.dcc_to(16)
+    b.read_row(0)
+    b.read_row(16)
+    prog = b.build()
+    bits = np.random.default_rng(slots).integers(
+        0, 2**32, (slots, rows, words), dtype=np.uint32)
+    out = {}
+    for dev in ("cpu", card):
+        st = pim.reserve_control_rows(pim.SubarrayState(
+            bits=torch.from_numpy(bits.view(np.int32)).to(dev),
+            mig_top=torch.zeros((slots, words), dtype=torch.int32,
+                                device=dev),
+            mig_bot=torch.zeros((slots, words), dtype=torch.int32,
+                                device=dev),
+            dcc=torch.zeros((slots, words), dtype=torch.int32, device=dev),
+            meter=pim.CostMeter.zeros(dev, shape=(slots,))))
+        rops.reset_launches()
+        out[str(dev)] = pim.execute(prog, st)
+        launches = dict(rops.LAUNCHES)
+    got, exp = out["cuda"], out["cpu"]
+    for f in ("bits", "mig_top", "mig_bot", "dcc"):
+        assert torch.equal(getattr(got.state, f).cpu(),
+                           getattr(exp.state, f))
+    assert all(torch.equal(x.cpu(), y) for x, y in zip(got.reads, exp.reads))
+    assert launches["bitwise_rows"] == 8 and launches["shift_rows"] == 6
+    assert launches["bitwise"] == launches["shift_cols"] == 0
