@@ -73,17 +73,33 @@ each, every mismatch fatal:
                kernel's integer instructions per weight code;
 7. serve     — the LM serving path: ``greedy_generate`` on Qwen3-4B
                (pim_w4, shift_add) at full width and depth, weights from a
-               seed, batch 4, prompt 128, 16 new tokens (launch counts reset
-               just before, read just after, each kernel must run, prefill's
+               seed, batch 4, prompt 128, 16 new tokens, each call one
+               CUDA-graph replay: the first call (warm-up, capture, replay)
+               timed apart from the replayed calls (median of 3) and the
+               graph alone (CUDA events); launch counts and DECODE_STATS
+               reset just before a replayed call and read just after it
+               (1,728 pim_matmul and 576 flash_attn launches, prefill's
                108 pim_matmul calls on the tensor cores and decode's 1,620
                on the swapped operands, none on the CUDA cores, prefill's
                36 flash_attn calls on the tensor cores and decode's 540
-               split over the keys); ms of prefill and per decode token, GB
-               on the card, decode against prefill, the busy share of one
-               prefill and one decode step, and the kernel ms of prefill
-               and of a decode step with pim_matmul's and flash's shares;
-8. lm parity — the same model at 2 layers, on the card (kernels) and on the
-               CPU (plain versions), logits compared step by step;
+               split over the keys; one dispatch, none for zero tokens;
+               the first call adds its warm-up's eager prefill and decode
+               step); every token the argmax of the eager loop's logits,
+               teacher-forced on the card's tokens, bit for bit; one
+               ``cudaGraphLaunch`` and no kernel launch per replayed call
+               in the profiler; the graph pool's bytes; beside them the
+               eager ms of prefill, per decode token and of the whole loop,
+               GB on the card, decode against prefill, the busy share of a
+               replayed call, one prefill and one decode step, and the
+               kernel ms of prefill and of a decode step with pim_matmul's
+               and flash's shares; the memory left once the model and its
+               graphs are freed;
+8. lm parity — the same model at 2 layers: greedy_generate on the card (one
+               replay, its tokens the card's argmax chain), logits
+               teacher-forced on the card (kernels) and on the CPU (plain
+               versions) compared step by step, and the CPU's eager
+               greedy_generate, whose tokens must equal the card's wherever
+               the card's top-2 margin exceeds twice the bound;
 9. ripple    — ``ripple_add`` against its plain version at (512, 2,048) for
                every width dividing 32 and at ragged shapes, bit for bit,
                with device times, the plain version's, the bound and one
@@ -954,8 +970,9 @@ def device_share(torch, fn) -> dict:
     """Run ``fn`` once under ``torch.profiler``: host-clock ms of the
     window, the card's summed kernel time in it, their ratio (the card's
     busy share; one stream, so kernels do not overlap), every kernel, the
-    longest first, and the host's kernel-launch calls to the CUDA runtime
-    (``launch_calls``)."""
+    longest first, the host's kernel-launch calls to the CUDA runtime
+    (``launch_calls``) and to the driver (``driver_launch_calls``), and its
+    CUDA-graph launches (``graph_launches``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -965,10 +982,14 @@ def device_share(torch, fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    kernels, launch_calls = [], 0
+    kernels, launch_calls, driver_calls, graph_launches = [], 0, 0, 0
     for e in prof.key_averages():
         if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"):
             launch_calls += e.count
+        elif e.key.startswith("cuLaunchKernel"):
+            driver_calls += e.count
+        elif e.key.startswith("cudaGraphLaunch"):
+            graph_launches += e.count
         # device-side entries only (kernels, copies): an operator's own
         # entry repeats the time of the kernels it launched
         if e.device_type != DeviceType.CUDA:
@@ -982,7 +1003,9 @@ def device_share(torch, fn) -> dict:
     return {"wall_ms": wall_ms, "device_ms": busy_ms,
             "busy_share": busy_ms / wall_ms if wall_ms else 0.0,
             "top": [{"name": k[1][:80], "ms": k[0], "count": k[2]}
-                    for k in kernels], "launch_calls": launch_calls}
+                    for k in kernels], "launch_calls": launch_calls,
+            "driver_launch_calls": driver_calls,
+            "graph_launches": graph_launches}
 
 
 # ---------------------------------------------------------------------------
@@ -1473,12 +1496,23 @@ def teacher_forced(cfg, model, prompt, tokens, device):
     return out
 
 
+def argmax_chain(torch, cfg, logits):
+    """(B, n) int32: the argmax of each step's (B, 1, V) logits."""
+    return torch.stack([torch.argmax(lg[:, 0, :cfg.vocab_size], -1)
+                        for lg in logits], dim=1).to(torch.int32)
+
+
 def run_serve(torch, device):
-    """The serving path at full width and depth. Returns (record, launches
-    over the ``greedy_generate`` run)."""
+    """The serving path at full width and depth: ``greedy_generate`` as one
+    CUDA-graph replay per call, beside the eager prefill and decode steps.
+    Returns (record, launches, routes and flash routes of one replayed
+    call)."""
+    import gc
+
     from repro_torch.kernels.flash_attn import ops as fa
     from repro_torch.kernels.pim_matmul import ops as pm
     from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.serve import engine
     from repro_torch.serve.engine import greedy_generate
 
     cfg = lm_config()
@@ -1493,32 +1527,57 @@ def run_serve(torch, device):
                            cfg.vocab_size, device)
     batch = {"tokens": prompt}
     torch.cuda.reset_peak_memory_stats()
+    L, V = cfg.n_layers, cfg.vocab_size
 
-    pm.reset_launches()
-    fa.reset_launches()
-    t = time.perf_counter()
-    out = greedy_generate(cfg, model, batch, max_new_tokens=SERVE_NEW)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t
-    launches = {"pim_matmul": pm.LAUNCHES["pim_matmul"],
-                "flash_attn": fa.LAUNCHES["flash_attn"]}
-    routes = dict(pm.ROUTES)
-    flash_routes = dict(fa.ROUTES)
+    def generate():
+        return greedy_generate(cfg, model, batch, max_new_tokens=SERVE_NEW)
+
+    def counted(fn):
+        """``fn()`` with the launch counts and DECODE_STATS reset just
+        before it and read just after it, and its ms."""
+        pm.reset_launches()
+        fa.reset_launches()
+        engine.DECODE_STATS["dispatches"] = 0
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3, dict(
+            launches={"pim_matmul": pm.LAUNCHES["pim_matmul"],
+                      "flash_attn": fa.LAUNCHES["flash_attn"]},
+            routes=dict(pm.ROUTES), flash_routes=dict(fa.ROUTES),
+            dispatches=engine.DECODE_STATS["dispatches"])
+
+    # the first call of the signature (warm-up: an eager prefill and decode
+    # step; capture; one replay), then a replayed call
+    out, first_ms, first = counted(generate)
+    (graph,) = model.generate_graphs.values()
+    again, _, counts = counted(generate)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    L, V = cfg.n_layers, cfg.vocab_size
     if tuple(out.shape) != (SERVE_BATCH, SERVE_NEW) \
             or out.dtype != torch.int32 or int(out.min()) < 0 \
-            or int(out.max()) >= V:
+            or int(out.max()) >= V or not torch.equal(out, again):
         raise AssertionError(f"greedy_generate gave {tuple(out.shape)} "
                              f"{out.dtype} tokens in [{int(out.min())}, "
-                             f"{int(out.max())}]")
+                             f"{int(out.max())}], equal on replay: "
+                             f"{torch.equal(out, again)}")
+    launches = counts["launches"]
     expected = {"pim_matmul": 3 * L * SERVE_NEW, "flash_attn": L * SERVE_NEW}
     if launches != expected:
         raise AssertionError(f"serving launches {launches}, expected "
                              f"{expected}")
+    # the first call adds its warm-up's eager prefill and decode step
+    warm = {k: v // SERVE_NEW * (SERVE_NEW + 2) for k, v in expected.items()}
+    if first["launches"] != warm:
+        raise AssertionError(f"first call's launches {first['launches']}, "
+                             f"expected {warm}")
+    if counts["dispatches"] != 1 or first["dispatches"] != 1:
+        raise AssertionError(f"DECODE_STATS per call: first "
+                             f"{first['dispatches']}, replayed "
+                             f"{counts['dispatches']}, expected 1")
     # prefill's FFN linears (M = batch x prompt) on the tensor cores, each
     # decode step's (M = batch) on the swapped operands
+    routes = counts["routes"]
     expected = {"tensor_core": 3 * L, "swap_ab": 3 * L * (SERVE_NEW - 1),
                 "cuda_core": 0}
     if routes != expected:
@@ -1526,17 +1585,26 @@ def run_serve(torch, device):
                              f"{expected}")
     # prefill's attention (Sq·G = 512 rows per pair, bf16) on the tensor
     # cores, each decode step's (4 rows) split over the keys
+    flash_routes = counts["flash_routes"]
     expected = {"tensor_core": L, "tiled": 0, "split_kv": L * (SERVE_NEW - 1)}
     if flash_routes != expected:
         raise AssertionError(f"serving flash routes {flash_routes}, "
                              f"expected {expected}")
+    engine.DECODE_STATS["dispatches"] = 0
+    zero = greedy_generate(cfg, model, batch, max_new_tokens=0)
+    if zero.shape != (SERVE_BATCH, 0) or engine.DECODE_STATS["dispatches"]:
+        raise AssertionError("zero new tokens: a dispatch was counted")
 
+    # the graph's tokens are the eager loop's argmax chain, bit for bit
     max_len = SERVE_PROMPT + SERVE_NEW
-    logits, _ = prefill(cfg, model, batch, max_len)
-    if not (torch.isfinite(logits).all()
-            and torch.equal(out[:, 0], torch.argmax(logits[:, 0], -1).int())):
-        raise AssertionError("the first generated token is not the argmax "
-                             "of the prefill logits")
+    forced = teacher_forced(cfg, model, prompt, out, device)
+    chain = argmax_chain(torch, cfg, forced)
+    if not all(torch.isfinite(lg).all() for lg in forced) \
+            or not torch.equal(chain, out):
+        raise AssertionError(
+            f"the graph's tokens are not the eager loop's argmax chain: "
+            f"{int((chain != out).sum())} of {out.numel()} differ")
+    logits = forced[0]
     _, caches = prefill(cfg, model, {"tokens": prompt[:, :-1]}, max_len)
     dec, _ = decode_step(cfg, model, {"tokens": prompt[:, -1:]},
                          SERVE_PROMPT - 1, caches)
@@ -1544,6 +1612,7 @@ def run_serve(torch, device):
     if not dvp < LOGITS_REL:
         raise AssertionError(f"decode vs prefill logits: rel {dvp} >= "
                              f"{LOGITS_REL}")
+    del forced, logits, dec
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -1565,8 +1634,13 @@ def run_serve(torch, device):
 
         per_token.append(timed(steps) / (SERVE_NEW - 1))
     decode_ms = statistics.median(per_token)
-    generate_ms = timed(lambda: greedy_generate(
-        cfg, model, batch, max_new_tokens=SERVE_NEW))
+    eager_ms = statistics.median(
+        timed(lambda: teacher_forced(cfg, model, prompt, out, device))
+        for _ in range(3))
+    replay_ms = [timed(generate) for _ in range(3)]
+    generate_ms = statistics.median(replay_ms)
+    # the graph alone on the card's clock (CUDA events around one replay)
+    graph_ms = event_us(graph.graph.replay, torch, reps=3, warmup=1) / 1e3
 
     _, caches = prefill(cfg, model, batch, max_len)
     shares = {
@@ -1574,24 +1648,54 @@ def run_serve(torch, device):
                                                        max_len)),
         "decode step": device_share(torch, lambda: decode_step(
             cfg, model, {"tokens": out[:, :1]}, SERVE_PROMPT, caches)),
+        "greedy_generate (replayed)": device_share(torch, generate),
     }
+    replayed = shares["greedy_generate (replayed)"]
+    if replayed["graph_launches"] != 1 or replayed["launch_calls"] \
+            or replayed["driver_launch_calls"]:
+        raise AssertionError(
+            f"a replayed call made {replayed['graph_launches']} graph "
+            f"launches and {replayed['launch_calls']} + "
+            f"{replayed['driver_launch_calls']} kernel launches; expected "
+            "1 and 0")
+    # the kernels the graph holds: prefill's and SERVE_NEW - 1 decode
+    # steps', from the eager profiles
+    kernels_ms = (shares["prefill"]["device_ms"]
+                  + (SERVE_NEW - 1) * shares["decode step"]["device_ms"])
     record = dict(
         config=dict(arch=cfg.arch_id, quant=cfg.quant,
                     quant_mode=cfg.quant_mode, n_layers=L,
                     d_model=cfg.d_model, vocab=V, batch=SERVE_BATCH,
                     prompt=SERVE_PROMPT, new_tokens=SERVE_NEW),
-        init_s=init_s, first_generate_s=first_s, weights_gb=weights_gb,
+        init_s=init_s, first_generate_ms=first_ms,
+        warmup_ms=graph.warmup_s * 1e3, capture_ms=graph.capture_s * 1e3,
+        graph_pool_bytes=graph.pool_bytes, weights_gb=weights_gb,
         peak_gb=peak_gb, prefill_ms=prefill_ms, decode_ms_per_token=decode_ms,
-        generate_ms=generate_ms, decode_vs_prefill_rel=dvp,
-        tokens=out.cpu().tolist(), profile=shares, routes=routes,
-        flash_routes=flash_routes)
+        eager_loop_ms=eager_ms, generate_ms=generate_ms,
+        generate_replays_ms=replay_ms, graph_ms=graph_ms,
+        graph_kernels_ms=kernels_ms, first_call=first,
+        decode_vs_prefill_rel=dvp, tokens=out.cpu().tolist(),
+        profile=shares, routes=routes, flash_routes=flash_routes)
     say(f"serve {cfg.arch_id} {cfg.quant} {cfg.quant_mode} ({L} layers, "
         f"d_model {cfg.d_model}): batch {SERVE_BATCH}, prompt "
-        f"{SERVE_PROMPT}, {SERVE_NEW} new tokens; prefill {prefill_ms:.2f} "
-        f"ms, decode {decode_ms:.2f} ms per token, greedy_generate "
-        f"{generate_ms:.2f} ms; {weights_gb:.2f} GB of weights on the card, "
-        f"peak {peak_gb:.2f} GB; decode vs prefill logits rel {dvp:.3e} "
-        f"(bound {LOGITS_REL}); launches {json.dumps(launches)}")
+        f"{SERVE_PROMPT}, {SERVE_NEW} new tokens; eager: prefill "
+        f"{prefill_ms:.2f} ms, decode {decode_ms:.2f} ms per token, the "
+        f"loop (prefill + {SERVE_NEW - 1} steps) {eager_ms:.2f} ms; "
+        f"{weights_gb:.2f} GB of weights on the card, peak {peak_gb:.2f} "
+        f"GB; decode vs prefill logits rel {dvp:.3e} (bound {LOGITS_REL}); "
+        f"launches per call {json.dumps(launches)}")
+    say(f"serve greedy_generate as one CUDA graph: first call "
+        f"{first_ms:.2f} ms (warm-up {graph.warmup_s * 1e3:.2f} ms, capture "
+        f"{graph.capture_s * 1e3:.2f} ms, then one replay; launches "
+        f"{json.dumps(first['launches'])}); replayed call {generate_ms:.2f} "
+        f"ms (median of " + ", ".join(f"{t:.2f}" for t in replay_ms)
+        + f"), the graph alone {graph_ms:.2f} ms on the card's clock, "
+        f"{kernels_ms:.3f} ms of kernels in it (eager profiles); graph pool "
+        f"{graph.pool_bytes} bytes; DECODE_STATS 1 per call, 0 for zero "
+        f"tokens; tokens == the eager loop's argmax chain, bit for bit; "
+        f"{replayed['graph_launches']} cudaGraphLaunch and "
+        f"{replayed['launch_calls'] + replayed['driver_launch_calls']} "
+        "kernel launches per replayed call")
     for name, sh in shares.items():
         say_share(f"serve {name}", sh)
     flash_ms = {name: sum(k["ms"] for k in sh["top"] if "flash_" in k["name"])
@@ -1611,46 +1715,77 @@ def run_serve(torch, device):
         f"{flash_ms['decode step']:.3f} ms of it (with the CUDA-core "
         f"pim_matmul at decode, one H100 took 17.05-17.19 ms, pim_matmul "
         f"10.048 ms of it)")
-    del model, caches
+    del model, caches, graph
+    gc.collect()
     torch.cuda.empty_cache()
+    record["left_gb"] = (torch.cuda.memory_allocated() - base) / 1e9
+    say(f"serve: {record['left_gb']:.3f} GB still allocated after the model "
+        "and its graphs are freed")
     return record, launches, routes, flash_routes
 
 
 def run_lm_parity(torch, device):
-    """Full width, PARITY_LAYERS layers: greedy_generate on the card, then
-    the same weights and tokens teacher-forced on the card and on the
-    CPU."""
+    """Full width, PARITY_LAYERS layers: greedy_generate on the card (one
+    graph replay), its tokens the card's eager argmax chain; then the same
+    weights and tokens teacher-forced on the CPU, and the CPU's eager
+    greedy_generate, whose tokens must equal the card's wherever the card's
+    top-2 margin exceeds twice the bound."""
     from repro_torch.models import init_params
+    from repro_torch.serve import engine
     from repro_torch.serve.engine import greedy_generate
 
     cfg = lm_config(n_layers=PARITY_LAYERS)
     model = init_params(cfg, 1, device=device)
     prompt = prompt_tokens(torch, 13, PARITY_BATCH, PARITY_PROMPT,
                            cfg.vocab_size, device)
+    engine.DECODE_STATS["dispatches"] = 0
     toks = greedy_generate(cfg, model, {"tokens": prompt},
                            max_new_tokens=PARITY_NEW)
+    if engine.DECODE_STATS["dispatches"] != 1:
+        raise AssertionError("lm parity: not one dispatch on the card")
     card = [lg.cpu() for lg in teacher_forced(cfg, model, prompt, toks,
                                               device)]
-    if not torch.equal(toks[:, 0].cpu(), torch.argmax(card[0][:, 0], -1)
-                       .int()):
-        raise AssertionError("lm parity: first token is not the argmax")
+    toks = toks.cpu()
+    if not torch.equal(toks, argmax_chain(torch, cfg, card)):
+        raise AssertionError("lm parity: the graph's tokens are not the "
+                             "argmax chain")
     model.to("cpu")
+    if model.generate_graphs:
+        raise AssertionError("lm parity: moving the model kept its graphs")
     t = time.perf_counter()
-    cpu = teacher_forced(cfg, model, prompt.cpu(), toks.cpu(), "cpu")
+    cpu = teacher_forced(cfg, model, prompt.cpu(), toks, "cpu")
+    cpu_toks = greedy_generate(cfg, model, {"tokens": prompt.cpu()},
+                               max_new_tokens=PARITY_NEW, device="cpu")
     cpu_s = time.perf_counter() - t
     rels = [rel_err(torch, a, b) for a, b in zip(card, cpu)]
     if not all(torch.isfinite(a).all() for a in card) \
             or max(rels) >= LOGITS_REL:
         raise AssertionError(f"lm parity: card vs CPU logits rel {rels} "
                              f"(bound {LOGITS_REL})")
+    checked = 0
+    for b in range(PARITY_BATCH):
+        for t, lg in enumerate(card):
+            row = lg[b, 0, :cfg.vocab_size].double()
+            top2 = row.topk(2).values
+            if top2[0] - top2[1] <= 2 * LOGITS_REL * row.abs().max():
+                break
+            if cpu_toks[b, t] != toks[b, t]:
+                raise AssertionError(f"lm parity: request {b} token {t}: "
+                                     f"CPU {int(cpu_toks[b, t])}, card "
+                                     f"{int(toks[b, t])}")
+            checked += 1
     say(f"lm parity {cfg.arch_id} {cfg.quant} {cfg.quant_mode} at full "
         f"width, {PARITY_LAYERS} layers, batch {PARITY_BATCH}, prompt "
-        f"{PARITY_PROMPT}, {PARITY_NEW} tokens: card (kernels) vs CPU (plain "
-        f"versions) logits rel per step "
+        f"{PARITY_PROMPT}, {PARITY_NEW} tokens: card (one graph replay, "
+        f"kernels) vs CPU (eager, plain versions) logits rel per step "
         + ", ".join(f"{r:.3e}" for r in rels)
-        + f" (bound {LOGITS_REL}); CPU run {cpu_s:.1f} s")
+        + f" (bound {LOGITS_REL}); the CPU's greedy tokens: "
+        f"{int((cpu_toks == toks).sum())} of {toks.numel()} equal to the "
+        f"card's, {checked} held to them (those before a card top-2 margin "
+        f"within twice the bound); CPU run {cpu_s:.1f} s")
     return {"rel_per_step": rels, "cpu_s": cpu_s,
-            "tokens": toks.cpu().tolist()}
+            "tokens": toks.tolist(), "cpu_tokens": cpu_toks.tolist(),
+            "tokens_checked": checked}
 
 
 def say_share(name: str, sh: dict) -> None:
@@ -2321,8 +2456,9 @@ def main() -> int:
         raise AssertionError(f"flash tensor-core kernel without HMMA: "
                              f"{record['flash_tc_sass']}")
 
-    # 7. the serving path, with the launch counts reset just before it and
-    # read just after it (inside run_serve)
+    # 7. the serving path, one CUDA-graph replay per greedy_generate call,
+    # with the launch counts reset just before a replayed call and read
+    # just after it (inside run_serve)
     record["serve"], lm_launches, lm_routes, flash_routes = run_serve(
         torch, device)
     say("kernels serve " + json.dumps(lm_launches) + " routes "

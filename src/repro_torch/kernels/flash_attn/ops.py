@@ -29,8 +29,12 @@ reference's Pallas kernel takes one batch element as q (KV·G, Sq, dh), k/v
 (KV, Sk, dh).
 
 ``LAUNCHES["flash_attn"]`` counts calls that launched a kernel (one per
-call, on either route) and ``ROUTES`` splits them by route; a
-plain-version call counts nothing.
+call, on any route) and ``ROUTES`` splits them by route; a plain-version
+call counts nothing. A call made while the current stream captures a CUDA
+graph runs nothing then: it counts in ``CAPTURED``, by route, instead, and
+whoever replays the graph adds what it captured at each replay
+(``count_replay``; ``serve.engine`` does), so that the counts stay
+launches that ran.
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ from . import ref as _ref
 
 LAUNCHES = {"flash_attn": 0}
 ROUTES = {"tiled": 0, "split_kv": 0, "tensor_core": 0}
+CAPTURED = dict.fromkeys(ROUTES, 0)
 # The largest dk and dv the kernels take: MLA's decode reads a 576-wide
 # latent key (kv_lora_rank 512 + rope 64) and a 512-wide value.
 MAX_HEAD_DIM = 576
@@ -66,6 +71,25 @@ def reset_launches() -> None:
     LAUNCHES["flash_attn"] = 0
     for r in ROUTES:
         ROUTES[r] = 0
+
+
+def _count(which: str) -> None:
+    """Count one launch of route ``which``, or one captured launch (a
+    build of torch without CUDA has no capture to ask about)."""
+    if torch.cuda.is_available() \
+            and torch.cuda.is_current_stream_capturing():
+        CAPTURED[which] += 1
+        return
+    LAUNCHES["flash_attn"] += 1
+    ROUTES[which] += 1
+
+
+def count_replay(routes: dict) -> None:
+    """Count one replay of a graph that captured ``routes``, launches by
+    route (``CAPTURED`` after its capture less ``CAPTURED`` before)."""
+    for which, n in routes.items():
+        LAUNCHES["flash_attn"] += n
+        ROUTES[which] += n
 
 
 def route(sq: int, g: int, dtype: torch.dtype, dk: int, dv: int) -> str:
@@ -200,6 +224,5 @@ def _launch(q, k, v, pos_q, pos_k, out, window, scale, which, splits=None):
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed ({which}): "
                            f"CUDA error {rc}")
-    LAUNCHES["flash_attn"] += 1
-    ROUTES[which] += 1
+    _count(which)
     return out

@@ -25,7 +25,11 @@ Each picks its own tiles and K splits, so the reference's block sizes and
 ``interpret`` have no counterpart.
 
 ``LAUNCHES["pim_matmul"]`` counts kernel launches and ``ROUTES`` splits
-them by route; a plain-version call counts nothing.
+them by route; a plain-version call counts nothing. A call made while the
+current stream captures a CUDA graph runs nothing then: it counts in
+``CAPTURED``, by route, instead, and whoever replays the graph adds what it
+captured at each replay (``count_replay``; ``serve.engine`` does), so that
+the counts stay launches that ran.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ from . import ref as _ref
 
 LAUNCHES = {"pim_matmul": 0}
 ROUTES = {"tensor_core": 0, "swap_ab": 0, "cuda_core": 0}
+CAPTURED = dict.fromkeys(ROUTES, 0)
 # The least M that takes the tensor-core kernel: prefill takes it, decode
 # (M = batch) the swapped-operand kernel, which holds the batch in at most
 # two n8 fragments, so TC_MIN_M must stay <= 17. On one H100 the swapped
@@ -48,6 +53,25 @@ def reset_launches() -> None:
     LAUNCHES["pim_matmul"] = 0
     for r in ROUTES:
         ROUTES[r] = 0
+
+
+def _count(which: str) -> None:
+    """Count one launch of route ``which``, or one captured launch (a
+    build of torch without CUDA has no capture to ask about)."""
+    if torch.cuda.is_available() \
+            and torch.cuda.is_current_stream_capturing():
+        CAPTURED[which] += 1
+        return
+    LAUNCHES["pim_matmul"] += 1
+    ROUTES[which] += 1
+
+
+def count_replay(routes: dict) -> None:
+    """Count one replay of a graph that captured ``routes``, launches by
+    route (``CAPTURED`` after its capture less ``CAPTURED`` before)."""
+    for which, n in routes.items():
+        LAUNCHES["pim_matmul"] += n
+        ROUTES[which] += n
 
 
 def route(m: int, k: int, n: int, dtype: torch.dtype) -> str:
@@ -164,8 +188,7 @@ def _launch(x, w_int, scales, out, mode, bits, which, splits=None):
     if rc != 0:
         raise RuntimeError(f"pim_matmul kernel launch failed ({which}): "
                            f"CUDA error {rc}")
-    LAUNCHES["pim_matmul"] += 1
-    ROUTES[which] += 1
+    _count(which)
     return out
 
 

@@ -18,6 +18,8 @@ embeddings wait (ROADMAP A10): ``init_params`` raises for them.
 """
 from __future__ import annotations
 
+from collections import OrderedDict
+
 import numpy as np
 import torch
 from torch import nn
@@ -62,7 +64,9 @@ class TFLayer(nn.Module):
 
 class LM(nn.Module):
     """A dense decoder: ``embed`` (V, D), ``layers``, ``final_norm``, and
-    ``lm_head`` (D, V) unless the embeddings are tied."""
+    ``lm_head`` (D, V) unless the embeddings are tied. ``generate_graphs``
+    keeps ``serve.engine``'s CUDA graphs of this model, which moving or
+    casting it drops."""
 
     def __init__(self, cfg, embed: torch.Tensor, layers, final_norm: Norm,
                  lm_head: torch.Tensor | None = None):
@@ -79,6 +83,15 @@ class LM(nn.Module):
         head = embed if lm_head is None else lm_head.T
         self.register_buffer("head_f32", head.to(torch.float32).contiguous(),
                              persistent=False)            # (V, D)
+        # serve.engine's CUDA graphs of greedy_generate, by call signature:
+        # a plain attribute, so they die with the model
+        self.generate_graphs = OrderedDict()
+
+    def _apply(self, fn, *args, **kwargs):
+        # the graphs hold the weights' addresses, which to(), cuda(), cpu()
+        # and casts may change: drop them
+        self.generate_graphs.clear()
+        return super()._apply(fn, *args, **kwargs)
 
     @property
     def device(self) -> torch.device:

@@ -2,8 +2,10 @@
 shapes and options that ``chip_smoke.py``'s full-width run does not reach
 (``ripple_add`` at every width, ``meter_fold`` at every table size and
 special value, ``pim_matmul`` and ``flash_attn`` on each of their routes,
-odd and random sizes), and the smoke-size serving path on the card
-against the CPU.
+odd and random sizes), the smoke-size serving path on the card against
+the CPU, and ``greedy_generate``'s CUDA graphs (one replay per call, the
+eager loop's tokens and launches, a bounded cache per model) at the smoke
+size and at Qwen3-4B's full width with 2 layers.
 
 Needs a CUDA card and ``nvcc`` (the kernels build at first use); every test
 here skips elsewhere. It imports nothing of JAX, so on the card machine it
@@ -36,6 +38,7 @@ from repro_torch.kernels.pim_matmul import ref as pref  # noqa: E402
 from repro_torch.kernels.rowops import ops as rops  # noqa: E402
 from repro_torch.kernels.rowops import ref as rref  # noqa: E402
 from repro_torch.models import decode_step, init_params, prefill  # noqa: E402,E501
+from repro_torch.serve import engine  # noqa: E402
 from repro_torch.serve.engine import greedy_generate  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -816,3 +819,175 @@ def test_executor_row_entries_card_matches_cpu(card, slots):
     assert all(torch.equal(x.cpu(), y) for x, y in zip(got.reads, exp.reads))
     assert launches["bitwise_rows"] == 8 and launches["shift_rows"] == 6
     assert launches["bitwise"] == launches["shift_cols"] == 0
+
+
+# ---------------------------------------------------------------------------
+# greedy_generate as one CUDA-graph replay per call
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module", params=["smoke", "2 layers"])
+def served(card, request):
+    """Qwen3-4B pim_w4 shift_add with weights from a seed: the smoke size,
+    and the full width at 2 layers."""
+    cut = {"n_layers": 2} if request.param == "2 layers" else {}
+    cfg = get_config("qwen3-4b", smoke=not cut, quant="pim_w4",
+                     quant_mode="shift_add", **cut)
+    return cfg, init_params(cfg, 7)
+
+
+def prompt_on(card, cfg, seed, batch=2, length=24):
+    return torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (batch, length)), dtype=torch.int32, device=card)
+
+
+def eager_loop(cfg, model, prompt, toks):
+    """The eager loop, teacher-forced with ``toks``: prefill and one decode
+    step per token but the last. Returns each step's logits and their
+    argmax chain (B, n) int32."""
+    s, n = prompt.shape[1], toks.shape[1]
+    lg, caches = prefill(cfg, model, {"tokens": prompt}, s + n)
+    logits = [lg]
+    for t in range(n - 1):
+        lg, caches = decode_step(cfg, model, {"tokens": toks[:, t:t + 1]},
+                                 s + t, caches)
+        logits.append(lg)
+    chain = torch.stack([torch.argmax(lg[:, 0, :cfg.vocab_size], -1)
+                         for lg in logits], dim=1).to(torch.int32)
+    return logits, chain
+
+
+def test_generate_graph_is_the_eager_argmax_chain(served, card):
+    """Each call is one replay (DECODE_STATS 1) whose tokens are the eager
+    loop's argmax chain bit for bit: the same launches on the same
+    operands."""
+    cfg, model = served
+    prompt = prompt_on(card, cfg, 1)
+    for _ in range(2):                    # the capture's call, a replay
+        engine.DECODE_STATS["dispatches"] = 0
+        toks = greedy_generate(cfg, model, {"tokens": prompt},
+                               max_new_tokens=6)
+        assert engine.DECODE_STATS["dispatches"] == 1
+        assert toks.shape == (2, 6) and toks.dtype == torch.int32
+        assert torch.equal(toks, eager_loop(cfg, model, prompt, toks)[1])
+
+
+def test_generate_graph_dispatch_counts(served, card):
+    """One dispatch per call for 1 and 5 tokens, none for zero tokens."""
+    cfg, model = served
+    prompt = prompt_on(card, cfg, 2)
+    engine.DECODE_STATS["dispatches"] = 0
+    for n, total in ((5, 1), (5, 2), (1, 3), (0, 3), (1, 4)):
+        out = greedy_generate(cfg, model, {"tokens": prompt},
+                              max_new_tokens=n)
+        assert out.shape == (2, n)
+        assert engine.DECODE_STATS["dispatches"] == total
+    assert torch.equal(out, greedy_generate(
+        cfg, model, {"tokens": prompt}, max_new_tokens=5)[:, :1])
+
+
+def test_generate_graph_calls_keep_their_tokens(served, card):
+    """Two prompts through one signature's graph: each call gets its own
+    tokens, and the second does not overwrite the first's result."""
+    cfg, model = served
+    model.generate_graphs.clear()
+    p1, p2 = prompt_on(card, cfg, 3), prompt_on(card, cfg, 4)
+    out1 = greedy_generate(cfg, model, {"tokens": p1}, max_new_tokens=5)
+    kept = out1.clone()
+    out2 = greedy_generate(cfg, model, {"tokens": p2}, max_new_tokens=5)
+    assert len(model.generate_graphs) == 1
+    assert torch.equal(out1, kept)
+    assert torch.equal(out1, eager_loop(cfg, model, p1, out1)[1])
+    assert torch.equal(out2, eager_loop(cfg, model, p2, out2)[1])
+    assert not torch.equal(out1, out2)
+
+
+def test_generate_graphs_per_signature_bounded_and_freed(card):
+    """A new signature captures a new graph; a model keeps MAX_GRAPHS (4)
+    signatures, the least recently used dropped first, and its graphs die
+    with it."""
+    import gc
+    import weakref
+    assert engine.MAX_GRAPHS == 4
+    cfg = get_config("qwen3-4b", smoke=True)
+    model = init_params(cfg, 8)
+    prompt = prompt_on(card, cfg, 5)
+    graphs = model.generate_graphs
+    refs = {}
+    for n in range(1, 7):
+        greedy_generate(cfg, model, {"tokens": prompt}, max_new_tokens=n)
+        assert len(graphs) == min(n, 4)
+        refs[n] = weakref.ref(next(reversed(graphs.values())).graph)
+
+    def alive():
+        gc.collect()
+        return [n for n, r in refs.items() if r() is not None]
+
+    assert alive() == [3, 4, 5, 6]
+    greedy_generate(cfg, model, {"tokens": prompt}, max_new_tokens=3)
+    greedy_generate(cfg, model, {"tokens": prompt[:1]}, max_new_tokens=3)
+    # (batch, max_new_tokens) of each signature, the most recent last
+    assert [(k[1], k[4]) for k in graphs] == [(2, 5), (2, 6), (2, 3), (1, 3)]
+    assert alive() == [3, 5, 6]
+    del model, graphs
+    assert alive() == []
+
+
+def test_generate_graph_temperature_is_the_cpu_sampler(served, card):
+    """Temperature sampling in the graph: the caller's generator draws u
+    for every step before the replay; the CPU sampler on the same u and
+    the eager loop's logits gives the same tokens, and the same seed the
+    same tokens again."""
+    cfg, model = served
+    prompt = prompt_on(card, cfg, 6)
+    n, temp = 5, 1.3
+    runs = [greedy_generate(
+        cfg, model, {"tokens": prompt}, max_new_tokens=n, temperature=temp,
+        generator=torch.Generator(device=card).manual_seed(3))
+        for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+    u = torch.empty((n, 2, cfg.vocab_size), device=card).uniform_(
+        generator=torch.Generator(device=card).manual_seed(3))
+    logits, chain = eager_loop(cfg, model, prompt, runs[0])
+    t = torch.tensor(temp, dtype=torch.float32)
+    cpu = torch.stack([engine._sample(cfg, lg.cpu(), t, u[i].cpu())
+                       for i, lg in enumerate(logits)], dim=1)
+    assert torch.equal(runs[0].cpu(), cpu)
+    assert not torch.equal(runs[0], chain)
+
+
+def test_generate_graph_launches_per_call(served, card):
+    """Launch counts and routes are the eager loop's per call: a capture
+    counts nothing, each replay adds what its graph captured, and the
+    first call adds the warm-up's eager prefill and decode step."""
+    cfg, model = served
+    model.generate_graphs.clear()
+    prompt = prompt_on(card, cfg, 7)
+    n = 4
+
+    def counted(fn):
+        pm.reset_launches()
+        fa.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (dict(pm.LAUNCHES), dict(pm.ROUTES), dict(fa.LAUNCHES),
+                     dict(fa.ROUTES))
+
+    def generate():
+        return greedy_generate(cfg, model, {"tokens": prompt},
+                               max_new_tokens=n)
+
+    captured = dict(pm.CAPTURED), dict(fa.CAPTURED)
+    toks, first = counted(generate)
+    _, warm = counted(lambda: eager_loop(cfg, model, prompt, toks[:, :2]))
+    _, loop = counted(lambda: eager_loop(cfg, model, prompt, toks))
+    _, replay = counted(generate)
+    assert replay == loop
+    assert first == tuple({k: loop[i][k] + warm[i][k] for k in loop[i]}
+                          for i in range(4))
+    L = cfg.n_layers
+    assert loop[0] == {"pim_matmul": 3 * L * n}
+    assert loop[2] == {"flash_attn": L * n}
+    assert {k: v - captured[0][k] for k, v in pm.CAPTURED.items()} \
+        == loop[1]
+    assert {k: v - captured[1][k] for k, v in fa.CAPTURED.items()} \
+        == loop[3]

@@ -36,7 +36,9 @@ from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models import (decode_step, init_caches, init_params,  # noqa: E402,E501
                                 prefill)
 from repro_torch.serve import engine  # noqa: E402
-from repro_torch.serve.engine import greedy_generate  # noqa: E402
+from repro_torch.kernels.flash_attn import ops as fa  # noqa: E402
+from repro_torch.kernels.pim_matmul import ops as pm  # noqa: E402
+from repro_torch.serve.engine import DECODE_STATS, greedy_generate  # noqa: E402,E501
 
 REL = 2e-2
 F32_REL = 1e-4
@@ -105,7 +107,7 @@ def case(request):
                                   max_new_tokens=STEPS + 1,
                                   max_cache_len=max_len, device=CPU).numpy()
     tol = F32_REL if overrides.get("dtype") == "float32" else REL
-    return dict(name=request.param, tol=tol, jax_logits=jax_logits,
+    return dict(name=request.param, cfg=pcfg, tol=tol, jax_logits=jax_logits,
                 port_logits=port_logits, jax_tokens=jax_tokens,
                 port_tokens=port_tokens)
 
@@ -142,6 +144,27 @@ def test_greedy_tokens_match(case):
             assert got[b, t] == exp[b, t], (
                 f"{case['name']}: request {b} token {t}: {got[b, t]} != "
                 f"{exp[b, t]} with margin {margin:.3e} > {bound:.3e}")
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.7, 1.5])
+def test_gumbel_sampler_matches_numpy(case, temperature):
+    """The port's sampler on the JAX package's logits, fed a fixed u, is
+    argmax(logits / T − log(−log u)) computed in numpy (argmax for T = 0):
+    what the reference's ``jax.random.categorical`` computes."""
+    cfg, V = case["cfg"], case["cfg"].vocab_size
+    rng = np.random.default_rng(5)
+    for lg in case["jax_logits"]:
+        lg = np.array(lg, np.float32)
+        u = rng.random((B, V), dtype=np.float32)
+        exp = lg.reshape(B, -1)[:, :V]
+        t = None
+        if temperature:
+            exp = exp / np.float32(temperature) - np.log(-np.log(u))
+            t = torch.tensor(temperature, dtype=torch.float32)
+        got = engine._sample(cfg, torch.from_numpy(lg), t,
+                             torch.from_numpy(u))
+        assert got.dtype == torch.int32
+        assert np.array_equal(got.numpy(), np.argmax(exp, axis=-1))
 
 
 # ---------------------------------------------------------------------------
@@ -279,6 +302,76 @@ def test_temperature_sampling_differs_but_valid(served):
     assert not torch.equal(greedy, hot)
 
 
+def test_temperature_sampling_repeats_for_a_seed(served):
+    """Temperature tokens are valid, differ from greedy, and are the same
+    for two generators with the same seed (u is drawn from the caller's
+    generator, all steps at once)."""
+    cfg, model = served
+    p = prompts(cfg, 2, 16)
+    greedy = greedy_generate(cfg, model, p, max_new_tokens=10, device=CPU)
+    runs = [greedy_generate(cfg, model, p, max_new_tokens=10,
+                            temperature=0.9,
+                            generator=torch.Generator().manual_seed(11),
+                            device=CPU) for _ in range(2)]
+    assert torch.equal(runs[0], runs[1])
+    assert int(runs[0].min()) >= 0 and int(runs[0].max()) < cfg.vocab_size
+    assert not torch.equal(runs[0], greedy)
+
+
+def test_decode_loop_is_single_dispatch(served):
+    """The reference's single dispatch per call: on the card one CUDA-graph
+    replay (tests/test_torch_cuda.py); on the CPU the loop is eager and
+    DECODE_STATS counts its decode_step calls, max_new_tokens − 1. Greedy
+    decode is deterministic."""
+    cfg, model = served
+    p = prompts(cfg, 2, 16)
+    out1 = greedy_generate(cfg, model, p, max_new_tokens=8, device=CPU)
+    DECODE_STATS["dispatches"] = 0
+    out2 = greedy_generate(cfg, model, p, max_new_tokens=8, device=CPU)
+    assert DECODE_STATS["dispatches"] == 7
+    assert out1.shape == (2, 8)
+    assert torch.equal(out1, out2)
+    DECODE_STATS["dispatches"] = 0
+    greedy_generate(cfg, model, p, max_new_tokens=1, device=CPU)
+    assert DECODE_STATS["dispatches"] == 0
+
+
+@pytest.mark.parametrize("ops,name", [(pm, "pim_matmul"),
+                                      (fa, "flash_attn")])
+def test_captured_launches_count_at_replay(ops, name, monkeypatch):
+    """While a CUDA graph is captured a wrapper's launch runs nothing: it
+    counts in CAPTURED, not in LAUNCHES or ROUTES, and each replay adds
+    what the graph captured."""
+    which = next(iter(ops.ROUTES))
+    ops.reset_launches()
+    captured = dict(ops.CAPTURED)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    ops._count(which)
+    ops._count(which)
+    assert ops.LAUNCHES[name] == 0 and sum(ops.ROUTES.values()) == 0
+    assert ops.CAPTURED[which] == captured[which] + 2
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+    ops._count(which)
+    routes = {k: v - captured[k] for k, v in ops.CAPTURED.items()}
+    for _ in range(3):
+        ops.count_replay(routes)
+    assert ops.LAUNCHES[name] == 7 and ops.ROUTES[which] == 7
+    ops.reset_launches()
+
+
+def test_moving_the_model_drops_its_graphs(served):
+    """The graphs hold the weights' addresses: to() and casts drop them."""
+    cfg, _ = served
+    model = init_params(cfg, 0, device=CPU)
+    assert len(model.generate_graphs) == 0
+    model.generate_graphs["signature"] = object()
+    model.to(CPU)
+    assert len(model.generate_graphs) == 0
+
+
 def test_batch_requests_independent(served):
     """Request i's output must not depend on what else is in the batch."""
     cfg, model = served
@@ -298,7 +391,7 @@ def test_generate_respects_cache_budget(served):
 
 def test_zero_new_tokens_returns_empty(served, monkeypatch):
     """max_new_tokens=0 is an empty (B, 0) int32 result, with no prefill or
-    decode run."""
+    decode run and no dispatch counted."""
     cfg, model = served
 
     def refuse(*args, **kwargs):
@@ -306,9 +399,11 @@ def test_zero_new_tokens_returns_empty(served, monkeypatch):
 
     monkeypatch.setattr(engine, "prefill", refuse)
     monkeypatch.setattr(engine, "decode_step", refuse)
+    DECODE_STATS["dispatches"] = 0
     out = greedy_generate(cfg, model, prompts(cfg, 3, 8), max_new_tokens=0,
                           device=CPU)
     assert out.shape == (3, 0) and out.dtype == torch.int32
+    assert DECODE_STATS["dispatches"] == 0
 
 
 def test_one_new_token_edge(served):
