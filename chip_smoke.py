@@ -127,7 +127,32 @@ each, every mismatch fatal:
 12. fold sweep — ``meter_fold`` at m = 64, 4,001 and the largest table the
                card's PIM and bit-plane runs of phases 3-4 and 10 folded,
                each onto 1 and 64 slots: bit for bit against its plain
-               version, device time beside the chain bound.
+               version, device time beside the chain bound;
+13. gates    — ``execute()`` (phase 3's programs), ``schedule()`` (phase
+               4's steps) and ``schedule_pipeline()`` with ``verify=True``
+               bit for bit against ``verify=False`` on the card; the pim104
+               lint fixture refused (LintError, PIM104) at its own 16 x 2
+               geometry and moved to the paper's; the static tools' host ms
+               per program, cold, and on the reference tests' 100k-op
+               streams;
+14. front    — ``PimServeFront`` on ``paper_device(32, subarrays=2)``:
+               eight tenants of four banks, 16 steps each (six on
+               ``benchmarks/serve_bench.py``'s stream, write a row, a 40-hop
+               shift chain, read back; two on ``ambit_xor_program`` after
+               host writes), each slot's data private and seeded; a ninth
+               tenant (pim104 at full width) refused by the admission lint,
+               a tenth refused as over-subscribing; each tenant's reads,
+               slot states, float32 meters and busy/energy equal to its own
+               ``schedule()`` on a private slice of the card, and the whole
+               front equal to the same front on the CPU (reads, states,
+               reports, ``reconcile()``); steps/s cold and warm, dispatches
+               per step, coalescing, p50/p99 step ``wall_ns``, admission
+               lint ms, a ``profile front`` line and ``kernels front``
+               (launch counts reset just before the measured run, read just
+               after; each row entry and ``meter_fold`` must run);
+15. tables   — ``shift_failure_rate`` on the card at 0, 5, 10 and 20 %
+               variation, 100,000 trials, within the reference test's bounds
+               of the paper's Table 4; the area model's Table 5.
 
 Then the kernel table as JSON, the card's name and power limit, and the
 result line. Nanoseconds and nanojoules of the DDR3 meter are outputs of
@@ -137,6 +162,7 @@ card. Everything measured is also written to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import functools
+import importlib
 import json
 import statistics
 import subprocess
@@ -262,6 +288,19 @@ VM_ROUTINES = ("add_ripple", "add_kogge_stone", "mul_shift_add", "xtime",
 RS_BANKS, RS_WORDS, RS_ROWS, RS_K, RS_NPAR = 32, 65536, 120, 8, 4
 PIPE_BANKS, PIPE_WORDS, PIPE_CHUNKS = 8, 2048, 4
 OPS = ("not", "and", "or", "xor", "maj")
+# Phases 13-15: the static verifier's gates, the serving front end, and the
+# paper's Tables 4 and 5.
+LINT_FIXTURE = ROOT / "tests" / "fixtures" / "lint" / "pim104.trace"
+LINT_100K = 100_000
+FRONT_TENANTS = 8            # six on the serving bench's stream, two on XOR
+FRONT_STREAM_TENANTS = 6
+FRONT_BANKS = 4              # banks per tenant: 8 x 4 = the device's 32
+FRONT_STEPS = 16
+FRONT_SHIFT = 40             # benchmarks/serve_bench.py's chain
+# variation % -> (paper Table 4, the reference test's absolute bound)
+TABLE4 = {0.0: (0.0, 0.0), 5.0: (0.005, 0.004), 10.0: (0.14, 0.04),
+          20.0: (0.30, 0.06)}
+TABLE4_TRIALS = 100_000
 
 
 def say(line: str) -> None:
@@ -931,12 +970,12 @@ def device_start(torch, device, cfg):
     return dev
 
 
-def run_device(torch, device, cfg, steps):
+def run_device(torch, device, cfg, steps, verify=False):
     from repro_torch.core import pim
     dev = device_start(torch, device, cfg)
     results = []
     for programs, flags in steps:
-        r = pim.schedule(dev, programs, **flags)
+        r = pim.schedule(dev, programs, verify=verify, **flags)
         results.append(r)
         dev = r.state
     return results
@@ -2239,6 +2278,429 @@ def say_bitplane(record):
         f"{rr['stepwise_ns']:.1f} ns")
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the static verifier's gates at full width
+# ---------------------------------------------------------------------------
+
+def full_width_trace(text: str, rows: int, words: int) -> str:
+    """The pim104 fixture's stream (recorded on a 16-row subarray, AAP and
+    TRA only) at ``rows`` x ``words``: its reserved-tail rows (C1 and
+    T0..T3, rows 10-15 there) moved to the same tail rows, so the hazard is
+    the same one at the paper's geometry."""
+    out = []
+    for line in text.splitlines():
+        if line.startswith("# pim-trace"):
+            line = line.replace("rows=16 words=2",
+                                f"rows={rows} words={words}")
+        elif line.strip() and not line.startswith("#"):
+            toks = line.split()
+            line = " ".join(toks[:3] + [
+                str(int(t) + rows - 16 if int(t) >= 10 else int(t))
+                for t in toks[3:]])
+        out.append(line)
+    return "\n".join(out) + "\n"
+
+
+def host_ms(fn, reps: int = 3) -> float:
+    """Median host-clock ms of ``fn`` (host-only work: no card)."""
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(times)
+
+
+def lint_100k_program():
+    """The reference test's 100k-op stream: 100,000 AAPs between random
+    rows of a 64 x 4 subarray and one seeded TRA hazard at the tail."""
+    import numpy as np
+    from repro_torch.core import pim
+    rng = np.random.default_rng(0)
+    b = pim.ProgramBuilder(64, 4)
+    b.fill(pim.C0, 0)
+    for src, dst in zip(rng.integers(0, 32, LINT_100K),
+                        rng.integers(0, 32, LINT_100K)):
+        b.rowclone(int(src), int(dst))
+    b.tra(1, 1, 2)
+    prog = b.build()
+    prog.columns
+    return prog
+
+
+def phase_gates(torch, device, cfg, steps) -> dict:
+    """execute(), schedule() and schedule_pipeline() with verify=True
+    against verify=False on the card, bit for bit; the pim104 fixture
+    refused by the gates at its own geometry and at the paper's; the host
+    ms of the static tools per program, cold (their caches cleared)."""
+    from repro_torch.core import pim
+    from repro_torch.core.pim import lint, sem
+    state = subarray_state(torch, device)
+    for name, prog, refresh in subarray_programs():
+        a = pim.execute(prog, state, refresh=refresh, verify=True)
+        b = pim.execute(prog, state, refresh=refresh)
+        if not (states_equal(torch, a.state, b.state)
+                and reads_equal(torch, a.reads, b.reads)):
+            raise AssertionError(f"execute({name}, verify=True) differs")
+    check_device(torch, run_device(torch, device, cfg, steps, verify=True),
+                 run_device(torch, device, cfg, steps))
+    start = device_start(torch, device, cfg)
+    a, b = (pim.schedule_pipeline(start, steps[0][0], n_steps=3,
+                                  verify=verify) for verify in (True, False))
+    if not (states_equal(torch, a.state.banks, b.state.banks)
+            and torch.equal(a.wall_ns.view(torch.int32),
+                            b.wall_ns.view(torch.int32))
+            and torch.equal(a.energy_nj.view(torch.int32),
+                            b.energy_nj.view(torch.int32))
+            and same_reads(a.reads, b.reads)):
+        raise AssertionError("schedule_pipeline(verify=True) differs")
+
+    text = LINT_FIXTURE.read_text()
+    refused = {}
+    small = pim.PimProgram.from_trace(text)
+    wide = pim.PimProgram.from_trace(full_width_trace(text, cfg.num_rows,
+                                                      cfg.words))
+    for what, fn in (
+            ("execute (16 x 2)", lambda: pim.execute(
+                small, verify=True, device=device)),
+            ("execute (512 x 2048)", lambda: pim.execute(
+                wide, state, verify=True)),
+            ("schedule (64 slots)", lambda: pim.schedule(
+                start, [wide] + [None] * (cfg.n_slots - 1), verify=True))):
+        try:
+            fn()
+        except lint.LintError as e:
+            refused[what] = sorted({d.code for d in e.report.errors})
+        else:
+            raise AssertionError(f"{what}: pim104 passed the gate")
+        if "PIM104" not in refused[what]:
+            raise AssertionError(f"{what}: refused without PIM104")
+
+    def cold_lint(prog):
+        lint._lint_cache.clear()
+        return lint.lint_program(prog)
+
+    def cold_sem(prog):
+        sem._SEM_CACHE.clear()
+        return sem.fusion_report(prog)
+
+    per_program = {}
+    for name, prog, _ in subarray_programs():
+        verdict = cold_sem(prog).verdict
+        if verdict != sem.EQUIVALENT:
+            raise AssertionError(f"fusion of {name}: {verdict}")
+        per_program[name] = {"lint_ms": host_ms(lambda: cold_lint(prog)),
+                             "sem_ms": host_ms(lambda: cold_sem(prog)),
+                             "fusion": verdict}
+    big = lint_100k_program()
+    if "PIM103" not in cold_lint(big).codes():
+        raise AssertionError("100k-op lint missed its PIM103")
+    shifts = pim.ProgramBuilder(64, 4).shift(0, 1, +1)
+    for _ in range(LINT_100K - 1):
+        shifts.shift(1, 1, +1)
+    shifts = shifts.build()
+    shifts.columns
+    rec = {"refused": refused, "per_program": per_program,
+           "lint_100k_ms": host_ms(lambda: cold_lint(big)),
+           "sem_100k_ms": host_ms(
+               lambda: (sem._SEM_CACHE.clear(), sem.analyze(shifts)))}
+    say("gates paper_device(32, subarrays=2): execute x"
+        f"{len(per_program)}, 3 schedule() steps and a 3-step "
+        "schedule_pipeline with verify=True == verify=False bit for bit; "
+        "pim104 refused: " + "; ".join(f"{k} {v}" for k, v in
+                                       refused.items()))
+    say("gates host ms per program, cold (the card machine's CPU): "
+        + "; ".join(f"{k} lint {v['lint_ms']:.2f} sem {v['sem_ms']:.2f}"
+                    for k, v in per_program.items())
+        + f"; {LINT_100K}-op lint_program {rec['lint_100k_ms']:.1f}, "
+        f"{LINT_100K}-shift sem.analyze {rec['sem_100k_ms']:.1f} (the "
+        "reference's tests hold both under 1,000 ms)")
+    return rec
+
+
+def same_reads(a, b) -> bool:
+    """Two read layouts (numpy rows, nested per step and slot) equal."""
+    import numpy as np
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return np.array_equal(np.asarray(a), np.asarray(b))
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(same_reads(a[k], b[k]) for k in a))
+    return len(a) == len(b) and all(same_reads(x, y) for x, y in zip(a, b))
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the multi-tenant serving front end at full width
+# ---------------------------------------------------------------------------
+
+def front_workloads(cfg, n_steps):
+    """tenant -> per-step tenant-local layouts ([bank][subarray]): six
+    tenants on the serving bench's stream (write row 0, a 40-hop shift
+    chain, read back), two on ``ambit_xor_program`` after host writes of
+    its operand rows, each slot's data private and seeded per step."""
+    import numpy as np
+    from repro_torch.core import pim
+    R, W, S = cfg.num_rows, cfg.words, cfg.subarrays
+    rng = np.random.default_rng(23)
+    stream = (pim.ProgramBuilder(R, W).issue()
+              .write_row(0, np.zeros(W, np.uint32))
+              .shift_k(0, 1, FRONT_SHIFT))
+    stream.read_row(1)
+    stream = stream.build()
+    xor = pim.concat([
+        pim.ProgramBuilder(R, W).write_row(0, np.zeros(W, np.uint32))
+        .write_row(1, np.zeros(W, np.uint32)).build(),
+        pim.ambit_xor_program(R, W)])
+    out = {}
+    for t in range(FRONT_TENANTS):
+        base = stream if t < FRONT_STREAM_TENANTS else xor
+        kind = "stream" if t < FRONT_STREAM_TENANTS else "xor"
+        out[f"{kind}{t}"] = [
+            [[base.with_payloads(rng.integers(
+                0, 2**32, (len(base.payloads), W), dtype=np.uint32))
+              for _ in range(S)] for _ in range(FRONT_BANKS)]
+            for _ in range(n_steps)]
+    return out
+
+
+def run_front(torch, device, cfg, workloads, admission_ms=None):
+    """Admit every tenant on one front on ``device`` and serve them all:
+    (front, results). ``admission_ms`` collects each ``submit``'s host ms
+    (shape checks, the admission lint, placement)."""
+    from repro_torch.serve import pim_front
+    front = pim_front.PimServeFront(cfg, device=device)
+    for tid, steps in workloads.items():
+        t = time.perf_counter()
+        front.submit(tid, steps, banks=FRONT_BANKS)
+        if admission_ms is not None:
+            admission_ms.append((time.perf_counter() - t) * 1e3)
+    return front, front.run()
+
+
+def front_tenant_reads(results):
+    """tenant -> per-step per-slot reads, across every dispatch."""
+    out: dict = {}
+    for res in results:
+        for tid in res.placements:
+            got = res.tenant_reads(tid)
+            out.setdefault(tid, []).extend(got if res.n_steps > 1
+                                           else [got])
+    return out
+
+
+def front_equal(torch, a, res_a, b, res_b) -> None:
+    """Two fronts that served the same tenants: slot states, reads, tenant
+    reports (float64 sums of float32 slot meters, step walls) and
+    ``reconcile()`` bit for bit."""
+    import numpy as np
+    if not states_equal(torch, a.device.banks, b.device.banks):
+        raise AssertionError("front: slot states differ")
+    if not same_reads(front_tenant_reads(res_a), front_tenant_reads(res_b)):
+        raise AssertionError("front: tenant reads differ")
+    for tid, ra in a.reports().items():
+        rb = b.report(tid)
+        if (ra.busy_ns, ra.energy_nj, ra.host_bytes, ra.n_steps) != (
+                rb.busy_ns, rb.energy_nj, rb.host_bytes, rb.n_steps) \
+                or not np.array_equal(ra.wall_ns, rb.wall_ns):
+            raise AssertionError(f"front: report of {tid} differs")
+    if a.reconcile() != b.reconcile():
+        raise AssertionError("front: reconcile() differs")
+    if [r.coalescing for r in res_a] != [r.coalescing for r in res_b]:
+        raise AssertionError("front: coalescing differs")
+
+
+def phase_front(torch, device, cfg) -> tuple[dict, dict]:
+    """Phase 14: eight tenants of four banks on the full device, 16 steps
+    each, served by ``PimServeFront`` on the card; a hostile and an
+    over-subscribing tenant refused; every tenant held to its isolated
+    ``schedule()`` on the card and the front to the CPU's, every step.
+    Returns (record, launches of the measured run)."""
+    import numpy as np
+    from repro_torch.core import pim
+    from repro_torch.core.pim import lint
+    from repro_torch.kernels.rowops import ops
+    from repro_torch.serve import pim_front
+    sched = importlib.import_module("repro_torch.core.pim.schedule")
+    workloads = front_workloads(cfg, FRONT_STEPS)
+
+    # the measured run, cold: admission (lint), plans, 16 steps
+    admission_ms: list = []
+    ops.reset_launches()
+    d0 = sched.SCHED_STATS["dispatches"]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    front, results = run_front(torch, device, cfg, workloads, admission_ms)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t
+    launches = {**ops.LAUNCHES,
+                **{f"bitwise_rows[{k}]": v for k, v in ops.ROWS_BY_OP.items()},
+                **{f"shift_rows[{k}]": v
+                   for k, v in ops.SHIFT_ROUTES.items()}}
+    dispatches = sched.SCHED_STATS["dispatches"] - d0
+    steps = sum(r.n_steps for r in results)
+    if steps != FRONT_STEPS or front.active:
+        raise AssertionError(f"front served {steps} steps")
+
+    # the hostile tenant and the over-subscribing one, after the eight
+    text = LINT_FIXTURE.read_text()
+    hostile = pim.PimProgram.from_trace(full_width_trace(
+        text, cfg.num_rows, cfg.words))
+    live = pim_front.PimServeFront(cfg, device=device)
+    for tid, steps_ in workloads.items():
+        live.submit(tid, steps_, banks=FRONT_BANKS)
+    refused = {}
+    for tid, steps_, banks in (("hostile", (hostile, FRONT_STEPS), 1),
+                               ("greedy", (workloads["stream0"][0], 1),
+                                FRONT_BANKS)):
+        try:
+            live.submit(tid, steps_, banks=banks)
+        except pim_front.AdmissionError as e:
+            refused[tid] = (str(e)[:160], None if e.report is None
+                            else sorted(set(e.report.codes())))
+        else:
+            raise AssertionError(f"tenant {tid} was admitted")
+    if "PIM104" not in refused["hostile"][1] \
+            or "over-subscribed" not in refused["greedy"][0]:
+        raise AssertionError(f"front refusals: {refused}")
+
+    # warm: the same tenants again, plans cached
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    warm, warm_results = run_front(torch, device, cfg, workloads)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t
+    front_equal(torch, front, results, warm, warm_results)
+    share = device_share(torch, lambda: run_front(torch, device, cfg,
+                                                  workloads))
+
+    # the admission lint alone, cold, on each kind of tenant's layout
+    lint_ms = {}
+    for tid in ("stream0", f"xor{FRONT_STREAM_TENANTS}"):
+        def cold(layout=workloads[tid][0]):
+            lint._lint_cache.clear()
+            return pim.lint_schedule(cfg.subdevice(FRONT_BANKS), layout)
+        if not cold().ok:
+            raise AssertionError(f"front: {tid}'s layout does not lint")
+        lint_ms[tid] = host_ms(cold)
+
+    # every tenant alone on a private 4-bank slice of the card
+    reads = front_tenant_reads(results)
+    for tid, steps_ in workloads.items():
+        dev = pim.make_device(cfg.subdevice(FRONT_BANKS), device=device)
+        iso_reads = []
+        for layout in steps_:
+            r = pim.schedule(dev, layout)
+            dev = r.state
+            iso_reads.append(r.reads)
+        idx = torch.tensor(front.report(tid).slots, device=device)
+        if not states_equal(torch, front.device.banks.map(lambda x: x[idx]),
+                            dev.banks):
+            raise AssertionError(f"front: {tid} differs from its isolated "
+                                 "schedule()")
+        if not same_reads(reads[tid], iso_reads):
+            raise AssertionError(f"front: {tid}'s reads differ from its "
+                                 "isolated schedule()")
+        rep = front.report(tid)
+        if (rep.busy_ns, rep.energy_nj) != (
+                float(dev.slot_time_ns.cpu().numpy().astype(np.float64)
+                      .sum()),
+                float(dev.slot_energy_nj.cpu().numpy().astype(np.float64)
+                      .sum())):
+            raise AssertionError(f"front: {tid}'s meters differ from its "
+                                 "isolated schedule()")
+    rec_ = front.reconcile()
+    for k in ("busy_ns", "energy_nj"):
+        d, tn = rec_[f"device_{k}"], rec_[f"tenant_{k}"]
+        if abs(d - tn) > 1e-9 * abs(d):
+            raise AssertionError(f"front: reconcile {k} {d} != {tn}")
+
+    # the card's front against the CPU's, every step
+    t = time.perf_counter()
+    cpu, cpu_results = run_front(torch, "cpu", cfg, workloads)
+    cpu_s = time.perf_counter() - t
+    front_equal(torch, front, results, cpu, cpu_results)
+
+    walls = front.report("stream0").wall_ns     # every tenant's steps
+    rec = {"tenants": FRONT_TENANTS, "banks_per_tenant": FRONT_BANKS,
+           "steps": FRONT_STEPS, "cold_s": cold_s, "warm_s": warm_s,
+           "steps_per_s_cold": FRONT_STEPS / cold_s,
+           "steps_per_s_warm": FRONT_STEPS / warm_s,
+           "dispatches": dispatches, "dispatches_per_step":
+               dispatches / FRONT_STEPS,
+           "coalescing": [r.coalescing for r in results],
+           "groups": [r.n_groups for r in results],
+           "p50_wall_ns": float(np.percentile(walls, 50)),
+           "p99_wall_ns": float(np.percentile(walls, 99)),
+           "admission_ms": admission_ms, "admission_lint_ms": lint_ms,
+           "refused": refused,
+           "reconcile": rec_, "cpu_s": cpu_s,
+           "profile": share}
+    say(f"front paper_device(32, subarrays=2): {FRONT_TENANTS} tenants x "
+        f"{FRONT_BANKS} banks ({FRONT_STREAM_TENANTS} on the {FRONT_SHIFT}"
+        f"-hop stream, {FRONT_TENANTS - FRONT_STREAM_TENANTS} on "
+        f"ambit_xor), {FRONT_STEPS} steps: {dispatches} dispatches "
+        f"({rec['dispatches_per_step']:.4f} per step), coalescing "
+        + ", ".join(f"{c:.1f}" for c in rec["coalescing"])
+        + f" ({', '.join(map(str, rec['groups']))} stream groups for "
+        f"{cfg.n_slots} slots); {rec['steps_per_s_cold']:.2f} steps/s cold "
+        f"(admission, plans, {FRONT_STEPS} steps: {cold_s * 1e3:.1f} ms), "
+        f"{rec['steps_per_s_warm']:.2f} warm; step wall_ns (DDR3 model) "
+        f"p50 {rec['p50_wall_ns']:.1f} p99 {rec['p99_wall_ns']:.1f}; host "
+        "ms per admission (submit: shapes, lint once per distinct layout, "
+        "placement): " + ", ".join(f"{v:.2f}" for v in admission_ms)
+        + "; the admission lint alone, cold: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in lint_ms.items()))
+    say("front refused at admission: " + "; ".join(
+        f"{k}: {v[1] or v[0]}" for k, v in refused.items()))
+    say(f"front == each tenant's isolated schedule() on the card for "
+        f"{FRONT_TENANTS} tenants x {FRONT_STEPS} steps (reads, slot states, "
+        "float32 slot meters, tenant busy/energy), reconcile "
+        f"{rec_['tenant_busy_ns']:.1f} / {rec_['device_busy_ns']:.1f} ns; "
+        f"front (card) == front (CPU) over all {FRONT_STEPS} steps (reads, "
+        f"slot states, reports, reconcile; the CPU run {cpu_s:.1f} s)")
+    say_share("front", share)
+    return rec, launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the paper's Tables 4 and 5
+# ---------------------------------------------------------------------------
+
+def phase_tables(torch, device) -> dict:
+    """``shift_failure_rate`` on the card at the paper's variation levels
+    (100,000 trials, normals from a seeded generator on the card) within
+    the reference test's bounds of Table 4; the area model's Table 5."""
+    from repro_torch.core import pim
+    rates, ms = {}, {}
+    for pct, (paper, bound) in TABLE4.items():
+        gen = torch.Generator(device=device)
+        gen.manual_seed(7)
+        rate = pim.shift_failure_rate(pct, TABLE4_TRIALS, generator=gen,
+                                      device=device)
+        if rate.device.type != torch.device(device).type:
+            raise AssertionError("shift_failure_rate left the card")
+        rates[pct] = float(rate)
+        if abs(rates[pct] - paper) > bound:
+            raise AssertionError(f"Table 4 at {pct}%: {rates[pct]} not "
+                                 f"within {bound} of {paper}")
+        ms[pct] = event_us(lambda: pim.shift_failure_rate(
+            pct, TABLE4_TRIALS, generator=gen, device=device), torch,
+            reps=5, warmup=1) / 1e3
+    area = pim.AreaModel()
+    rec = {"rates": rates, "ms": ms, "overhead_pct": area.overhead_pct,
+           "overhead_with_ambit_pct": area.overhead_with_ambit_pct,
+           "mim_plate_side_um": pim.mim_capacitor_plate_side_um()}
+    say(f"table4 shift_failure_rate ({TABLE4_TRIALS} trials on the card): "
+        + "; ".join(f"{p:g}%: {rates[p]:.5f} (paper {TABLE4[p][0]}, within "
+                    f"{TABLE4[p][1]}), {ms[p]:.3f} ms" for p in TABLE4))
+    say(f"table5 area: migration cells {area.overhead_pct:.3f}% of a "
+        f"{area.rows_per_subarray}-row subarray, "
+        f"{area.overhead_with_ambit_pct:.3f}% with Ambit; MIM plate side "
+        f"{rec['mim_plate_side_um']:.4f} um; "
+        + "; ".join(f"{n}: {v}" for n, _, v in pim.PAPER_TABLE5))
+    return rec
+
+
 def card_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2533,6 +2995,27 @@ def main() -> int:
         f"{folds.largest[0].shape[0]} rows; {bp_folds.calls} on the "
         f"bit-plane path, largest {bp_folds.largest[0].shape[0]} rows")
     record["fold_sweep"] = phase_fold_sweep(torch, device, fadd, largest)
+
+    # 13. the verify=True gates at full width
+    record["gates"] = phase_gates(torch, device, cfg, steps)
+
+    # 14. the serving front end at full width, with the launch counts reset
+    # just before its measured run and read just after it
+    record["front"], front_launches = phase_front(torch, device, cfg)
+    say("kernels front " + json.dumps(front_launches))
+    missing = [k for k in ("shift_rows", "bitwise_rows[maj]",
+                           "bitwise_rows[not]", "meter_fold")
+               if front_launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the front's "
+                             f"path: {missing}")
+    if front_launches["shift_cols"] or front_launches["bitwise"]:
+        raise AssertionError("the front launched the old out-of-place "
+                             "entries")
+    record["front"]["launches"] = front_launches
+
+    # 15. Tables 4 and 5
+    record["tables"] = phase_tables(torch, device)
 
     # the row entries at the full device's 64 slots, in place (as most of
     # the main path's segments run); every shape is in chip_smoke.json

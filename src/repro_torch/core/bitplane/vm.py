@@ -51,8 +51,6 @@ class PimVM:
                  cfg: DDR3Timing = DEFAULT_TIMING, eager: bool = False,
                  n_banks: int = 1, async_host: bool = False,
                  verify: bool = False, *, device=None):
-        # verify=True: the first ProgramBuilder raises NotImplementedError
-        # (the static verifier is ROADMAP A8)
         assert (words * 32) % width == 0
         assert words % n_banks == 0, (words, n_banks)
         assert not (async_host and n_banks == 1), \
@@ -64,13 +62,15 @@ class PimVM:
         self.eager = eager
         self.n_banks = n_banks
         self.async_host = async_host
+        self.verify = bool(verify)
         self.lanes = (words * 32) // width
         self._num_rows = num_rows
         self._reads: tuple = ()
         self._free = list(range(num_rows - self.RESERVED_TAIL - 1, -1, -1))
         self._mask_rows: dict[int, int] = {}
         if n_banks == 1:
-            self._builder = ProgramBuilder(num_rows, words, verify=verify)
+            self._builder = ProgramBuilder(num_rows, words,
+                                           verify=self.verify)
             st = make_subarray(num_rows, words, device=self.device)
             self.state: SubarrayState = isa.reserve_control_rows(st)
         else:
@@ -80,7 +80,7 @@ class PimVM:
                 "element width must tile the per-bank word slice"
             self.bank_lanes = (self.bank_words * 32) // width
             self._builder = ProgramBuilder(num_rows, self.bank_words,
-                                           verify=verify)
+                                           verify=self.verify)
             self._bank_payloads: list[list[np.ndarray]] = []
             self._read_result = None
             self._device = make_device(DeviceConfig(
@@ -93,7 +93,7 @@ class PimVM:
 
     def _new_builder(self) -> ProgramBuilder:
         return ProgramBuilder(self._num_rows, self.words if self.n_banks == 1
-                              else self.bank_words)
+                              else self.bank_words, verify=self.verify)
 
     # -- recording / flushing --------------------------------------------------
     def _op(self, name: str, *args) -> None:

@@ -1,7 +1,8 @@
 """In-DRAM PIM runtime in PyTorch: the paper's migration-cell shift + Ambit
-ISA, the recorded-program compiler and executor, and the device scheduler.
-Port of ``repro.core.pim`` (all but lint, sem, variation and area; see
-ROADMAP.md)."""
+ISA, the recorded-program compiler and executor, the device scheduler, the
+static verifier (``lint``), the symbolic analyzer (``sem``) and the paper's
+Table 4/5 models (``variation``, ``area``). Port of all of
+``repro.core.pim``."""
 from .state import (CostMeter, SubarrayState, make_bank, make_subarray,
                     EVEN_MASK, ODD_MASK, NUM_ROWS, ROW_BITS, ROW_WORDS,
                     WORD_BITS, resolve_device)
@@ -33,15 +34,23 @@ from .schedule import (CopyDrainStats, Phase, PhaseResult, PipelineResult,
                        compiled_for, gather_rows, schedule, schedule_pipeline,
                        schedule_workload, shard_lanes, shard_rows,
                        stream_key, xor_reduce_program)
+from .lint import (CATALOG, Diagnostic, LintError, LintReport, lint_program,
+                   lint_schedule, lint_trace, lint_trace_file)
+from .sem import (DIFFERENT, EQUIVALENT, SEM_STATS, UNKNOWN, Analysis,
+                  EquivalenceError, EquivReport, Witness, analyze,
+                  check_witness, fusion_report, lane_const, prove_equivalent,
+                  semantic_findings, summarize, verify_fusion)
+from .variation import (PAPER_TABLE4, TECH22, Tech22nm, shift_failure_rate)
+from .area import AreaModel, PAPER_TABLE5, mim_capacitor_plate_side_um
 
 
 def reset_stats() -> None:
     """Zero the instrumentation counters (column builds, scheduler plan and
-    compile misses and steps, runner builds, kernel launches), so
-    stats-asserting code can run in any order."""
+    compile misses and steps, runner builds, symbolic analyses and proofs,
+    kernel launches), so stats-asserting code can run in any order."""
     from ...kernels.rowops.ops import reset_launches
     from .ir import COLUMN_STATS
-    for counters in (COLUMN_STATS, SCHED_STATS, RUNNER_STATS):
+    for counters in (COLUMN_STATS, SCHED_STATS, RUNNER_STATS, SEM_STATS):
         for k in counters:
             counters[k] = 0
     reset_launches()
@@ -77,5 +86,12 @@ __all__ = [
     "SCHED_STATS", "ScheduleResult", "WorkloadResult", "compiled_for",
     "gather_rows", "schedule", "schedule_pipeline", "schedule_workload",
     "shard_lanes", "shard_rows", "stream_key", "xor_reduce_program",
-    "reset_stats",
+    "CATALOG", "Diagnostic", "LintError", "LintReport", "lint_program",
+    "lint_schedule", "lint_trace", "lint_trace_file", "reset_stats",
+    "DIFFERENT", "EQUIVALENT", "SEM_STATS", "UNKNOWN", "Analysis",
+    "EquivalenceError", "EquivReport", "Witness", "analyze", "check_witness",
+    "fusion_report", "lane_const", "prove_equivalent", "semantic_findings",
+    "summarize", "verify_fusion",
+    "PAPER_TABLE4", "TECH22", "Tech22nm", "shift_failure_rate",
+    "AreaModel", "PAPER_TABLE5", "mim_capacitor_plate_side_um",
 ]

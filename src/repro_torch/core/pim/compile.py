@@ -437,13 +437,11 @@ def fuse(program: ir.PimProgram, *,
     precomputed match sites instead of re-inspecting ``PimOp`` operands at
     every position.
 
-    ``verify_semantics=True`` needs the symbolic analyzer (``sem.py``),
-    which the port does not have yet: it raises ``NotImplementedError``
-    (ROADMAP A8)."""
-    if verify_semantics:
-        raise NotImplementedError(
-            "verify_semantics=True needs the symbolic analyzer (sem.py), "
-            "which the port does not have yet (ROADMAP A8)")
+    ``verify_semantics=True`` runs the symbolic abstract interpreter
+    (``sem.py``) over BOTH the op stream and the produced segment list
+    and raises :class:`~.sem.EquivalenceError` unless they are proved to
+    compute identical state — the opt-in proof that fusion preserved
+    semantics (UNKNOWN also raises: a gate must not pass unproved)."""
     ops = program.ops
     n = len(ops)
     if n == 0:
@@ -506,7 +504,11 @@ def fuse(program: ir.PimProgram, *,
         residual.append(op)
         i += 1
     flush_residual()
-    return tuple(segments)
+    out = tuple(segments)
+    if verify_semantics:
+        from . import sem       # lazy: sem imports this module's dataclasses
+        sem.verify_fusion(program, out)
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -541,14 +543,21 @@ def compile_program(program: ir.PimProgram,
     meter reflects the *optimized* stream (cheaper than eager — that is the
     point), so equivalence tests run with the default ``optimize=False``.
 
-    ``verify=True`` and ``verify_semantics=True`` need lint.py and
-    sem.py, which the port does not have yet: they raise
-    ``NotImplementedError`` (ROADMAP A8).
+    ``verify=True`` runs the static verifier (``lint.lint_program``) over
+    the INPUT stream before any transformation and raises
+    :class:`~.lint.LintError` on error-severity diagnostics.
+
+    ``verify_semantics=True`` additionally proves (``sem.py``) that the
+    fused segment list computes the same state as the op stream it was
+    lowered from, raising :class:`~.sem.EquivalenceError` otherwise. The
+    proof runs against the post-DCE stream when ``optimize=True`` (DCE
+    changes dead state on purpose; the fusion gate checks fusion).
     """
     if verify:
-        raise NotImplementedError(
-            "verify=True needs the static verifier (lint.py), which the "
-            "port does not have yet (ROADMAP A8)")
+        from . import lint      # lazy: lint imports this module's passes
+        report = lint.lint_program(program)
+        if not report.ok:
+            raise lint.LintError(report)
     if optimize:
         program = dead_copy_elimination(program, live_out)
     f_tab, i_tab = cost_tables(program, cfg)

@@ -150,6 +150,20 @@ class DeviceState:
         i = self.config.slot_index(b, 0)
         return self.banks.map(lambda x: x[i:i + self.config.subarrays])
 
+    @property
+    def slot_time_ns(self) -> torch.Tensor:
+        """(n_slots,) cumulative per-slot busy time, float32 on the device
+        (no host sync). Meters are cumulative and slots are exclusively
+        owned, so a tenant's busy time over any window is the difference
+        of two snapshots of this tensor sliced at its slots."""
+        return self.banks.meter.time_ns
+
+    @property
+    def slot_energy_nj(self) -> torch.Tensor:
+        """(n_slots,) cumulative per-slot energy, float32 on the device:
+        the meter's five energy fields added in the reference's order."""
+        return self.banks.meter.total_energy_nj
+
     def with_banks(self, banks: SubarrayState,
                    host_credit_ns=None) -> "DeviceState":
         return DeviceState(banks=banks, config=self.config,

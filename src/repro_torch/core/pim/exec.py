@@ -200,11 +200,17 @@ def make_runner(program, cfg: DDR3Timing = DEFAULT_TIMING, *,
 
     ``runner.raw(bits, mt, mb, dcc, meter, payloads)`` is the in-place
     core on a (B, R, W) batch, for the scheduler.
+
+    ``verify=True`` statically lints the stream before building the
+    runner and raises :class:`~.lint.LintError` on errors (a construction-
+    time gate: cached runners are never rebuilt, so warm calls pay zero).
     """
     if verify:
-        raise NotImplementedError(
-            "verify=True needs the static verifier (lint.py), which the "
-            "port does not have yet (ROADMAP A8)")
+        from . import lint
+        src = program.program if hasattr(program, "program") else program
+        report = lint.lint_program(src)
+        if not report.ok:
+            raise lint.LintError(report)
     compiled = _as_compiled(program, cfg)
     cache = getattr(compiled, "_runner_cache", None)
     if cache is None:
@@ -358,13 +364,21 @@ def execute(program, state: SubarrayState | None = None,
             verify: bool = False, device=None) -> ExecResult:
     """Compile (if needed) and run ``program`` against ``state`` (a fresh
     subarray on ``device`` by default: the card unless ``device="cpu"``).
-    Meter increments accumulate on the incoming ``state.meter``."""
+    Meter increments accumulate on the incoming ``state.meter``.
+    ``verify=True`` statically lints the stream first and raises
+    :class:`~.lint.LintError` on errors."""
+    if verify:
+        from . import lint
+        src = program.program if hasattr(program, "program") else program
+        report = lint.lint_program(src)
+        if not report.ok:
+            raise lint.LintError(report)
     compiled = _as_compiled(program, cfg)
     if state is None:
         state = make_subarray(compiled.num_rows, compiled.words,
                               device=device)
     runner = make_runner(compiled, cfg, use_kernels=use_kernels,
-                         interpret=interpret, refresh=refresh, verify=verify)
+                         interpret=interpret, refresh=refresh)
     return runner(state)
 
 

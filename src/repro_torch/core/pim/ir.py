@@ -597,18 +597,15 @@ class ProgramBuilder:
     with op-index provenance: rows must lie in ``[-num_rows, num_rows)``
     (negative values alias the reserved tail, e.g. ``isa.T0``), SHIFT's
     delta must be exactly ±1, HOSTW payloads must be ``(words,)`` rows.
-    ``verify=True`` needs the static verifier, which the port does not
-    have yet: it raises ``NotImplementedError`` (ROADMAP A8).
+    ``verify=True`` additionally lints the stream at :meth:`build` and
+    raises :class:`~.lint.LintError` on any error-severity diagnostic.
     """
 
     def __init__(self, num_rows: int = NUM_ROWS, words: int = ROW_WORDS,
                  *, verify: bool = False):
         self.num_rows = int(num_rows)
         self.words = int(words)
-        if verify:
-            raise NotImplementedError(
-                "verify=True needs the static verifier (lint.py), which the "
-                "port does not have yet (ROADMAP A8)")
+        self.verify = bool(verify)
         self._ops: list[PimOp] = []
         self._payloads: list[np.ndarray] = []
         self._n_reads = 0
@@ -636,6 +633,11 @@ class ProgramBuilder:
         prog = PimProgram(ops=tuple(self._ops), num_rows=self.num_rows,
                           words=self.words, payloads=tuple(self._payloads))
         prog.columns            # warm the columnar encoding + digest once
+        if self.verify:
+            from . import lint      # lazy: lint imports this module
+            report = lint.lint_program(prog)
+            if not report.ok:
+                raise lint.LintError(report)
         return prog
 
     # -- primitives -----------------------------------------------------------
@@ -770,7 +772,7 @@ class ProgramBuilder:
 def record(fn, num_rows: int = NUM_ROWS, words: int = ROW_WORDS, *,
            verify: bool = False) -> PimProgram:
     """Run ``fn(builder)`` and return the recorded program. ``verify=True``
-    raises ``NotImplementedError`` until lint is ported (ROADMAP A8)."""
+    lints the stream and raises :class:`~.lint.LintError` on errors."""
     b = ProgramBuilder(num_rows, words, verify=verify)
     fn(b)
     return b.build()

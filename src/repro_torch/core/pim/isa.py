@@ -279,13 +279,16 @@ def run_program(state: SubarrayState, program,
                 verify: bool = False):
     """Replay a recorded :class:`~.ir.PimProgram` command-at-a-time through
     this eager ISA. Returns ``(state, reads)``. Cross-slot COPYs have no
-    meaning on one subarray and raise."""
+    meaning on one subarray and raise. ``verify=True`` statically lints the
+    stream first (see ``lint.py``) and raises :class:`~.lint.LintError` on
+    errors."""
     from . import ir
 
     if verify:
-        raise NotImplementedError(
-            "verify=True needs the static verifier (lint.py), which the "
-            "port does not have yet (ROADMAP A8)")
+        from . import lint
+        report = lint.lint_program(program)
+        if not report.ok:
+            raise lint.LintError(report)
     reads = []
     payload_rows: dict = {}
     for op in program.ops:

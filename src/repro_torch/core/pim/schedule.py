@@ -451,8 +451,10 @@ class _StepPlan:
     switch_ns: float
     host_bytes: int
     copy: "_CopyDrainPlan | None"
-    # The reference lints the layout here (lint._plan_diagnostics); lint.py
-    # is not ported yet (ROADMAP A8), so the port's plans carry none.
+    # Static diagnostics of this layout (lint._plan_diagnostics), computed
+    # ONCE at plan build: the verify=True gates of schedule()/
+    # schedule_pipeline()/schedule_workload() scan this cached tuple, so a
+    # verified warm step does no extra work.
     lint: tuple = ()
 
 
@@ -629,6 +631,9 @@ def _plan_for(cfg: DeviceConfig, stripped, groups, deferred, *,
     fn = _make_step_fn(cfg, tuple(runners), tuple(group_slots),
                        issue_bus + host_bus, chan_busy0, host_ch,
                        copy_plan, copy_moves, copy_independent, async_host)
+    from . import lint as pim_lint      # lazy: lint imports this module
+    plan_lint = pim_lint._plan_diagnostics(cfg, stripped, groups, deferred,
+                                           async_host)
     plan = _StepPlan(
         fn=fn,
         group_slots=tuple(group_slots),
@@ -637,18 +642,24 @@ def _plan_for(cfg: DeviceConfig, stripped, groups, deferred, *,
         chan_busy=tuple(float(x) for x in chan_busy0),
         switch_ns=switch_ns,
         host_bytes=host_bytes,
-        copy=copy_plan)
+        copy=copy_plan,
+        lint=plan_lint)
     if len(_plan_cache) >= _PLAN_CACHE_MAX:
         _plan_cache.pop(next(iter(_plan_cache)))
     _plan_cache[plan_key] = plan
     return plan
 
 
-def _no_verify(verify: bool) -> None:
-    if verify:
-        raise NotImplementedError(
-            "verify=True needs the static verifier (lint.py), which the "
-            "port does not have yet (ROADMAP A8)")
+def _verify_plans(plans, what: str) -> None:
+    """The ``verify=True`` gate: raise LintError when any plan in ``plans``
+    carries error-severity diagnostics. Scans cached tuples only — no
+    analysis runs here."""
+    if all(not plan.lint for plan in plans):
+        return
+    from . import lint as pim_lint
+    diags = tuple(d for plan in plans for d in plan.lint)
+    if any(d.severity == pim_lint.ERROR for d in diags):
+        raise pim_lint.LintError(pim_lint.LintReport(diags), what)
 
 
 def _lower_step(cfg: DeviceConfig, programs):
@@ -740,15 +751,17 @@ def schedule(device: DeviceState,
     incrementally against the meter's ``n_refresh`` history.
     ``async_host=True`` overlaps this step's HOSTW/HOSTR bursts with the
     previous step's compute+copy window (only the wall clock changes).
-    ``verify=True`` needs lint.py and raises ``NotImplementedError`` until
-    it is ported (ROADMAP A8). The caller's ``device`` is not modified.
+    ``verify=True`` raises :class:`~.lint.LintError` when the layout's
+    static diagnostics (computed once per step plan) hold an error. The
+    caller's ``device`` is not modified.
     """
-    _no_verify(verify)
     cfg = device.config
     _, stripped, groups, deferred = _lower_step(cfg, programs)
     plan = _plan_for(cfg, stripped, groups, deferred,
                      use_kernels=use_kernels, interpret=interpret,
                      refresh=refresh, async_host=async_host)
+    if verify:
+        _verify_plans((plan,), "schedule layout")
     payloads = _step_payloads(plan, stripped, cfg.words, device.device)
     new_banks, greads, wall, energy, credit_out, busy, hidden_sum = plan.fn(
         device.banks, _credit(device), payloads)
@@ -903,10 +916,8 @@ def schedule_pipeline(device: DeviceState, steps, *,
     (states, reads and meters bit for bit; the async host credit chains
     identically); the layout is lowered and planned once. ``donate`` is
     accepted for signature parity and ignored (the caller's ``device`` is
-    never modified); ``verify=True`` raises ``NotImplementedError`` (ROADMAP
-    A8).
+    never modified); ``verify=True`` lints the layout as ``schedule`` does.
     """
-    _no_verify(verify)
     cfg = device.config
     step_list = ([steps] * int(n_steps) if n_steps is not None
                  else list(steps))
@@ -920,6 +931,8 @@ def schedule_pipeline(device: DeviceState, steps, *,
     plan = _plan_for(cfg, stripped0, groups0, deferred0,
                      use_kernels=use_kernels, interpret=interpret,
                      refresh=refresh, async_host=async_host)
+    if verify:
+        _verify_plans((plan,), "pipeline layout")
     banks, credit, log = device.banks, _credit(device), _StepLog()
     for flat in flats:
         banks, credit = _run_step(plan, banks, credit, flat, cfg.words, log)
@@ -1034,9 +1047,8 @@ def schedule_workload(device: DeviceState, phases, *,
     and meters bit for bit, with the async host credit and the
     refresh-history meter threaded across every phase boundary (a sync
     phase resets the credit). ``donate`` is accepted and ignored;
-    ``verify=True`` raises ``NotImplementedError`` (ROADMAP A8).
+    ``verify=True`` lints every phase's layout as ``schedule`` does.
     """
-    _no_verify(verify)
     cfg = device.config
     phase_list = [_as_phase(d) for d in phases]
     if not phase_list:
@@ -1056,6 +1068,8 @@ def schedule_workload(device: DeviceState, phases, *,
                          use_kernels=use_kernels, interpret=interpret,
                          refresh=refresh, async_host=a_h)
         lowered.append((plan, flats, a_h))
+    if verify:
+        _verify_plans([plan for plan, _, _ in lowered], "workload layout")
 
     n_ph = len(lowered)
     if order is None:

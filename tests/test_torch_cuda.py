@@ -991,3 +991,135 @@ def test_generate_graph_launches_per_call(served, card):
         == loop[1]
     assert {k: v - captured[1][k] for k, v in fa.CAPTURED.items()} \
         == loop[3]
+
+
+# ---------------------------------------------------------------------------
+# The static verifier's gates, the serving front end and Table 4 on the card
+# ---------------------------------------------------------------------------
+
+import glob  # noqa: E402
+import os  # noqa: E402
+
+import pim_serve_scenarios as serve_sc  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.core import pim as tpim  # noqa: E402
+from repro_torch.core.pim import exec as tpim_exec  # noqa: E402
+from repro_torch.core.pim import lint as tlint  # noqa: E402
+
+LINT_FIXTURES = sorted(glob.glob(os.path.join(
+    os.path.dirname(__file__), "fixtures", "lint", "*.trace")))
+
+
+def _state_np(state):
+    return {k: v.tolist() for k, v in convert.to_numpy(state).items()}
+
+
+def _reads_np(reads):
+    return [r.cpu().numpy().view(np.uint32).tolist()
+            if isinstance(r, torch.Tensor) else np.asarray(r).tolist()
+            for r in reads]
+
+
+def _run_gate(gate, text, device):
+    """One verify=True gate over a fixture's stream on ``device``: the
+    gate's verdict and, when it passes, what the run produced."""
+    layout = tpim.from_trace_device(text)
+    prog = layout[0][0]
+    cfg = tpim.DeviceConfig(channels=1, ranks=1, banks_per_rank=len(layout),
+                            subarrays=len(layout[0]), num_rows=prog.num_rows,
+                            words=prog.words)
+    nested = [list(b) for b in layout]
+
+    def fresh():
+        return tpim.make_subarray(prog.num_rows, prog.words, device=device)
+
+    runs = {
+        "execute": lambda: tpim_exec.execute(prog, fresh(), verify=True),
+        "make_runner": lambda: tpim_exec.make_runner(prog, verify=True)(
+            fresh()),
+        "run_program": lambda: tpim.run_program(fresh(), prog, verify=True),
+        "schedule": lambda: tpim.schedule(
+            tpim.make_device(cfg, device=device), nested, verify=True),
+        "schedule_pipeline": lambda: tpim.schedule_pipeline(
+            tpim.make_device(cfg, device=device), [nested, nested],
+            verify=True),
+        "schedule_workload": lambda: tpim.schedule_workload(
+            tpim.make_device(cfg, device=device),
+            [tpim.Phase.repeat(nested, 2)], verify=True),
+    }
+    try:
+        out = runs[gate]()
+    except tlint.LintError as e:
+        return ("LintError", sorted({d.code for d in e.report.errors}))
+    if gate == "run_program":
+        return ("ok", _state_np(out[0]), _reads_np(out[1]))
+    if gate in ("execute", "make_runner"):
+        return ("ok", _state_np(out.state), _reads_np(out.reads))
+    state = _state_np(out.state)
+    if gate == "schedule_workload":
+        out = out.phases[0]         # reads and walls live on the phase
+    return ("ok", state, serve_sc.plain(out.reads),
+            out.wall_ns.cpu().numpy().tolist())
+
+
+def _gate_cases():
+    """(gate, fixture): the single-subarray gates take the one-bank
+    fixtures, the schedulers every fixture."""
+    out = []
+    for path in LINT_FIXTURES:
+        with open(path) as f:
+            single = f.readline().rstrip().endswith("banks=1")
+        for gate in ("execute", "make_runner", "run_program", "schedule",
+                     "schedule_pipeline", "schedule_workload"):
+            if single or gate.startswith("schedule"):
+                out.append(pytest.param(gate, path, id=f"{gate}-"
+                                        f"{os.path.basename(path)}"))
+    return out
+
+
+@pytest.mark.parametrize("gate, path", _gate_cases())
+def test_verify_gates_on_the_card_match_the_cpu(card, gate, path):
+    with open(path) as f:
+        text = f.read()
+    got = _run_gate(gate, text, card)
+    assert got == _run_gate(gate, text, "cpu")
+    name = os.path.basename(path)
+    if name in ("pim103.trace", "pim104.trace", "pim106.trace") or (
+            name == "pim302.trace" and gate.startswith("schedule")):
+        assert got[0] == "LintError"
+    if name == "clean_maj.trace":
+        assert got[0] == "ok"
+
+
+@pytest.mark.parametrize("name", sorted(serve_sc.SCENARIOS))
+def test_serve_front_on_the_card_matches_the_cpu(card, name):
+    got = []
+    for kit in (serve_sc.port_kit(card), serve_sc.port_kit("cpu")):
+        kit.pim.reset_stats()
+        got.append(serve_sc.SCENARIOS[name](kit))
+    assert got[0] == got[1]
+
+
+def test_serve_front_runs_the_row_kernels_on_the_card(card):
+    kit = serve_sc.port_kit(card)
+    rops.reset_launches()
+    serve_sc.SCENARIOS["run_pipelines_recurring_windows_single_dispatch"](
+        kit)
+    torch.cuda.synchronize()
+    assert rops.LAUNCHES["meter_fold"] > 0
+    assert rops.ROWS_BY_OP["maj"] > 0
+    assert rops.LAUNCHES["shift_cols"] == rops.LAUNCHES["bitwise"] == 0
+
+
+@pytest.mark.parametrize("pct, paper, bound", [(0.0, 0.0, 0.0),
+                                               (5.0, 0.005, 0.004),
+                                               (10.0, 0.14, 0.04),
+                                               (20.0, 0.30, 0.06)])
+def test_shift_failure_rate_on_the_card_within_table4(card, pct, paper,
+                                                      bound):
+    g = torch.Generator(device=card)
+    g.manual_seed(7)
+    r = tpim.shift_failure_rate(pct, 100_000, generator=g, device=card)
+    assert r.device.type == "cuda" and r.dtype == torch.float32
+    assert tpim.PAPER_TABLE4[pct] == paper
+    assert abs(float(r) - paper) <= bound

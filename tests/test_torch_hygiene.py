@@ -27,6 +27,8 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.configs, repro_torch.models, "
             "repro_torch.kernels.pim_matmul.ops, "
             "repro_torch.kernels.flash_attn.ops, repro_torch.serve.engine, "
+            "repro_torch.serve.pim_front, repro_torch.core.pim.lint, "
+            "repro_torch.core.pim.sem, repro_torch.core.pim.variation, "
             "repro_torch.launch.serve\n"
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
             "or m.startswith(('jax.', 'repro.'))]\n"
@@ -51,6 +53,10 @@ def test_no_source_file_imports_jax_or_the_reference():
 def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
     from repro_torch.core import pim
     from repro_torch.core.bitplane import PimVM, gf
+    from repro_torch.core.pim import lint
+    from repro_torch.serve.pim_front import PimServeFront
+    cfg = pim.DeviceConfig(channels=1, ranks=1, banks_per_rank=2,
+                           num_rows=16, words=4)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (lambda: pim.make_subarray(),
                  lambda: pim.make_bank(2, 16, 4),
@@ -59,7 +65,10 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
                  lambda: pim.CostMeter.zeros(),
                  lambda: PimVM(width=8, words=2),
                  lambda: PimVM(width=8, words=4, n_banks=2),
-                 lambda: gf.aes_xtime_cost(2)):
+                 lambda: gf.aes_xtime_cost(2),
+                 lambda: PimServeFront(cfg),
+                 lambda: pim.shift_failure_rate(5.0),
+                 lambda: lint.main(["--workloads"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert pim.make_subarray(16, 4, device="cpu").bits.device.type == "cpu"
@@ -67,6 +76,11 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
     assert vm._device.banks.bits.device.type == "cpu"
     assert PimVM(width=8, words=2, device="cpu").state.bits.device.type \
         == "cpu"
+    assert PimServeFront(cfg, device="cpu").device.device.type == "cpu"
+    assert pim.shift_failure_rate(5.0, 100, device="cpu").device.type \
+        == "cpu"
+    assert lint.main(["--workloads", "--no-semantic", "--device",
+                      "cpu"]) == 0
 
 
 def test_cuda_states_refuse_the_plain_path():

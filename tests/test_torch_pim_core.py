@@ -291,13 +291,25 @@ def test_cost_tables_pass_and_fusion_match(seed):
 
 
 def test_unported_gates_raise():
+    """The verify gates, stubs before the static tools were ported, now lint
+    and prove: a clean program passes each gate, a stream with a TRA hazard
+    raises LintError, and a corrupted fusion raises EquivalenceError."""
     prog = to_port_program(ref.ambit_xor_program())
-    for call in (lambda: port.compile_program(prog, verify=True),
-                 lambda: port.compile_program(prog, verify_semantics=True),
-                 lambda: port.ProgramBuilder(16, 2, verify=True),
-                 lambda: port.execute(prog, verify=True, device="cpu")):
-        with pytest.raises(NotImplementedError, match="A8"):
-            call()
+    bad = port.PimProgram(ops=(port.PimOp(port.ir.OP_TRA, a=3, b=3, c=5),),
+                          num_rows=16, words=2)
+    for gate in (lambda p: port.compile_program(p, verify=True),
+                 lambda p: port.execute(p, verify=True, device="cpu")):
+        gate(prog)
+        with pytest.raises(port.LintError, match="PIM103"):
+            gate(bad)
+    port.compile_program(prog, verify_semantics=True)
+    segs = port.fuse(prog)
+    with pytest.raises(port.EquivalenceError):
+        port.verify_fusion(prog, segs[:-1])
+    b = port.ProgramBuilder(16, 2, verify=True)
+    b.tra(3, 3, 5)
+    with pytest.raises(port.LintError, match="PIM103"):
+        b.build()
 
 
 # ---------------------------------------------------------------------------

@@ -327,9 +327,12 @@ def test_recurring_layout_errors():
         port.schedule_workload(dev, [[s1], [s2]], order=[0, 2])
     with pytest.raises(ValueError, match="consumed FIFO"):
         port.schedule_workload(dev, [[s1], [s2]], order=[0, 0])
-    for fn in (port.schedule_pipeline, port.schedule_workload):
-        with pytest.raises(NotImplementedError, match="A8"):
-            fn(dev, [[s1]], verify=True)
+    # verify=True lints the layout (clean here) and runs it unchanged
+    for fn, arg in ((port.schedule_pipeline, [s1]),
+                    (port.schedule_workload, [[s1]])):
+        got = fn(dev, arg, verify=True)
+        want = fn(dev, arg)
+        assert torch.equal(got.state.banks.bits, want.state.banks.bits)
 
 
 # ---------------------------------------------------------------------------
