@@ -52,8 +52,10 @@ each, every mismatch fatal:
                ``cuda_core`` route) and flash_attn (each row names its route,
                ``tensor_core``, ``tiled`` or ``split_kv``: Qwen3-4B's heads
                at prefill and decode, that decode over 8,192 slots, MLA's
-               decode at dk 576 / dv 512, recurrentgemma-2b's decode on a
-               2,048-slot ring under its window, MLA's prefill at dk 192 /
+               decode at dk 576 / dv 512 (over 2,048 slots and over the
+               144 of phase 16's deepseek path), recurrentgemma-2b's
+               decode on a 2,048-slot ring under its window, MLA's
+               prefill at dk 192 /
                dv 128, Qwen3-4B's heads at a 2,048-token prompt) against
                their plain versions on the card (flash in float32, on the
                tiled route, and bf16), with device and per-call times,
@@ -152,9 +154,41 @@ each, every mismatch fatal:
                after; each row entry and ``meter_fold`` must run);
 15. tables   — ``shift_failure_rate`` on the card at 0, 5, 10 and 20 %
                variation, 100,000 trials, within the reference test's bounds
-               of the paper's Table 4; the area model's Table 5.
+               of the paper's Table 4; the area model's Table 5;
+16. families — the MoE, MLA and frontend families at their published
+               widths with phase 7's traffic, weights from a seed, each
+               ``greedy_generate`` call one CUDA-graph replay with phase
+               7's checks (launches by route from the config, reset just
+               before a replayed call and read just after it; the first
+               call adds its warm-up's two passes; DECODE_STATS 1; the
+               tokens the eager argmax chain bit for bit; one
+               ``cudaGraphLaunch`` and no kernel launch per replayed call;
+               decode against prefill, held to the bound without MoE,
+               measured with the last token's routing flips reported with
+               it): deepseek-v2-lite-16b pim_w4
+               shift_add at its full 27 layers (MLA: flash's
+               ``tensor_core`` route at prefill, ``split_kv`` at decode;
+               the dense layer's and the shared experts' linears on
+               ``pim_matmul``'s ``tensor_core`` and ``swap_ab`` routes,
+               every one of the four routes must run), qwen3-moe-30b-a3b at
+               8 of 48 layers, its einsum and gather dispatches each
+               replayed on the same weights, llava-next-mistral-7b pim_w4
+               at 4 of 32 layers behind 576 seeded patch embeddings (a
+               static input of the graph); musicgen-medium at 4 of 48
+               layers through ``prefill`` and 15 teacher-forced
+               ``decode_step`` calls on seeded frames (its
+               ``greedy_generate`` raises, as the reference's does), the
+               loop's launches by route, its logits finite and repeated bit
+               for bit;
+17. families parity — each family at full width, 2 layers, as phase 8
+               (musicgen: seeded frames teacher-forced on both sides); a
+               MoE model's router choices recorded on both sides, a request
+               held until the first routing flip that reaches it, each
+               flip reported and held inside the rounding (a reference
+               margin within 2e-2 of the k-th probability).
 
-Then the kernel table as JSON, the card's name and power limit, and the
+Then the kernel table as JSON (MLA's two flash rows with their launches on
+phase 16's deepseek path), the card's name and power limit, and the
 result line. Nanoseconds and nanojoules of the DDR3 meter are outputs of
 the simulated DRAM's model; milliseconds and microseconds are times of the
 card. Everything measured is also written to ``chiprun_out/chip_smoke.json``.
@@ -229,8 +263,9 @@ WEIGHT_COPIES = 4
 # an 8,192-slot cache, MLA's decode (deepseek-v2-lite: one 576-wide latent
 # key head, 512-wide values, 16 query heads), recurrentgemma-2b's decode
 # (one kv head of 256, 10 query heads, a 2,048-slot ring under its 2,048
-# window, positions unsorted), MLA's prefill (16 heads, dk 192, dv 128)
-# and Qwen3-4B's heads at a 2,048-token causal prompt (batch 1)
+# window, positions unsorted), MLA's prefill (16 heads, dk 192, dv 128),
+# Qwen3-4B's heads at a 2,048-token causal prompt (batch 1) and MLA's
+# decode over phase 16's 144-slot cache (deepseek's serving shape)
 FLASH_SHAPES = {
     "prefill": (4, 8, 4, 128, 128, 128, 128, 127, None, False),
     "decode": (4, 8, 4, 128, 128, 1, 144, 135, None, False),
@@ -239,6 +274,7 @@ FLASH_SHAPES = {
     "decode,recurrentgemma": (4, 1, 10, 256, 256, 1, 2048, 5000, 2048, True),
     "prefill,mla": (4, 16, 1, 192, 128, 128, 128, 127, None, False),
     "prefill,2k": (1, 8, 4, 128, 128, 2048, 2048, 2047, None, False),
+    "decode,mla,144": (4, 1, 16, 576, 512, 1, 144, 135, None, False),
 }
 # the three flash routes at these query positions per pair (G = 4: 4 to
 # 256 rows) over these key slots: the route threshold
@@ -256,6 +292,19 @@ PIM_ROUTES = ("tensor_core", "swap_ab", "cuda_core")
 TC_SPLITS = (1, 2, 3)
 SWAP_SPLITS = (1, 2, 3, 4, 6, 8, 13, 16, 24, 32)
 PARITY_LAYERS, PARITY_BATCH, PARITY_PROMPT, PARITY_NEW = 2, 2, 32, 4
+# Phases 16-17: the MoE, MLA and frontend families at their published
+# widths, served with phase 7's traffic: (label, arch, overrides, depth,
+# more MoE dispatches replayed on the same weights). deepseek-v2-lite-16b
+# at its full 27 layers (about 31.5 GB on the card with pim_w4), the others
+# cut to these depths so that the run stays well within its time limit.
+FAMILIES = (
+    ("serve-deepseek", "deepseek-v2-lite-16b",
+     {"quant": "pim_w4", "quant_mode": "shift_add"}, None, ()),
+    ("serve-qwen3-moe", "qwen3-moe-30b-a3b", {}, 8, ("gather",)),
+    ("serve-llava", "llava-next-mistral-7b",
+     {"quant": "pim_w4", "quant_mode": "shift_add"}, 4, ()),
+    ("serve-musicgen", "musicgen-medium", {}, 4, ()),
+)
 SHIFT_KS = (1, -1, 31, 32, 33, -33, 999, -999, 65535, 65536, 70000)
 # phase 2b: the row entries on (B, 16, 2,048) states, B = 1 and 64 (one
 # subarray; the full device's slots); shift chains of these many hops (and
@@ -1499,7 +1548,7 @@ def flash_tc_sass():
 
 
 # ---------------------------------------------------------------------------
-# Phases 7-8: the LM serving path
+# Phases 7-8 and 16-17: the LM serving path
 # ---------------------------------------------------------------------------
 
 def lm_config(**overrides):
@@ -1508,10 +1557,81 @@ def lm_config(**overrides):
     return get_config(arch, **quant, **overrides)
 
 
+def family_config(arch, overrides, **more):
+    """``arch``'s configuration with ``overrides`` (``impl``: the MoE's
+    dispatch) and ``more``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    kw = {**overrides, **more}
+    impl = kw.pop("impl", None)
+    cfg = get_config(arch, **kw)
+    if impl is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               impl=impl))
+    return cfg
+
+
+def cfg_name(cfg) -> str:
+    """The arch, its quantization and (MoE) dispatch, as the lines name
+    them."""
+    name = cfg.arch_id
+    if cfg.quant:
+        name += f" {cfg.quant} {cfg.quant_mode}"
+    if cfg.moe is not None:
+        name += f" impl {cfg.moe.impl}"
+    return name
+
+
+def pim_linears(cfg) -> int:
+    """The quantized linears one pass of the model runs, each one
+    pim_matmul launch: every dense FFN's, a MoE layer's shared experts'
+    (attention, the routed experts and the heads are not quantized, as in
+    the reference)."""
+    if not cfg.quant:
+        return 0
+    per_ffn = 3 if cfg.act in ("swiglu", "geglu") else 2
+    if cfg.moe is None:
+        return per_ffn * cfg.n_layers
+    n_moe = cfg.n_layers - cfg.moe.first_k_dense
+    shared = 1 if cfg.moe.n_shared_experts else 0
+    return per_ffn * (cfg.moe.first_k_dense + shared * n_moe)
+
+
 def prompt_tokens(torch, seed, batch, length, vocab, device):
     import numpy as np
     return torch.as_tensor(np.random.default_rng(seed).integers(
         0, vocab, (batch, length)), dtype=torch.int32, device=device)
+
+
+def seeded_normal(torch, seed, shape, device):
+    import numpy as np
+    return torch.as_tensor(np.random.default_rng(seed).normal(size=shape),
+                           dtype=torch.float32, device=device)
+
+
+def prompt_batch(torch, cfg, seed, batch, length, device):
+    """A seeded prompt on ``device``: ``length`` tokens, after a vision
+    model's ``n_patches`` patch embeddings (float32); an audio model's
+    ``length`` frame embeddings."""
+    if cfg.frontend == "audio_frames":
+        return {"frame_embeds": seeded_normal(
+            torch, seed, (batch, length, cfg.d_model), device)}
+    out = {"tokens": prompt_tokens(torch, seed, batch, length,
+                                   cfg.vocab_size, device)}
+    if cfg.frontend == "vision_patches":
+        out["patch_embeds"] = seeded_normal(
+            torch, seed + 1, (batch, cfg.n_patches, cfg.d_model), device)
+    return out
+
+
+def input_key(cfg) -> str:
+    return "frame_embeds" if cfg.frontend == "audio_frames" else "tokens"
+
+
+def prompt_len(cfg, batch) -> int:
+    """Positions the prompt takes (the patches, then the tokens)."""
+    n = batch[input_key(cfg)].shape[1]
+    return n + (cfg.n_patches if cfg.frontend == "vision_patches" else 0)
 
 
 def rel_err(torch, a, b) -> float:
@@ -1519,18 +1639,18 @@ def rel_err(torch, a, b) -> float:
     return float((a - b).abs().max() / (b.abs().max() + 1e-9))
 
 
-def teacher_forced(cfg, model, prompt, tokens, device):
-    """Prefill logits, then one decode step per generated token but the
-    last, fed ``tokens``: a list of (B, 1, V) float32 logits."""
+def teacher_forced(cfg, model, batch, feed, device):
+    """Prefill logits, then one decode step per entry of ``feed`` ((B, n)
+    tokens, or (B, n, D) frames) over a cache of prompt + n + 1 positions
+    (greedy_generate's for n + 1 tokens): a list of float32 logits."""
     from repro_torch.models import decode_step, prefill
-    s, n = prompt.shape[1], tokens.shape[1]
-    logits, caches = prefill(cfg, model, {"tokens": prompt}, s + n,
-                             device=device)
+    s, n = prompt_len(cfg, batch), feed.shape[1]
+    logits, caches = prefill(cfg, model, batch, s + n + 1, device=device)
     out = [logits]
-    for t in range(n - 1):
+    for t in range(n):
         logits, caches = decode_step(cfg, model,
-                                     {"tokens": tokens[:, t:t + 1]}, s + t,
-                                     caches, device=device)
+                                     {input_key(cfg): feed[:, t:t + 1]},
+                                     s + t, caches, device=device)
         out.append(logits)
     return out
 
@@ -1541,20 +1661,217 @@ def argmax_chain(torch, cfg, logits):
                         for lg in logits], dim=1).to(torch.int32)
 
 
-def run_serve(torch, device):
-    """The serving path at full width and depth: ``greedy_generate`` as one
-    CUDA-graph replay per call, beside the eager prefill and decode steps.
-    Returns (record, launches, routes and flash routes of one replayed
-    call)."""
-    import gc
+class RouterLog:
+    """The router probabilities (float32, on the host) of every
+    ``moe_ffn`` call made inside the ``with`` block, in call order: one
+    (tokens, E) table per MoE layer and pass. Eager calls only: the copy
+    to the host synchronises."""
 
+    def __init__(self, torch):
+        self.torch, self.calls = torch, []
+
+    def __enter__(self):
+        from repro_torch.models import ffn
+        self._ffn, self._orig = ffn, ffn.moe_ffn
+
+        def record(cfg, p, x):
+            logits = x.reshape(-1, x.shape[-1]).float() @ p.router
+            self.calls.append(self.torch.softmax(logits, -1).cpu())
+            return self._orig(cfg, p, x)
+
+        ffn.moe_ffn = record
+        return self
+
+    def __exit__(self, *exc):
+        self._ffn.moe_ffn = self._orig
+
+
+def router_flips(torch, cfg, ref, got, where):
+    """The tokens whose top-k experts differ between the reference run's
+    router tables ``ref`` and ``got`` (pairs of (tokens, E) tables, the
+    same rows): dicts of request, position and MoE layer (``where(pair,
+    row)``), the reference's margin (k-th less (k+1)-th probability) and
+    k-th probability, and whether an earlier flip of that request (an
+    earlier layer, at or before that position) reaches it."""
+    K = cfg.moe.top_k
+    flips = []
+    for i, (a, b) in enumerate(zip(ref, got)):
+        top = a.topk(K + 1, dim=-1)
+        sa = top.indices[:, :K].sort(-1).values
+        sb = b.topk(K, dim=-1).indices.sort(-1).values
+        for row in (sa != sb).any(-1).nonzero().flatten().tolist():
+            request, position, layer = where(i, row)
+            flips.append(dict(
+                request=request, position=position, layer=layer,
+                margin=float(top.values[row, K - 1] - top.values[row, K]),
+                p_k=float(top.values[row, K - 1])))
+    for f in flips:
+        f["follows"] = any(
+            g["request"] == f["request"] and g["position"] <= f["position"]
+            and g["layer"] < f["layer"] for g in flips)
+    return flips
+
+
+def check_flips(flips, what):
+    """A flip that follows no earlier one must lie inside the rounding: a
+    reference margin within LOGITS_REL of the k-th probability."""
+    wide = [f for f in flips
+            if not f["follows"] and not f["margin"] <= LOGITS_REL * f["p_k"]]
+    if wide:
+        raise AssertionError(f"{what}: routing flips beyond the rounding: "
+                             f"{wide}")
+
+
+def say_flips(flips) -> str:
+    return "; ".join(
+        f"request {f['request']} position {f['position']} MoE layer "
+        f"{f['layer']} (margin {f['margin']:.3e} of p_k {f['p_k']:.3e}"
+        + (", after an earlier flip)" if f["follows"] else ")")
+        for f in flips) or "no routing flip"
+
+
+def decode_vs_prefill(torch, cfg, model, batch, max_len):
+    """prefill(S) against prefill(S − 1) + decode_step(S − 1) on the last
+    position: (rel, the last token's routing flips between the two, held).
+    Held to LOGITS_REL without MoE. With MoE it is measured, not held: the
+    two paths round the hidden state differently (MLA's absorbed decode
+    more so: the reference's own test allows deepseek 3e-2 at 3 layers),
+    which moves router choices whose margin lies inside that difference,
+    at the last token (reported here) and at any earlier one (prefill(S)
+    and prefill(S − 1) run their products at other shapes)."""
+    from repro_torch.models import decode_step, prefill
+    key = input_key(cfg)
+    S = prompt_len(cfg, batch)
+    pre = dict(batch, **{key: batch[key][:, :-1]})
+    with RouterLog(torch) as full_log:
+        full, _ = prefill(cfg, model, batch, max_len)
+    with RouterLog(torch) as dec_log:
+        _, caches = prefill(cfg, model, pre, max_len)
+        dec, _ = decode_step(cfg, model, {key: batch[key][:, -1:]}, S - 1,
+                             caches)
+    rel = rel_err(torch, dec, full)
+    if cfg.moe is not None:
+        B, n = full.shape[0], len(full_log.calls)
+        last = [c.reshape(B, S, -1)[:, -1] for c in full_log.calls]
+        return rel, router_flips(torch, cfg, last, dec_log.calls[n:],
+                                 lambda i, row: (row, S - 1, i)), False
+    if not rel < LOGITS_REL:
+        raise AssertionError(f"{cfg.arch_id}: decode vs prefill logits rel "
+                             f"{rel} >= {LOGITS_REL}")
+    return rel, [], True
+
+
+def counted(torch, fn):
+    """``fn()`` with the LM kernels' launch counts and DECODE_STATS reset
+    just before it and read just after it, and its ms."""
     from repro_torch.kernels.flash_attn import ops as fa
     from repro_torch.kernels.pim_matmul import ops as pm
+    from repro_torch.serve import engine
+    pm.reset_launches()
+    fa.reset_launches()
+    engine.DECODE_STATS["dispatches"] = 0
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3, dict(
+        launches={"pim_matmul": pm.LAUNCHES["pim_matmul"],
+                  "flash_attn": fa.LAUNCHES["flash_attn"]},
+        routes=dict(pm.ROUTES), flash_routes=dict(fa.ROUTES),
+        dispatches=engine.DECODE_STATS["dispatches"])
+
+
+def expected_counts(cfg, passes):
+    """Launches and routes of prefill and ``passes - 1`` decode steps:
+    each quantized linear one pim_matmul launch per pass (prefill's, M =
+    batch x prompt, on the tensor cores; a decode step's, M = batch, on the
+    swapped operands), each layer one flash_attn launch per pass
+    (prefill's, hundreds of rows per pair in bf16, on the tensor cores; a
+    decode step's split over the keys)."""
+    n, L = pim_linears(cfg), cfg.n_layers
+    return dict(
+        launches={"pim_matmul": n * passes, "flash_attn": L * passes},
+        routes={"tensor_core": n, "swap_ab": n * (passes - 1),
+                "cuda_core": 0},
+        flash_routes={"tiled": 0, "split_kv": L * (passes - 1),
+                      "tensor_core": L})
+
+
+def check_counts(what, got, cfg, passes,
+                 keys=("launches", "routes", "flash_routes")):
+    exp = expected_counts(cfg, passes)
+    for k in keys:
+        if got[k] != exp[k]:
+            raise AssertionError(f"{what}: {k} {got[k]}, expected {exp[k]}")
+
+
+def timed(torch, fn):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3
+
+
+def replay_checks(torch, cfg, model, batch, label):
+    """``greedy_generate`` of ``cfg`` on ``model``: the first call of its
+    signature (warm-up: an eager prefill and decode step; capture; one
+    replay) and a replayed call, each one dispatch, the replayed call's
+    launches by route those of prefill and SERVE_NEW - 1 decode steps (the
+    first adds its warm-up's two passes), its tokens equal on replay and
+    equal to the eager loop's argmax chain bit for bit. Returns (tokens,
+    first call's ms and counts, replayed call's counts, the graph,
+    the eager loop's logits)."""
+    from repro_torch.serve.engine import greedy_generate
+
+    def generate():
+        return greedy_generate(cfg, model, batch, max_new_tokens=SERVE_NEW)
+
+    before = set(map(id, model.generate_graphs.values()))
+    out, first_ms, first = counted(torch, generate)
+    (graph,) = [g for g in model.generate_graphs.values()
+                if id(g) not in before]
+    again, _, counts = counted(torch, generate)
+    V = cfg.vocab_size
+    if tuple(out.shape) != (SERVE_BATCH, SERVE_NEW) \
+            or out.dtype != torch.int32 or int(out.min()) < 0 \
+            or int(out.max()) >= V or not torch.equal(out, again):
+        raise AssertionError(f"{label}: greedy_generate gave "
+                             f"{tuple(out.shape)} {out.dtype} tokens in "
+                             f"[{int(out.min())}, {int(out.max())}], equal "
+                             f"on replay: {torch.equal(out, again)}")
+    check_counts(f"{label} replayed call", counts, cfg, SERVE_NEW)
+    # the first call adds its warm-up's eager prefill and decode step
+    check_counts(f"{label} first call", first, cfg, SERVE_NEW + 2,
+                 keys=("launches",))
+    if counts["dispatches"] != 1 or first["dispatches"] != 1:
+        raise AssertionError(f"{label}: DECODE_STATS per call: first "
+                             f"{first['dispatches']}, replayed "
+                             f"{counts['dispatches']}, expected 1")
+    forced = teacher_forced(cfg, model, batch, out[:, :-1], model.device)
+    chain = argmax_chain(torch, cfg, forced)
+    if not all(torch.isfinite(lg).all() for lg in forced) \
+            or not torch.equal(chain, out):
+        raise AssertionError(
+            f"{label}: the graph's tokens are not the eager loop's argmax "
+            f"chain: {int((chain != out).sum())} of {out.numel()} differ")
+    return out, first_ms, first, counts, graph, forced
+
+
+def run_serve(torch, device, cfg=None, label="serve", *, variants=(),
+              notes=False):
+    """The serving path of ``cfg`` (phase 7: Qwen3-4B at full width and
+    depth): ``greedy_generate`` as one CUDA-graph replay per call, beside
+    the eager prefill and decode steps; each of ``variants`` (configs on
+    the same weights, e.g. another MoE dispatch) replayed and checked the
+    same way. Returns (record, launches, routes and flash routes of one
+    replayed call)."""
+    import gc
+
     from repro_torch.models import decode_step, init_params, prefill
     from repro_torch.serve import engine
     from repro_torch.serve.engine import greedy_generate
 
-    cfg = lm_config()
+    cfg = cfg or lm_config()
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     t = time.perf_counter()
@@ -1562,121 +1879,64 @@ def run_serve(torch, device):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t
     weights_gb = (torch.cuda.memory_allocated() - base) / 1e9
-    prompt = prompt_tokens(torch, 12, SERVE_BATCH, SERVE_PROMPT,
-                           cfg.vocab_size, device)
-    batch = {"tokens": prompt}
+    batch = prompt_batch(torch, cfg, 12, SERVE_BATCH, SERVE_PROMPT, device)
     torch.cuda.reset_peak_memory_stats()
     L, V = cfg.n_layers, cfg.vocab_size
+    S = prompt_len(cfg, batch)
 
     def generate():
         return greedy_generate(cfg, model, batch, max_new_tokens=SERVE_NEW)
 
-    def counted(fn):
-        """``fn()`` with the launch counts and DECODE_STATS reset just
-        before it and read just after it, and its ms."""
-        pm.reset_launches()
-        fa.reset_launches()
-        engine.DECODE_STATS["dispatches"] = 0
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, (time.perf_counter() - t) * 1e3, dict(
-            launches={"pim_matmul": pm.LAUNCHES["pim_matmul"],
-                      "flash_attn": fa.LAUNCHES["flash_attn"]},
-            routes=dict(pm.ROUTES), flash_routes=dict(fa.ROUTES),
-            dispatches=engine.DECODE_STATS["dispatches"])
-
-    # the first call of the signature (warm-up: an eager prefill and decode
-    # step; capture; one replay), then a replayed call
-    out, first_ms, first = counted(generate)
-    (graph,) = model.generate_graphs.values()
-    again, _, counts = counted(generate)
+    out, first_ms, first, counts, graph, forced = replay_checks(
+        torch, cfg, model, batch, label)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-
-    if tuple(out.shape) != (SERVE_BATCH, SERVE_NEW) \
-            or out.dtype != torch.int32 or int(out.min()) < 0 \
-            or int(out.max()) >= V or not torch.equal(out, again):
-        raise AssertionError(f"greedy_generate gave {tuple(out.shape)} "
-                             f"{out.dtype} tokens in [{int(out.min())}, "
-                             f"{int(out.max())}], equal on replay: "
-                             f"{torch.equal(out, again)}")
-    launches = counts["launches"]
-    expected = {"pim_matmul": 3 * L * SERVE_NEW, "flash_attn": L * SERVE_NEW}
-    if launches != expected:
-        raise AssertionError(f"serving launches {launches}, expected "
-                             f"{expected}")
-    # the first call adds its warm-up's eager prefill and decode step
-    warm = {k: v // SERVE_NEW * (SERVE_NEW + 2) for k, v in expected.items()}
-    if first["launches"] != warm:
-        raise AssertionError(f"first call's launches {first['launches']}, "
-                             f"expected {warm}")
-    if counts["dispatches"] != 1 or first["dispatches"] != 1:
-        raise AssertionError(f"DECODE_STATS per call: first "
-                             f"{first['dispatches']}, replayed "
-                             f"{counts['dispatches']}, expected 1")
-    # prefill's FFN linears (M = batch x prompt) on the tensor cores, each
-    # decode step's (M = batch) on the swapped operands
-    routes = counts["routes"]
-    expected = {"tensor_core": 3 * L, "swap_ab": 3 * L * (SERVE_NEW - 1),
-                "cuda_core": 0}
-    if routes != expected:
-        raise AssertionError(f"serving routes {routes}, expected "
-                             f"{expected}")
-    # prefill's attention (Sq·G = 512 rows per pair, bf16) on the tensor
-    # cores, each decode step's (4 rows) split over the keys
+    launches, routes = counts["launches"], counts["routes"]
     flash_routes = counts["flash_routes"]
-    expected = {"tensor_core": L, "tiled": 0, "split_kv": L * (SERVE_NEW - 1)}
-    if flash_routes != expected:
-        raise AssertionError(f"serving flash routes {flash_routes}, "
-                             f"expected {expected}")
     engine.DECODE_STATS["dispatches"] = 0
     zero = greedy_generate(cfg, model, batch, max_new_tokens=0)
     if zero.shape != (SERVE_BATCH, 0) or engine.DECODE_STATS["dispatches"]:
-        raise AssertionError("zero new tokens: a dispatch was counted")
+        raise AssertionError(f"{label}: zero new tokens: a dispatch was "
+                             "counted")
+    other = {}
+    for v in variants:
+        v_out, v_first_ms, _, v_counts, v_graph, _ = replay_checks(
+            torch, v, model, batch, f"{label} {cfg_name(v)}")
+        v_ms = [timed(torch, lambda v=v: greedy_generate(
+            v, model, batch, max_new_tokens=SERVE_NEW)) for _ in range(3)]
+        other[cfg_name(v)] = dict(
+            first_generate_ms=v_first_ms, generate_replays_ms=v_ms,
+            generate_ms=statistics.median(v_ms),
+            graph_pool_bytes=v_graph.pool_bytes,
+            launches=v_counts["launches"], tokens=v_out.cpu().tolist(),
+            tokens_equal_to=int((v_out == out).sum()))
+    del forced
 
-    # the graph's tokens are the eager loop's argmax chain, bit for bit
-    max_len = SERVE_PROMPT + SERVE_NEW
-    forced = teacher_forced(cfg, model, prompt, out, device)
-    chain = argmax_chain(torch, cfg, forced)
-    if not all(torch.isfinite(lg).all() for lg in forced) \
-            or not torch.equal(chain, out):
-        raise AssertionError(
-            f"the graph's tokens are not the eager loop's argmax chain: "
-            f"{int((chain != out).sum())} of {out.numel()} differ")
-    logits = forced[0]
-    _, caches = prefill(cfg, model, {"tokens": prompt[:, :-1]}, max_len)
-    dec, _ = decode_step(cfg, model, {"tokens": prompt[:, -1:]},
-                         SERVE_PROMPT - 1, caches)
-    dvp = rel_err(torch, dec, logits)
-    if not dvp < LOGITS_REL:
-        raise AssertionError(f"decode vs prefill logits: rel {dvp} >= "
-                             f"{LOGITS_REL}")
-    del forced, logits, dec
-
-    def timed(fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t) * 1e3
+    # the graph's tokens are the eager loop's argmax chain (checked); decode
+    # against prefill on the prompt's last position
+    max_len = S + SERVE_NEW
+    dvp, dvp_flips, dvp_held = decode_vs_prefill(torch, cfg, model, batch,
+                                                 max_len)
 
     prefill_ms = statistics.median(
-        timed(lambda: prefill(cfg, model, batch, max_len)) for _ in range(3))
+        timed(torch, lambda: prefill(cfg, model, batch, max_len))
+        for _ in range(3))
+    key = input_key(cfg)
     per_token = []
     for _ in range(2):
         _, caches = prefill(cfg, model, batch, max_len)
 
         def steps(caches=caches):
             for t in range(SERVE_NEW - 1):
-                decode_step(cfg, model, {"tokens": out[:, t:t + 1]},
-                            SERVE_PROMPT + t, caches)
+                decode_step(cfg, model, {key: out[:, t:t + 1]}, S + t,
+                            caches)
 
-        per_token.append(timed(steps) / (SERVE_NEW - 1))
+        per_token.append(timed(torch, steps) / (SERVE_NEW - 1))
     decode_ms = statistics.median(per_token)
     eager_ms = statistics.median(
-        timed(lambda: teacher_forced(cfg, model, prompt, out, device))
+        timed(torch, lambda: teacher_forced(cfg, model, batch, out[:, :-1],
+                                            device))
         for _ in range(3))
-    replay_ms = [timed(generate) for _ in range(3)]
+    replay_ms = [timed(torch, generate) for _ in range(3)]
     generate_ms = statistics.median(replay_ms)
     # the graph alone on the card's clock (CUDA events around one replay)
     graph_ms = event_us(graph.graph.replay, torch, reps=3, warmup=1) / 1e3
@@ -1686,15 +1946,15 @@ def run_serve(torch, device):
         "prefill": device_share(torch, lambda: prefill(cfg, model, batch,
                                                        max_len)),
         "decode step": device_share(torch, lambda: decode_step(
-            cfg, model, {"tokens": out[:, :1]}, SERVE_PROMPT, caches)),
+            cfg, model, {key: out[:, :1]}, S, caches)),
         "greedy_generate (replayed)": device_share(torch, generate),
     }
     replayed = shares["greedy_generate (replayed)"]
     if replayed["graph_launches"] != 1 or replayed["launch_calls"] \
             or replayed["driver_launch_calls"]:
         raise AssertionError(
-            f"a replayed call made {replayed['graph_launches']} graph "
-            f"launches and {replayed['launch_calls']} + "
+            f"{label}: a replayed call made {replayed['graph_launches']} "
+            f"graph launches and {replayed['launch_calls']} + "
             f"{replayed['driver_launch_calls']} kernel launches; expected "
             "1 and 0")
     # the kernels the graph holds: prefill's and SERVE_NEW - 1 decode
@@ -1705,7 +1965,9 @@ def run_serve(torch, device):
         config=dict(arch=cfg.arch_id, quant=cfg.quant,
                     quant_mode=cfg.quant_mode, n_layers=L,
                     d_model=cfg.d_model, vocab=V, batch=SERVE_BATCH,
-                    prompt=SERVE_PROMPT, new_tokens=SERVE_NEW),
+                    prompt=SERVE_PROMPT, prompt_positions=S,
+                    new_tokens=SERVE_NEW,
+                    moe_impl=cfg.moe.impl if cfg.moe else None),
         init_s=init_s, first_generate_ms=first_ms,
         warmup_ms=graph.warmup_s * 1e3, capture_ms=graph.capture_s * 1e3,
         graph_pool_bytes=graph.pool_bytes, weights_gb=weights_gb,
@@ -1713,17 +1975,23 @@ def run_serve(torch, device):
         eager_loop_ms=eager_ms, generate_ms=generate_ms,
         generate_replays_ms=replay_ms, graph_ms=graph_ms,
         graph_kernels_ms=kernels_ms, first_call=first,
-        decode_vs_prefill_rel=dvp, tokens=out.cpu().tolist(),
-        profile=shares, routes=routes, flash_routes=flash_routes)
-    say(f"serve {cfg.arch_id} {cfg.quant} {cfg.quant_mode} ({L} layers, "
-        f"d_model {cfg.d_model}): batch {SERVE_BATCH}, prompt "
-        f"{SERVE_PROMPT}, {SERVE_NEW} new tokens; eager: prefill "
+        decode_vs_prefill_rel=dvp, decode_vs_prefill_flips=dvp_flips,
+        decode_vs_prefill_held=dvp_held, tokens=out.cpu().tolist(),
+        profile=shares, routes=routes, flash_routes=flash_routes,
+        variants=other)
+    dvp_note = (f"(bound {LOGITS_REL})" if dvp_held else
+                "(MoE: measured, not held; the last token's routing "
+                f"between the two: {say_flips(dvp_flips)})")
+    say(f"{label} {cfg_name(cfg)} ({L} layers, d_model {cfg.d_model}): "
+        f"batch {SERVE_BATCH}, prompt {SERVE_PROMPT}"
+        + (f" after {cfg.n_patches} patches" if S != SERVE_PROMPT else "")
+        + f", {SERVE_NEW} new tokens; eager: prefill "
         f"{prefill_ms:.2f} ms, decode {decode_ms:.2f} ms per token, the "
         f"loop (prefill + {SERVE_NEW - 1} steps) {eager_ms:.2f} ms; "
         f"{weights_gb:.2f} GB of weights on the card, peak {peak_gb:.2f} "
-        f"GB; decode vs prefill logits rel {dvp:.3e} (bound {LOGITS_REL}); "
+        f"GB; decode vs prefill logits rel {dvp:.3e} {dvp_note}; "
         f"launches per call {json.dumps(launches)}")
-    say(f"serve greedy_generate as one CUDA graph: first call "
+    say(f"{label} greedy_generate as one CUDA graph: first call "
         f"{first_ms:.2f} ms (warm-up {graph.warmup_s * 1e3:.2f} ms, capture "
         f"{graph.capture_s * 1e3:.2f} ms, then one replay; launches "
         f"{json.dumps(first['launches'])}); replayed call {generate_ms:.2f} "
@@ -1735,8 +2003,18 @@ def run_serve(torch, device):
         f"{replayed['graph_launches']} cudaGraphLaunch and "
         f"{replayed['launch_calls'] + replayed['driver_launch_calls']} "
         "kernel launches per replayed call")
+    for name, v in other.items():
+        say(f"{label} {name} on the same weights: first call "
+            f"{v['first_generate_ms']:.2f} ms, replayed call "
+            f"{v['generate_ms']:.2f} ms (median of "
+            + ", ".join(f"{t:.2f}" for t in v["generate_replays_ms"])
+            + f"); graph pool {v['graph_pool_bytes']} bytes; DECODE_STATS 1 "
+            f"per call; tokens == its eager loop's argmax chain, bit for "
+            f"bit ({v['tokens_equal_to']} of {SERVE_BATCH * SERVE_NEW} equal "
+            f"to {cfg.moe.impl}'s); launches per call "
+            + json.dumps(v["launches"]))
     for name, sh in shares.items():
-        say_share(f"serve {name}", sh)
+        say_share(f"{label} {name}", sh)
     flash_ms = {name: sum(k["ms"] for k in sh["top"] if "flash_" in k["name"])
                 for name, sh in shares.items()}
     # pim_matmul's kernels and the ordered sum of their K splits
@@ -1745,86 +2023,272 @@ def run_serve(torch, device):
                         or "reduce_splits" in k["name"])
               for name, sh in shares.items()}
     record["flash_ms"], record["pim_matmul_ms"] = flash_ms, pim_ms
-    say(f"serve prefill: {shares['prefill']['device_ms']:.3f} ms of "
+    say(f"{label} prefill: {shares['prefill']['device_ms']:.3f} ms of "
         f"kernels, pim_matmul {pim_ms['prefill']:.3f} ms and flash_attn "
-        f"{flash_ms['prefill']:.3f} ms of it (with the tiled kernel at "
-        f"prefill, one H100 took 44.793 ms, flash 3.619 ms of it)")
-    say(f"serve decode step: {shares['decode step']['device_ms']:.3f} ms of "
-        f"kernels, pim_matmul {pim_ms['decode step']:.3f} ms and flash_attn "
-        f"{flash_ms['decode step']:.3f} ms of it (with the CUDA-core "
-        f"pim_matmul at decode, one H100 took 17.05-17.19 ms, pim_matmul "
-        f"10.048 ms of it)")
+        f"{flash_ms['prefill']:.3f} ms of it"
+        + (" (with the tiled kernel at prefill, one H100 took 44.793 ms, "
+           "flash 3.619 ms of it)" if notes else ""))
+    say(f"{label} decode step: {shares['decode step']['device_ms']:.3f} ms "
+        f"of kernels, pim_matmul {pim_ms['decode step']:.3f} ms and "
+        f"flash_attn {flash_ms['decode step']:.3f} ms of it"
+        + (" (with the CUDA-core pim_matmul at decode, one H100 took "
+           "17.05-17.19 ms, pim_matmul 10.048 ms of it)" if notes else ""))
     del model, caches, graph
     gc.collect()
     torch.cuda.empty_cache()
     record["left_gb"] = (torch.cuda.memory_allocated() - base) / 1e9
-    say(f"serve: {record['left_gb']:.3f} GB still allocated after the model "
-        "and its graphs are freed")
+    say(f"{label}: {record['left_gb']:.3f} GB still allocated after the "
+        "model and its graphs are freed")
     return record, launches, routes, flash_routes
 
 
-def run_lm_parity(torch, device):
+def run_audio(torch, device, cfg, label):
+    """An audio-frame model through ``prefill`` and teacher-forced
+    ``decode_step`` on seeded frames (its ``greedy_generate`` returns the
+    empty result for zero tokens and raises for more, as the reference's
+    does): launch counts of one loop (reset just before, read just after),
+    the loop's logits finite, (B, 1, n_codebooks, V) and the same on a
+    second run bit for bit, decode against prefill, the eager ms and the
+    busy shares. Returns (record, launches, flash routes)."""
+    import gc
+
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.serve.engine import greedy_generate
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = init_params(cfg, 0, device=device)
+    torch.cuda.synchronize()
+    weights_gb = (torch.cuda.memory_allocated() - base) / 1e9
+    batch = prompt_batch(torch, cfg, 12, SERVE_BATCH, SERVE_PROMPT, device)
+    feed = seeded_normal(torch, 14, (SERVE_BATCH, SERVE_NEW - 1,
+                                     cfg.d_model), device)
+    if greedy_generate(cfg, model, batch, max_new_tokens=0).shape \
+            != (SERVE_BATCH, 0):
+        raise AssertionError(f"{label}: zero tokens is not the empty result")
+    try:
+        greedy_generate(cfg, model, batch, max_new_tokens=1)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError(f"{label}: greedy_generate served an audio "
+                             "model")
+
+    def loop():
+        return teacher_forced(cfg, model, batch, feed, device)
+
+    logits, loop_ms, counts = counted(torch, loop)
+    check_counts(label, counts, cfg, SERVE_NEW)
+    again = loop()
+    shape = (SERVE_BATCH, 1, cfg.n_codebooks, cfg.vocab_size)
+    if any(tuple(lg.shape) != shape or not torch.isfinite(lg).all()
+           for lg in logits) \
+            or not all(torch.equal(a, b) for a, b in zip(logits, again)):
+        raise AssertionError(f"{label}: logits not finite {shape} or not "
+                             "the same on a second run")
+    S = SERVE_PROMPT
+    max_len = S + SERVE_NEW
+    dvp, _, _ = decode_vs_prefill(torch, cfg, model, batch, max_len)
+    prefill_ms = statistics.median(
+        timed(torch, lambda: prefill(cfg, model, batch, max_len))
+        for _ in range(3))
+    eager_ms = statistics.median(timed(torch, loop) for _ in range(3))
+    _, caches = prefill(cfg, model, batch, max_len)
+    shares = {
+        "prefill": device_share(torch, lambda: prefill(cfg, model, batch,
+                                                       max_len)),
+        "decode step": device_share(torch, lambda: decode_step(
+            cfg, model, {"frame_embeds": feed[:, :1]}, S, caches)),
+    }
+    record = dict(
+        config=dict(arch=cfg.arch_id, n_layers=cfg.n_layers,
+                    d_model=cfg.d_model, batch=SERVE_BATCH, prompt=S,
+                    steps=SERVE_NEW - 1),
+        weights_gb=weights_gb, first_loop_ms=loop_ms, prefill_ms=prefill_ms,
+        eager_loop_ms=eager_ms, decode_vs_prefill_rel=dvp, profile=shares,
+        launches=counts["launches"], flash_routes=counts["flash_routes"])
+    say(f"{label} {cfg.arch_id} ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_codebooks} codebook heads): batch "
+        f"{SERVE_BATCH}, {S} seeded frames, prefill + {SERVE_NEW - 1} "
+        f"teacher-forced decode steps on seeded frames; eager: prefill "
+        f"{prefill_ms:.2f} ms, the loop {eager_ms:.2f} ms (first "
+        f"{loop_ms:.2f}); {weights_gb:.2f} GB of weights; logits {shape} "
+        f"finite, equal on a second run; decode vs prefill rel {dvp:.3e} "
+        f"(bound {LOGITS_REL}); greedy_generate: empty at 0 tokens, "
+        f"ValueError at 1 (as the reference's KeyError); launches per loop "
+        f"{json.dumps(counts['launches'])}")
+    for name, sh in shares.items():
+        say_share(f"{label} {name}", sh)
+    del model, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return record, counts["launches"], counts["flash_routes"]
+
+
+def moe_parity(torch, cfg, model, device):
+    """The first MoE layer's FFN of ``model`` on identical seeded inputs,
+    on the card in both dispatches; returns a function that, given the
+    model moved to the CPU, runs the same there and compares: per token,
+    the card's output within LOGITS_REL of max |y| of the CPU's wherever
+    the router's top-k agrees (the router logits are float32 products
+    that the two sides sum in other orders, so a choice whose margin lies
+    inside that rounding may differ: reported, held inside the
+    rounding)."""
+    import dataclasses
+
+    from repro_torch.models import ffn as ffn_mod
+    dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    x = seeded_normal(torch, 16, (PARITY_BATCH, PARITY_PROMPT, cfg.d_model),
+                      device).to(dt)
+    cfgs = {impl: dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, impl=impl)) for impl in ("einsum", "gather")}
+
+    def run(p, x):
+        probs = torch.softmax(x.reshape(-1, cfg.d_model).float() @ p.router,
+                              -1).cpu()
+        return probs, {impl: ffn_mod.moe_ffn(c, p, x)[0].reshape(
+            -1, cfg.d_model).cpu() for impl, c in cfgs.items()}
+
+    card_probs, card_y = run(model.layers[0].ffn, x)
+
+    def compare(cpu_model):
+        cpu_probs, cpu_y = run(cpu_model.layers[0].ffn, x.cpu())
+        flips = router_flips(torch, cfg, [cpu_probs], [card_probs],
+                             lambda i, row: (row, 0, 0))
+        check_flips(flips, "MoE layer on identical inputs")
+        rows = sorted(set(range(card_probs.shape[0]))
+                      - {f["request"] for f in flips})
+        impls = {impl: {"rel": rel_err(torch, card_y[impl][rows],
+                                       cpu_y[impl][rows]),
+                        "held": len(rows)} for impl in cfgs}
+        bad = {k: v for k, v in impls.items() if not v["rel"] < LOGITS_REL}
+        if bad:
+            raise AssertionError(f"MoE layer card vs CPU: {bad}; "
+                                 + say_flips(flips))
+        return {"tokens": card_probs.shape[0], "flips": flips,
+                "impls": impls}
+
+    return compare
+
+
+def run_lm_parity(torch, device, cfg=None, label="lm parity"):
     """Full width, PARITY_LAYERS layers: greedy_generate on the card (one
     graph replay), its tokens the card's eager argmax chain; then the same
     weights and tokens teacher-forced on the CPU, and the CPU's eager
     greedy_generate, whose tokens must equal the card's wherever the card's
-    top-2 margin exceeds twice the bound."""
+    top-2 margin exceeds twice the bound. An audio model: seeded frames
+    teacher-forced on both. A MoE model: both sides' router choices
+    recorded; a request is held from the first position a routing flip
+    (which must lie inside the rounding) reaches."""
     from repro_torch.models import init_params
     from repro_torch.serve import engine
     from repro_torch.serve.engine import greedy_generate
 
-    cfg = lm_config(n_layers=PARITY_LAYERS)
+    cfg = cfg or lm_config(n_layers=PARITY_LAYERS)
+    audio = cfg.frontend == "audio_frames"
     model = init_params(cfg, 1, device=device)
-    prompt = prompt_tokens(torch, 13, PARITY_BATCH, PARITY_PROMPT,
-                           cfg.vocab_size, device)
-    engine.DECODE_STATS["dispatches"] = 0
-    toks = greedy_generate(cfg, model, {"tokens": prompt},
-                           max_new_tokens=PARITY_NEW)
-    if engine.DECODE_STATS["dispatches"] != 1:
-        raise AssertionError("lm parity: not one dispatch on the card")
-    card = [lg.cpu() for lg in teacher_forced(cfg, model, prompt, toks,
-                                              device)]
-    toks = toks.cpu()
-    if not torch.equal(toks, argmax_chain(torch, cfg, card)):
-        raise AssertionError("lm parity: the graph's tokens are not the "
-                             "argmax chain")
+    batch = prompt_batch(torch, cfg, 13, PARITY_BATCH, PARITY_PROMPT,
+                         device)
+    S = prompt_len(cfg, batch)
+    if audio:
+        feed = seeded_normal(torch, 15, (PARITY_BATCH, PARITY_NEW - 1,
+                                         cfg.d_model), device)
+    else:
+        engine.DECODE_STATS["dispatches"] = 0
+        toks = greedy_generate(cfg, model, batch, max_new_tokens=PARITY_NEW)
+        if engine.DECODE_STATS["dispatches"] != 1:
+            raise AssertionError(f"{label}: not one dispatch on the card")
+        feed = toks[:, :-1]
+    with RouterLog(torch) as card_log:
+        card = [lg.cpu() for lg in teacher_forced(cfg, model, batch, feed,
+                                                  device)]
+    moe = moe_parity(torch, cfg, model, device) if cfg.moe else None
+    if not audio:
+        toks = toks.cpu()
+        if not torch.equal(toks, argmax_chain(torch, cfg, card)):
+            raise AssertionError(f"{label}: the graph's tokens are not the "
+                                 "argmax chain")
     model.to("cpu")
     if model.generate_graphs:
-        raise AssertionError("lm parity: moving the model kept its graphs")
+        raise AssertionError(f"{label}: moving the model kept its graphs")
+    batch = {k: v.cpu() for k, v in batch.items()}
     t = time.perf_counter()
-    cpu = teacher_forced(cfg, model, prompt.cpu(), toks, "cpu")
-    cpu_toks = greedy_generate(cfg, model, {"tokens": prompt.cpu()},
-                               max_new_tokens=PARITY_NEW, device="cpu")
+    with RouterLog(torch) as cpu_log:
+        cpu = teacher_forced(cfg, model, batch, feed.cpu(), "cpu")
+    if not audio:
+        cpu_toks = greedy_generate(cfg, model, batch,
+                                   max_new_tokens=PARITY_NEW, device="cpu")
     cpu_s = time.perf_counter() - t
-    rels = [rel_err(torch, a, b) for a, b in zip(card, cpu)]
+    flips = []
+    if cfg.moe is not None:
+        moe = moe(model)
+        n_moe = cfg.n_layers - cfg.moe.first_k_dense
+
+        def where(i, row):
+            step, layer = divmod(i, n_moe)
+            b, pos = divmod(row, S) if step == 0 else (row, S + step - 1)
+            return b, pos, layer
+
+        flips = router_flips(torch, cfg, cpu_log.calls, card_log.calls,
+                             where)
+        check_flips(flips, label)
+
+    def held(step):
+        reached = {f["request"] for f in flips
+                   if f["position"] <= S - 1 + step}
+        return [b for b in range(PARITY_BATCH) if b not in reached]
+
+    rels = [rel_err(torch, a[held(t)], b[held(t)]) if held(t) else None
+            for t, (a, b) in enumerate(zip(card, cpu))]
     if not all(torch.isfinite(a).all() for a in card) \
-            or max(rels) >= LOGITS_REL:
-        raise AssertionError(f"lm parity: card vs CPU logits rel {rels} "
-                             f"(bound {LOGITS_REL})")
-    checked = 0
-    for b in range(PARITY_BATCH):
-        for t, lg in enumerate(card):
-            row = lg[b, 0, :cfg.vocab_size].double()
-            top2 = row.topk(2).values
-            if top2[0] - top2[1] <= 2 * LOGITS_REL * row.abs().max():
-                break
-            if cpu_toks[b, t] != toks[b, t]:
-                raise AssertionError(f"lm parity: request {b} token {t}: "
-                                     f"CPU {int(cpu_toks[b, t])}, card "
-                                     f"{int(toks[b, t])}")
-            checked += 1
-    say(f"lm parity {cfg.arch_id} {cfg.quant} {cfg.quant_mode} at full "
-        f"width, {PARITY_LAYERS} layers, batch {PARITY_BATCH}, prompt "
-        f"{PARITY_PROMPT}, {PARITY_NEW} tokens: card (one graph replay, "
-        f"kernels) vs CPU (eager, plain versions) logits rel per step "
-        + ", ".join(f"{r:.3e}" for r in rels)
-        + f" (bound {LOGITS_REL}); the CPU's greedy tokens: "
-        f"{int((cpu_toks == toks).sum())} of {toks.numel()} equal to the "
-        f"card's, {checked} held to them (those before a card top-2 margin "
-        f"within twice the bound); CPU run {cpu_s:.1f} s")
-    return {"rel_per_step": rels, "cpu_s": cpu_s,
-            "tokens": toks.tolist(), "cpu_tokens": cpu_toks.tolist(),
-            "tokens_checked": checked}
+            or any(r is not None and not r < LOGITS_REL for r in rels):
+        raise AssertionError(f"{label}: card vs CPU logits rel {rels} "
+                             f"(bound {LOGITS_REL}); {say_flips(flips)}")
+    checked = equal = 0
+    if not audio:
+        equal = int((cpu_toks == toks).sum())
+        for b in range(PARITY_BATCH):
+            for t, lg in enumerate(card):
+                if b not in held(t):
+                    break
+                row = lg[b, 0, :cfg.vocab_size].double()
+                top2 = row.topk(2).values
+                if top2[0] - top2[1] <= 2 * LOGITS_REL * row.abs().max():
+                    break
+                if cpu_toks[b, t] != toks[b, t]:
+                    raise AssertionError(
+                        f"{label}: request {b} token {t}: CPU "
+                        f"{int(cpu_toks[b, t])}, card {int(toks[b, t])}")
+                checked += 1
+    what = (f"{PARITY_PROMPT} frames, {PARITY_NEW - 1} teacher-forced "
+            "frames" if audio else
+            f"prompt {PARITY_PROMPT}"
+            + (f" after {cfg.n_patches} patches" if S != PARITY_PROMPT
+               else "") + f", {PARITY_NEW} tokens")
+    say(f"{label} {cfg_name(cfg)} at full width, {PARITY_LAYERS} layers, "
+        f"batch "
+        f"{PARITY_BATCH}, {what}: card ("
+        + ("eager, kernels" if audio else "one graph replay, kernels")
+        + ") vs CPU (eager, plain versions) logits rel per step "
+        + ", ".join("not held" if r is None else f"{r:.3e}" for r in rels)
+        + f" (bound {LOGITS_REL})"
+        + (f"; {say_flips(flips)}" if cfg.moe is not None else "")
+        + ("" if audio else
+           f"; the CPU's greedy tokens: {equal} of {toks.numel()} equal to "
+           f"the card's, {checked} held to them (those before a card top-2 "
+           f"margin within twice the bound)")
+        + f"; CPU run {cpu_s:.1f} s")
+    out = {"rel_per_step": rels, "cpu_s": cpu_s, "flips": flips,
+           "tokens_checked": checked, "moe_layer": moe}
+    if moe is not None:
+        say(f"{label} {cfg.arch_id} MoE layer 0 at full width on identical "
+            f"inputs ({moe['tokens']} tokens), card vs CPU: "
+            + "; ".join(f"{impl} rel {r['rel']:.3e} on {r['held']} tokens"
+                        for impl, r in moe["impls"].items())
+            + f" (bound {LOGITS_REL}); {say_flips(moe['flips'])}")
+    if not audio:
+        out.update(tokens=toks.tolist(), cpu_tokens=cpu_toks.tolist())
+    return out
 
 
 def say_share(name: str, sh: dict) -> None:
@@ -2922,7 +3386,7 @@ def main() -> int:
     # with the launch counts reset just before a replayed call and read
     # just after it (inside run_serve)
     record["serve"], lm_launches, lm_routes, flash_routes = run_serve(
-        torch, device)
+        torch, device, notes=True)
     say("kernels serve " + json.dumps(lm_launches) + " routes "
         + json.dumps(lm_routes) + " flash routes "
         + json.dumps(flash_routes))
@@ -3017,6 +3481,46 @@ def main() -> int:
     # 15. Tables 4 and 5
     record["tables"] = phase_tables(torch, device)
 
+    # 16. the MoE, MLA and frontend families' serving paths at their
+    # published widths, with the launch counts reset just before a
+    # replayed call (an audio model: its loop) and read just after it
+    families = record["families"] = {}
+    family_counts = {}
+    for label, arch, overrides, depth, impls in FAMILIES:
+        cut = {} if depth is None else {"n_layers": depth}
+        cfg = family_config(arch, overrides, **cut)
+        if cfg.frontend == "audio_frames":
+            families[label], f_launches, f_flash = run_audio(
+                torch, device, cfg, label)
+            f_routes = None
+        else:
+            variants = [family_config(arch, overrides, impl=impl, **cut)
+                        for impl in impls]
+            families[label], f_launches, f_routes, f_flash = run_serve(
+                torch, device, cfg, label, variants=variants)
+        family_counts[label] = (f_launches, f_routes, f_flash)
+        say(f"kernels {label} " + json.dumps(f_launches)
+            + ("" if f_routes is None else " routes " + json.dumps(f_routes))
+            + " flash routes " + json.dumps(f_flash))
+    # the slice's main path: both routes of each LM kernel ran
+    ds_launches, ds_routes, ds_flash = family_counts["serve-deepseek"]
+    idle = [k for k, v in (("pim_matmul[tensor_core]",
+                            ds_routes["tensor_core"]),
+                           ("pim_matmul[swap_ab]", ds_routes["swap_ab"]),
+                           ("flash_attn[tensor_core]",
+                            ds_flash["tensor_core"]),
+                           ("flash_attn[split_kv]", ds_flash["split_kv"]))
+            if v == 0]
+    if idle:
+        raise AssertionError(f"routes never launched on the deepseek "
+                             f"path: {idle}")
+
+    # 17. each family's card against the CPU at full width, 2 layers
+    record["families_parity"] = {
+        label: run_lm_parity(torch, device, family_config(
+            arch, overrides, n_layers=PARITY_LAYERS))
+        for label, arch, overrides, _, _ in FAMILIES}
+
     # the row entries at the full device's 64 slots, in place (as most of
     # the main path's segments run); every shape is in chip_smoke.json
     table = []
@@ -3063,6 +3567,20 @@ def main() -> int:
         table.append({
             "name": row, "route": "cuda", "source": SOURCES[kernel],
             "replaces": REPLACES[kernel], "launches": launched,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # MLA's flash rows at the deepseek path's shapes (decode over its
+    # 144-slot latent cache, prefill at 128 tokens), launched on phase 16's
+    # deepseek path
+    for row, launched in (("flash_attn[decode,mla,144]",
+                           ds_flash["split_kv"]),
+                          ("flash_attn[prefill,mla]",
+                           ds_flash["tensor_core"])):
+        r = lm_rows[row]
+        table.append({
+            "name": row, "route": "cuda", "source": SOURCES["flash_attn"],
+            "replaces": REPLACES["flash_attn"], "launches": launched,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

@@ -1,9 +1,10 @@
 """Architecture registry: ``get_config("<arch-id>")`` / ``--arch <id>``.
 
 The port's own copy of the reference's configurations (plain dataclasses),
-so that it imports nothing of the reference package. Only the dense family
-without a frontend runs in the port's models; ``models.init_params`` says
-which configurations wait.
+so that it imports nothing of the reference package. The port's models
+run every attention family (dense, MoE, MLA, the vision and audio
+frontends); ``models.init_params`` raises for the recurrent ones (SSM,
+RG-LRU), which wait.
 """
 from __future__ import annotations
 

@@ -98,9 +98,13 @@ def _exact(a, np_dtype, device) -> torch.Tensor:
 
 def lm_params_from_numpy(cfg, params: dict, device=None):
     """The port's model from the reference's ``init_params`` pytree, its
-    leaves as numpy arrays. The stacked ``(L, ...)`` layer leaves are
-    sliced per layer; quantized linears keep ``w_int`` int8 and ``scales``
-    float32 exactly; float weights take the config's dtype."""
+    leaves as numpy arrays: the ``stack`` and, for an MoE config with
+    ``first_k_dense``, the ``dense_head_layers``; GQA or MLA attention;
+    dense or MoE FFNs (the float32 ``router``, the stacked experts, the
+    ``shared`` FFN); ``lm_head``, or the audio frontend's ``heads``. The
+    stacked ``(L, ...)`` layer leaves are sliced per layer; quantized
+    linears keep ``w_int`` int8 and ``scales`` float32 exactly, the router
+    stays float32; other float weights take the config's dtype."""
     from .models import attention, ffn, transformer
     from .models.common import Linear, Norm, dtype_of
 
@@ -108,35 +112,60 @@ def lm_params_from_numpy(cfg, params: dict, device=None):
     device = resolve_device(device)
     dt = dtype_of(cfg)
 
-    def flt(a):
-        return _float(a, dt, device)
+    def flt(a, dtype=dt):
+        return _float(a, dtype, device)
+
+    def at(a, i):
+        return np.asarray(a)[i]
 
     def norm(p, i=None):
-        pick = (lambda a: a) if i is None else (lambda a: np.asarray(a)[i])
+        pick = (lambda a: a) if i is None else (lambda a: at(a, i))
         return Norm(flt(pick(p["w"])),
                     flt(pick(p["b"])) if "b" in p else None)
 
     def lin(p, i):
-        b = flt(np.asarray(p["b"])[i]) if "b" in p else None
+        b = flt(at(p["b"], i)) if "b" in p else None
         if "w_int" in p:
-            return Linear(
-                w_int=_exact(np.asarray(p["w_int"])[i], np.int8, device),
-                scales=_exact(np.asarray(p["scales"])[i], np.float32,
-                              device), b=b)
-        return Linear(flt(np.asarray(p["w"])[i]), b=b)
+            return Linear(w_int=_exact(at(p["w_int"], i), np.int8, device),
+                          scales=_exact(at(p["scales"], i), np.float32,
+                                        device), b=b)
+        return Linear(flt(at(p["w"], i)), b=b)
 
-    stack = params["stack"]
-    a, f = stack["attn"], stack["ffn"]
-    layers = []
-    for i in range(cfg.n_layers):
-        opt = {k: flt(np.asarray(a[k])[i]) for k in
+    def dense(f, i):
+        return ffn.DenseFFN(lin(f["w1"], i), lin(f["w2"], i),
+                            lin(f["w3"], i) if "w3" in f else None)
+
+    def attn_p(a, i):
+        if cfg.attn_type == "mla":
+            return attention.MLA(*(flt(at(a[k], i)) for k in (
+                "w_dkv", "kv_norm", "w_uk", "w_uv", "w_q", "w_o")))
+        opt = {k: flt(at(a[k], i)) for k in
                ("bq", "bk", "bv", "q_norm", "k_norm") if k in a}
-        gqa = attention.GQA(*(flt(np.asarray(a[k])[i])
-                              for k in ("wq", "wk", "wv", "wo")), **opt)
-        dense = ffn.DenseFFN(lin(f["w1"], i), lin(f["w2"], i),
-                             lin(f["w3"], i) if "w3" in f else None)
-        layers.append(transformer.TFLayer(norm(stack["ln1"], i), gqa,
-                                          norm(stack["ln2"], i), dense))
+        return attention.GQA(*(flt(at(a[k], i))
+                               for k in ("wq", "wk", "wv", "wo")), **opt)
+
+    def ffn_p(f, i, moe):
+        if not moe:
+            return dense(f, i)
+        shared = dense(f["shared"], i) if "shared" in f else None
+        return ffn.MoEFFN(flt(at(f["router"], i), torch.float32),
+                          *(flt(at(f[k], i)) for k in ("w1", "w3", "w2")),
+                          shared)
+
+    def layers_of(stack, moe):
+        n = np.asarray(stack["ln1"]["w"]).shape[0]
+        return [transformer.TFLayer(norm(stack["ln1"], i),
+                                    attn_p(stack["attn"], i),
+                                    norm(stack["ln2"], i),
+                                    ffn_p(stack["ffn"], i, moe))
+                for i in range(n)]
+
+    moe = cfg.moe is not None
+    dense_head = (layers_of(params["dense_head_layers"], False)
+                  if "dense_head_layers" in params else [])
     lm_head = flt(params["lm_head"]) if "lm_head" in params else None
-    return transformer.LM(cfg, flt(params["embed"]), layers,
-                          norm(params["final_norm"]), lm_head)
+    heads = flt(params["heads"]) if "heads" in params else None
+    return transformer.LM(cfg, flt(params["embed"]),
+                          layers_of(params["stack"], moe),
+                          norm(params["final_norm"]), lm_head,
+                          dense_head_layers=dense_head, heads=heads)

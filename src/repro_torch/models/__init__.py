@@ -1,4 +1,5 @@
-"""Model zoo of the port: the dense decoder family (prefill and decode)."""
+"""Model zoo of the port: the attention families (dense, MoE, MLA, the
+vision-patch and audio-frame frontends), prefill and decode."""
 from .transformer import LM, decode_step, init_caches, init_params, prefill
 
 __all__ = ["LM", "decode_step", "init_caches", "init_params", "prefill"]

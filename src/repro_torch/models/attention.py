@@ -1,7 +1,8 @@
-"""Attention: GQA/MQA (+RoPE, qk-norm, bias, sliding window).
+"""Attention: GQA/MQA (+RoPE, qk-norm, bias, sliding window) and
+DeepSeek-V2 MLA (with the absorbed-projection decode path).
 
-Port of the GQA part of ``repro.models.attention``; MLA waits (ROADMAP
-A10). Every softmax goes through ``chunked_attention``:
+Port of ``repro.models.attention``. Every softmax goes through
+``chunked_attention``:
 
 - ``impl="flash"`` runs the flash-attention forward of
   ``kernels/flash_attn`` (the CUDA kernel for a CUDA tensor, its plain
@@ -11,8 +12,16 @@ A10). Every softmax goes through ``chunked_attention``:
   over query and key chunks.
 
 The reference's ``sp_attn`` sharding constraints are no-ops on one card.
-Decode caches are updated in place: ``gqa_decode`` writes the new key and
-value into the cache it is given and returns that cache.
+Decode caches are updated in place: ``gqa_decode`` and ``mla_decode``
+write the new token's entries into the cache they are given and return
+that cache.
+
+MLA's prefill materializes per-head keys (192 = nope 128 + rope 64) and
+values (128), one kv head per query head; its decode absorbs W_uk into the
+query and scores against the cached [latent ⊕ rope] stream (576 wide, one
+kv head for all 16 query heads, values the 512-wide latent). On the card
+the first takes the flash kernel's tensor-core route, the second its
+split-over-keys route.
 """
 from __future__ import annotations
 
@@ -191,5 +200,124 @@ def gqa_init_cache(cfg, batch: int, max_len: int, device):
         "k": torch.zeros((batch, cache_len, KV, dh), dtype=dt, device=device),
         "v": torch.zeros((batch, cache_len, KV, dh), dtype=dt, device=device),
         "kpos": torch.full((batch, cache_len), -1, dtype=torch.int32,
+                           device=device),
+    }
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+class MLA(nn.Module):
+    """``w_dkv`` (D, rank + rope), ``kv_norm`` (rank,), ``w_uk`` (rank, H,
+    nope), ``w_uv`` (rank, H, v), ``w_q`` (D, H·(nope + rope)), ``w_o``
+    (H·v, D)."""
+
+    def __init__(self, w_dkv, kv_norm, w_uk, w_uv, w_q, w_o):
+        super().__init__()
+        self.w_dkv, self.kv_norm = frozen(w_dkv), frozen(kv_norm)
+        self.w_uk, self.w_uv = frozen(w_uk), frozen(w_uv)
+        self.w_q, self.w_o = frozen(w_q), frozen(w_o)
+
+
+def init_mla(gen: torch.Generator, cfg) -> MLA:
+    m = cfg.mla
+    D, H = cfg.d_model, cfg.n_heads
+    r, nope, rope, vd = (m.kv_lora_rank, m.qk_nope_head_dim,
+                         m.qk_rope_head_dim, m.v_head_dim)
+    dt = dtype_of(cfg)
+    return MLA(w_dkv=dense_init(gen, D, r + rope, dt),
+               kv_norm=torch.ones((r,), dtype=dt, device=gen.device),
+               w_uk=dense_init(gen, r, H * nope, dt).reshape(r, H, nope),
+               w_uv=dense_init(gen, r, H * vd, dt).reshape(r, H, vd),
+               w_q=dense_init(gen, D, H * (nope + rope), dt),
+               w_o=dense_init(gen, H * vd, D, dt))
+
+
+def _mla_q(cfg, p: MLA, x, positions):
+    m = cfg.mla
+    B, S, _ = x.shape
+    q = (x @ p.w_q).reshape(B, S, cfg.n_heads,
+                            m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope = torch.split(
+        q, [m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_ckv(cfg, p: MLA, x, positions):
+    m = cfg.mla
+    c_kv, k_rope = torch.split(x @ p.w_dkv,
+                               [m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
+    c_kv = rmsnorm(c_kv, p.kv_norm)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0, :]
+    return c_kv, k_rope
+
+
+def _mla_scale(m) -> float:
+    return 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+
+
+def mla_train(cfg, p: MLA, x, positions):
+    """Non-absorbed path: per-head keys and values, one softmax over the
+    nope ⊕ rope features. Returns (out, (c_kv, k_rope) for the cache)."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H, r = cfg.n_heads, m.kv_lora_rank
+    q_nope, q_rope = _mla_q(cfg, p, x, positions)
+    c_kv, k_rope = _mla_ckv(cfg, p, x, positions)
+    k_nope = (c_kv @ p.w_uk.reshape(r, -1)).reshape(B, S, H, -1)
+    v = (c_kv @ p.w_uv.reshape(r, -1)).reshape(B, S, H, m.v_head_dim)
+    qc = torch.cat([q_nope, q_rope], dim=-1)[:, :, :, None, :]  # (B,S,H,1,.)
+    kc = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        B, S, H, m.qk_rope_head_dim)], dim=-1)
+    out = chunked_attention(qc, kc, v, positions, positions,
+                            scale=_mla_scale(m), q_chunk=cfg.attn_q_chunk,
+                            k_chunk=cfg.attn_k_chunk, impl=cfg.attn_impl)
+    out = out.reshape(B, S, H * m.v_head_dim)
+    return out @ p.w_o, (c_kv, k_rope)
+
+
+def mla_decode(cfg, p: MLA, x, pos: int, cache):
+    """Absorbed path at absolute position ``pos``: W_uk folded into the
+    query, which scores against the cached [latent ⊕ rope] stream; the
+    latent context is lifted by W_uv. cache: {ckv: (B, Sc, rank), krope:
+    (B, Sc, rope), kpos: (B, Sc)}, written in place at slot ``pos`` (the
+    last slot past the end, as the reference's ``dynamic_update_slice``
+    clamps) and returned."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    if S != 1:
+        raise ValueError(f"mla_decode takes one token, got {S}")
+    H, r = cfg.n_heads, m.kv_lora_rank
+    pos = int(pos)
+    positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_rope = _mla_q(cfg, p, x, positions)
+    c_kv, k_rope = _mla_ckv(cfg, p, x, positions)
+    ck, cr, kpos = cache["ckv"], cache["krope"], cache["kpos"]
+    slot = min(max(pos, 0), ck.shape[1] - 1)
+    ck[:, slot] = c_kv[:, 0]
+    cr[:, slot] = k_rope[:, 0]
+    kpos[:, slot] = pos
+    q_abs = torch.einsum("bthd,rhd->bthr", q_nope, p.w_uk)
+    qc = torch.cat([q_abs, q_rope], dim=-1)[:, :, None, :, :]   # (B,1,1,H,.)
+    kc = torch.cat([ck, cr], dim=-1)[:, :, None, :]             # (B,Sc,1,.)
+    ctx = chunked_attention(qc, kc, ck[:, :, None, :], positions, kpos,
+                            q_chunk=1, k_chunk=cfg.attn_k_chunk,
+                            scale=_mla_scale(m), impl=cfg.attn_impl)
+    v_ctx = torch.einsum("bthr,rhd->bthd", ctx.reshape(B, 1, H, r), p.w_uv)
+    out = v_ctx.reshape(B, 1, H * m.v_head_dim)
+    return out @ p.w_o, cache
+
+
+def mla_init_cache(cfg, batch: int, max_len: int, device):
+    m = cfg.mla
+    dt = dtype_of(cfg)
+    return {
+        "ckv": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dt,
+                           device=device),
+        "krope": torch.zeros((batch, max_len, m.qk_rope_head_dim), dtype=dt,
+                             device=device),
+        "kpos": torch.full((batch, max_len), -1, dtype=torch.int32,
                            device=device),
     }

@@ -111,6 +111,17 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+def sinusoidal_pos_emb(positions, d_model: int):
+    """float32 (..., d_model): the sines of ``positions`` times the
+    frequencies ``10000^(-i/half)`` in the first half, their cosines in the
+    second."""
+    half = d_model // 2
+    freqs = torch.exp(-math.log(10_000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions[..., None].to(torch.float32) * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Linear — dense or the paper's bit-plane PIM-quantized path
 # ---------------------------------------------------------------------------

@@ -1,16 +1,31 @@
-"""Feed-forward: the dense FFN (SwiGLU / GELU / GeGLU).
+"""Feed-forward variants: dense (SwiGLU / GELU / GeGLU) and Mixture-of-Experts.
 
-Port of the dense part of ``repro.models.ffn``; MoE waits (ROADMAP A10).
-Dense FFNs route through ``common.linear``, so the paper's PIM bit-plane
-quantized path (cfg.quant) applies transparently. The reference's
-``jax.nn.gelu`` defaults to the tanh approximation, and so does the port.
+Port of ``repro.models.ffn``. Dense FFNs route through ``common.linear``,
+so the paper's PIM bit-plane quantized path (cfg.quant) applies
+transparently. The reference's ``jax.nn.gelu`` defaults to the tanh
+approximation, and so does the port.
+
+MoE is the reference's GShard-style capacity dispatch over chunks of
+``dispatch_chunk`` tokens, with over-capacity tokens dropped in slot-major
+priority, in both of its forms: ``impl="einsum"`` (one-hot dispatch in
+bf16, combine in float32) and ``impl="gather"`` (slot tables, a gather and
+a combine). The expert products are plain batched matmuls, as in the
+reference. Nothing here waits on the host: the capacity and the chunks are
+static, one-hots compare against an ``arange`` (no ``num_classes``
+inference), and the gather form sums each token's expert outputs in a
+fixed order (ascending expert, as the reference's serial scatter-add
+does) instead of an atomic ``index_add_``, so a CUDA graph captures it and
+its replays are bit-equal to the eager calls.
 """
 from __future__ import annotations
 
+import math
+
+import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import linear, make_linear_params
+from .common import dtype_of, frozen, linear, make_linear_params
 
 
 class DenseFFN(nn.Module):
@@ -44,3 +59,168 @@ def dense_ffn(cfg, p: DenseFFN, x):
         return linear(cfg, p.w2, _gelu(linear(cfg, p.w1, x))
                       * linear(cfg, p.w3, x))
     return linear(cfg, p.w2, _gelu(linear(cfg, p.w1, x)))
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts
+# ---------------------------------------------------------------------------
+
+class MoEFFN(nn.Module):
+    """A float32 ``router`` (D, E); the stacked experts' ``w1``/``w3``
+    (E, D, F) and ``w2`` (E, F, D) in the model's dtype; and a ``shared``
+    ``DenseFFN`` of width ``d_ff_expert · n_shared_experts`` (quantized
+    when the config is) where the config has shared experts."""
+
+    def __init__(self, router, w1, w3, w2, shared: DenseFFN | None = None):
+        super().__init__()
+        self.router = frozen(router)
+        self.w1, self.w3, self.w2 = frozen(w1), frozen(w3), frozen(w2)
+        self.shared = shared
+
+
+def init_moe(gen, cfg) -> MoEFFN:
+    """Random experts drawn one tensor at a time on ``gen``'s device, each
+    in float32 and cast to the model's dtype."""
+    m = cfg.moe
+    D, F_, E = cfg.d_model, m.d_ff_expert, m.n_experts
+    dt, dev = dtype_of(cfg), gen.device
+
+    def normal(shape, scale):
+        return (torch.randn(shape, generator=gen, dtype=torch.float32,
+                            device=dev) * scale).to(dt)
+
+    router = torch.randn((D, E), generator=gen, dtype=torch.float32,
+                         device=dev) * (1.0 / math.sqrt(D))
+    w1 = normal((E, D, F_), 1.0 / math.sqrt(D))
+    w3 = normal((E, D, F_), 1.0 / math.sqrt(D))
+    w2 = normal((E, F_, D), 1.0 / math.sqrt(F_))
+    shared = (init_dense_ffn(gen, cfg, m.d_ff_expert * m.n_shared_experts)
+              if m.n_shared_experts else None)
+    return MoEFFN(router, w1, w3, w2, shared)
+
+
+def _capacity(chunk: int, cfg) -> int:
+    m = cfg.moe
+    c = int(math.ceil(chunk * m.top_k * m.capacity_factor / m.n_experts))
+    return max(4, -(-c // 4) * 4)                      # pad to multiple of 4
+
+
+def _one_hot(idx, n: int, dtype):
+    """(..., n) one-hot of ``idx`` against ``arange(n)``: no host sync."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
+def _router(cfg, p: MoEFFN, xc):
+    """float32 logits, softmax and top-k: (gates (c, K), experts (c, K),
+    the Switch-style load-balance term)."""
+    m = cfg.moe
+    logits = xc.to(torch.float32) @ p.router                     # (c, E)
+    probs = torch.softmax(logits, dim=-1)
+    gates, idx = torch.topk(probs, m.top_k, dim=-1)              # (c, K)
+    if m.norm_topk_prob:
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    f = _one_hot(idx[:, 0], m.n_experts, torch.float32).mean(0)
+    aux = m.n_experts * torch.sum(f * probs.mean(0))
+    return gates, idx, aux
+
+
+def _expert_ffn(p: MoEFFN, xe):
+    """xe: (E, C, D) → (E, C, D), stacked-expert SwiGLU. A bf16 ``xe``
+    meets float32 experts in float32, as the reference's type promotion
+    does."""
+    xe = xe.to(torch.promote_types(xe.dtype, p.w1.dtype))
+    h = F.silu(torch.bmm(xe, p.w1)) * torch.bmm(xe, p.w3)
+    return torch.bmm(h, p.w2)
+
+
+def _einsum_chunk(cfg, p: MoEFFN, xc, C: int):
+    """The reference's ``one_chunk``: per slot in priority order, one-hot
+    positions within each expert's capacity; dispatch in bf16, combine in
+    float32."""
+    m = cfg.moe
+    E, K = m.n_experts, m.top_k
+    c = xc.shape[0]
+    gates, idx, aux = _router(cfg, p, xc)
+    counts = torch.zeros((E,), dtype=torch.float32, device=xc.device)
+    dispatch = torch.zeros((c, E, C), dtype=torch.bfloat16, device=xc.device)
+    combine = torch.zeros((c, E, C), dtype=torch.float32, device=xc.device)
+    for slot in range(K):                                        # priority
+        oh = _one_hot(idx[:, slot], E, torch.float32)            # (c, E)
+        pos = torch.cumsum(oh, dim=0) - 1.0 + counts[None, :]
+        counts = counts + oh.sum(0)
+        keep = (pos < C).to(torch.float32) * oh
+        pos_c = torch.clamp(pos, 0, C - 1).to(torch.int32)
+        oh_c = _one_hot(pos_c, C, torch.float32) * keep[..., None]
+        dispatch = dispatch + oh_c.to(torch.bfloat16)
+        combine = combine + oh_c * gates[:, slot, None, None]
+    xe = torch.einsum("td,tec->ecd", xc.to(torch.bfloat16), dispatch)
+    ye = _expert_ffn(p, xe)                                      # (E, C, D)
+    yc = torch.einsum("ecd,tec->td", ye.to(torch.float32), combine)
+    return yc.to(xc.dtype), aux
+
+
+def _gather_chunk(cfg, p: MoEFFN, xc, C: int):
+    """The reference's ``_gather_chunk``: slot tables (E, C) of token and
+    gate, a gather into the experts and a combine; the same capacity drops
+    and slot-major priority as the einsum form."""
+    m = cfg.moe
+    E, K = m.n_experts, m.top_k
+    c, D = xc.shape
+    dev = xc.device
+    gates, idx, aux = _router(cfg, p, xc)
+    # slot-major flattening (all tokens' slot 0 first — GShard priority)
+    e_sm = idx.T.reshape(-1)                                     # (Kc,)
+    g_sm = gates.T.reshape(-1)
+    tok_sm = torch.arange(c, device=dev).repeat(K)
+    oh = _one_hot(e_sm, E, torch.int32)                          # (Kc, E)
+    pos = (torch.cumsum(oh, dim=0) - 1).gather(1, e_sm[:, None])[:, 0]
+    keep = pos < C
+    # slot tables (E, C+1), column C the dump of the dropped entries
+    flat = e_sm * (C + 1) + torch.where(keep, pos, C)
+    slot_tok = torch.full((E * (C + 1),), -1, dtype=torch.long,
+                          device=dev).scatter_(0, flat, tok_sm)
+    slot_tok = slot_tok.view(E, C + 1)[:, :C]
+    slot_gate = torch.zeros((E * (C + 1),), dtype=torch.float32,
+                            device=dev).scatter_(0, flat, g_sm)
+    slot_gate = slot_gate.view(E, C + 1)[:, :C]
+    valid = slot_tok >= 0
+    xe = xc[slot_tok.clamp(0, c - 1)] * valid[..., None].to(xc.dtype)
+    ye = _expert_ffn(p, xe)                                      # (E, C, D)
+    contrib = (ye.to(torch.float32) * slot_gate[..., None]).reshape(E * C, D)
+    # each token's kept slots, in ascending expert order, summed in that
+    # order; a dropped slot reads the zero row E·C
+    table = torch.cat([contrib, contrib.new_zeros((1, D))])
+    order = torch.argsort(idx, dim=1)                            # (c, K)
+    e_tk = idx.gather(1, order)
+    pos_tk = pos.view(K, c).T.gather(1, order)
+    keep_tk = keep.view(K, c).T.gather(1, order)
+    rows = torch.where(keep_tk, e_tk * C + pos_tk, E * C)
+    y = torch.zeros((c, D), dtype=torch.float32, device=dev)
+    for j in range(K):
+        y = y + table[rows[:, j]]
+    return y.to(xc.dtype), aux
+
+
+def moe_ffn(cfg, p: MoEFFN, x):
+    """x: (B, S, D) → (y, aux_loss)."""
+    m = cfg.moe
+    B, S, D = x.shape
+    T = B * S
+    xf = x.reshape(T, D)
+    chunk = min(m.dispatch_chunk, T)
+    if T % chunk:
+        raise ValueError(f"moe_ffn: {T} tokens are not a multiple of the "
+                         f"dispatch chunk {chunk}")
+    if m.impl not in ("einsum", "gather"):
+        raise ValueError(f"moe_ffn: unknown impl {m.impl!r}")
+    C = _capacity(chunk, cfg)
+    body = _gather_chunk if m.impl == "gather" else _einsum_chunk
+    ys, auxs = [], []
+    for i in range(0, T, chunk):
+        y, aux = body(cfg, p, xf[i:i + chunk], C)
+        ys.append(y)
+        auxs.append(aux)
+    y = torch.cat(ys).reshape(B, S, D)
+    if m.n_shared_experts:
+        y = y + dense_ffn(cfg, p.shared, x)
+    return y, m.router_aux_weight * torch.stack(auxs).mean()

@@ -23,6 +23,15 @@ loop, as the reference's does: on the card one per call with
 ``max_new_tokens >= 1`` (the replay, prefill in it), on the CPU one per
 ``decode_step`` call, ``max_new_tokens - 1``; none for zero tokens.
 
+A vision-patch model's prompt is its ``n_patches`` patch embeddings and
+then its tokens, so its decode positions start at ``n_patches`` plus the
+token count, as the reference's do; a captured graph holds a static copy
+of the patches beside its static tokens. An audio-frame model is served
+through ``prefill`` and ``decode_step`` with ``frame_embeds``: the
+reference's generate loop feeds tokens back, which such a model does not
+take, so it returns the empty result for zero tokens and raises for more,
+and so does the port's.
+
 Temperature sampling is Gumbel-max, ``argmax(logits / T - log(-log u))``,
 which is what the reference's ``jax.random.categorical`` computes. ``u``,
 (max_new_tokens, B, V) float32 uniform, is drawn for all steps at once from
@@ -46,6 +55,8 @@ from ..models.transformer import check_model_device
 DECODE_STATS = {"dispatches": 0}
 # The most call signatures whose graphs one model keeps.
 MAX_GRAPHS = 4
+# The dtypes of a graph's static prompt inputs.
+_INPUT_DTYPES = {"tokens": torch.int32, "patch_embeds": torch.float32}
 
 
 def _sample(cfg, logits, temperature, u):
@@ -60,12 +71,18 @@ def _sample(cfg, logits, temperature, u):
     return torch.argmax(lg, dim=-1).to(torch.int32)
 
 
+def _prompt_len(cfg, batch) -> int:
+    """Positions the prompt takes: its tokens, after the vision patches."""
+    n = batch["tokens"].shape[1]
+    return n + (cfg.n_patches if cfg.frontend == "vision_patches" else 0)
+
+
 def _generate(cfg, model, batch, max_new_tokens, max_cache_len, temperature,
               u):
     """Prefill, then ``max_new_tokens - 1`` decode steps, token i sampled
     with ``u[i]``; returns (B, max_new_tokens) int32."""
     device = model.device
-    prompt_len = batch["tokens"].shape[1]
+    prompt_len = _prompt_len(cfg, batch)
     logits, caches = prefill(cfg, model, batch, max_cache_len, device=device)
     tok = _sample(cfg, logits, temperature, None if u is None else u[0])
     out = [tok[:, None]]
@@ -79,21 +96,22 @@ def _generate(cfg, model, batch, max_new_tokens, max_cache_len, temperature,
 
 
 class _Graph:
-    """One captured signature: the CUDA graph, its static prompt, noise,
+    """One captured signature: the CUDA graph, its static prompt (tokens
+    int32, and patches float32 for a vision-patch model), noise,
     temperature and output tensors, the seconds its warm-up and capture
     took, the bytes its memory pool holds, and the kernel launches (by
     route) that each replay makes."""
 
-    def __init__(self, cfg, model, tokens, max_new_tokens, max_cache_len,
+    def __init__(self, cfg, model, inputs, max_new_tokens, max_cache_len,
                  sampled):
         dev = model.device
-        self.tokens = torch.empty(tuple(tokens.shape), dtype=torch.int32,
-                                  device=dev)
-        self.tokens.copy_(tokens)
-        shape = (max_new_tokens, tokens.shape[0], cfg.vocab_size)
+        self.inputs = {k: torch.empty(tuple(v.shape), dtype=_INPUT_DTYPES[k],
+                                      device=dev).copy_(v)
+                       for k, v in inputs.items()}
+        shape = (max_new_tokens, inputs["tokens"].shape[0], cfg.vocab_size)
         self.u = torch.full(shape, 0.5, device=dev) if sampled else None
         self.temperature = torch.ones((), device=dev) if sampled else None
-        batch = {"tokens": self.tokens}
+        batch = self.inputs
         # warm-up: one prefill and one decode step, eager, on a side stream
         # (kernel builds, shared-memory permissions, cuBLAS for these
         # shapes happen here, not in the capture)
@@ -122,8 +140,9 @@ class _Graph:
                              for k, v in _flash.CAPTURED.items()}
         self.capture_s = time.perf_counter() - t
 
-    def __call__(self, tokens, temperature, generator) -> torch.Tensor:
-        self.tokens.copy_(tokens)
+    def __call__(self, inputs, temperature, generator) -> torch.Tensor:
+        for k, v in inputs.items():
+            self.inputs[k].copy_(v)
         if self.u is not None:
             self.u.uniform_(generator=generator)
             self.temperature.fill_(temperature)
@@ -140,7 +159,8 @@ def greedy_generate(cfg, model, batch, *, max_new_tokens: int,
                     temperature: float = 0.0,
                     generator: torch.Generator | None = None,
                     device=None) -> torch.Tensor:
-    """batch: {"tokens": (B, S)}. Returns (B, max_new_tokens) int32 tokens.
+    """batch: {"tokens": (B, S)}, and "patch_embeds" (B, n_patches, D)
+    for a vision-patch model. Returns (B, max_new_tokens) int32 tokens.
     Runs on the card, as one CUDA-graph replay, unless ``device="cpu"``,
     which must be where the model is. ``generator`` draws the noise of
     temperature sampling and must be on the model's device."""
@@ -148,15 +168,24 @@ def greedy_generate(cfg, model, batch, *, max_new_tokens: int,
     if max_new_tokens < 0:
         raise ValueError(
             f"max_new_tokens must be >= 0, got {max_new_tokens}")
-    tokens = batch["tokens"]
+    audio = cfg.frontend == "audio_frames"
     if max_new_tokens == 0:
         # zero tokens is an empty result: no prefill or decode is run
-        return torch.zeros((tokens.shape[0], 0), dtype=torch.int32,
-                           device=device)
-    if not isinstance(tokens, torch.Tensor):
-        tokens = torch.from_numpy(np.asarray(tokens))
-    B, S = tokens.shape
-    max_cache_len = max_cache_len or (S + max_new_tokens)
+        b = batch["frame_embeds" if audio else "tokens"].shape[0]
+        return torch.zeros((b, 0), dtype=torch.int32, device=device)
+    if audio:
+        raise ValueError(
+            f"{cfg.arch_id}: greedy_generate feeds sampled tokens back, and "
+            "an audio_frames model takes frame_embeds; serve it through "
+            "prefill and decode_step with {'frame_embeds': (B, 1, D)}")
+    keys = ["tokens"] + (["patch_embeds"]
+                         if cfg.frontend == "vision_patches" else [])
+    inputs = {k: batch[k] if isinstance(batch[k], torch.Tensor)
+              else torch.as_tensor(np.asarray(batch[k]),
+                                   dtype=_INPUT_DTYPES[k]) for k in keys}
+    B, S = inputs["tokens"].shape
+    max_cache_len = max_cache_len or (_prompt_len(cfg, inputs)
+                                      + max_new_tokens)
     sampled = temperature > 0.0
     if device.type != "cuda":
         t = u = None
@@ -164,8 +193,8 @@ def greedy_generate(cfg, model, batch, *, max_new_tokens: int,
             t = torch.tensor(temperature, dtype=torch.float32)
             u = torch.empty((max_new_tokens, B, cfg.vocab_size)).uniform_(
                 generator=generator)
-        out = _generate(cfg, model, {"tokens": tokens}, max_new_tokens,
-                        max_cache_len, t, u)
+        out = _generate(cfg, model, inputs, max_new_tokens, max_cache_len,
+                        t, u)
         DECODE_STATS["dispatches"] += max_new_tokens - 1
         return out
     key = (cfg, B, S, max_cache_len, max_new_tokens, sampled)
@@ -174,7 +203,7 @@ def greedy_generate(cfg, model, batch, *, max_new_tokens: int,
     if graph is None:
         while len(graphs) >= MAX_GRAPHS:
             graphs.popitem(last=False)
-        graph = _Graph(cfg, model, tokens, max_new_tokens, max_cache_len,
+        graph = _Graph(cfg, model, inputs, max_new_tokens, max_cache_len,
                        sampled)
     graphs[key] = graph                  # the most recently used is last
-    return graph(tokens, temperature, generator)
+    return graph(inputs, temperature, generator)

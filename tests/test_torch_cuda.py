@@ -1123,3 +1123,268 @@ def test_shift_failure_rate_on_the_card_within_table4(card, pct, paper,
     assert r.device.type == "cuda" and r.dtype == torch.float32
     assert tpim.PAPER_TABLE4[pct] == paper
     assert abs(float(r) - paper) <= bound
+
+
+# ---------------------------------------------------------------------------
+# The MoE, MLA and frontend families on the card
+# ---------------------------------------------------------------------------
+
+import dataclasses  # noqa: E402
+
+from repro_torch.models import attention as tattn  # noqa: E402
+from repro_torch.models import ffn as tffn  # noqa: E402
+
+FAMILY_CASES = {
+    "deepseek-v2-lite-16b": ("deepseek-v2-lite-16b", {}),
+    "deepseek-v2-lite-16b-pim_w4": ("deepseek-v2-lite-16b",
+                                    {"quant": "pim_w4"}),
+    "qwen3-moe-30b-a3b": ("qwen3-moe-30b-a3b", {}),
+    "qwen3-moe-30b-a3b-gather": ("qwen3-moe-30b-a3b", {"impl": "gather"}),
+    "llava-next-mistral-7b-pim_w4": ("llava-next-mistral-7b",
+                                     {"quant": "pim_w4"}),
+}
+
+
+def family_config(arch, smoke=True, impl=None, **overrides):
+    cfg = get_config(arch, smoke=smoke, **overrides)
+    if impl is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               impl=impl))
+    return cfg
+
+
+def family_inputs(cfg, seed, device, batch=2, length=24):
+    """Seeded prompt inputs on ``device``: tokens (and a vision model's
+    patches) or an audio model's frames."""
+    rng = np.random.default_rng(seed)
+    if cfg.frontend == "audio_frames":
+        return {"frame_embeds": torch.as_tensor(rng.normal(
+            size=(batch, length, cfg.d_model)), dtype=torch.float32,
+            device=device)}
+    out = {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (batch, length)), dtype=torch.int32,
+        device=device)}
+    if cfg.frontend == "vision_patches":
+        out["patch_embeds"] = torch.as_tensor(rng.normal(
+            size=(batch, cfg.n_patches, cfg.d_model)), dtype=torch.float32,
+            device=device)
+    return out
+
+
+def family_forced(cfg, model, inputs, steps, device):
+    """Prefill and one decode step per entry of ``steps`` ((B, 1) tokens
+    or (B, 1, D) frames): each step's logits on the CPU."""
+    n = inputs[next(iter(inputs))].shape[1] + (
+        cfg.n_patches if cfg.frontend == "vision_patches" else 0)
+    key = "frame_embeds" if cfg.frontend == "audio_frames" else "tokens"
+    lg, caches = prefill(cfg, model, inputs, n + len(steps), device=device)
+    out = [lg.cpu()]
+    for t, x in enumerate(steps):
+        lg, caches = decode_step(cfg, model, {key: x}, n + t, caches,
+                                 device=device)
+        out.append(lg.cpu())
+    return out
+
+
+def moe_input(cfg, seed, device, tokens=128):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn((2, tokens // 2, cfg.d_model), generator=g)
+    return x.to(device=device, dtype=torch.bfloat16 if cfg.dtype ==
+                "bfloat16" else torch.float32)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("impl", ["einsum", "gather"])
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b",
+                                  "qwen3-moe-30b-a3b"])
+def test_families_moe_ffn_card_matches_cpu(card, arch, impl, dtype):
+    """moe_ffn on the card, with no host synchronisation (the sync debug
+    mode raises on one), against the CPU on the same weights and inputs:
+    float32 within PIM_REL, bf16 within the logits' bound; the aux loss
+    within float32 rounding. Two dispatch chunks."""
+    cfg = family_config(arch, impl=impl, dtype=dtype)
+    model = init_params(cfg, 3)
+    ffn = model.layers[0].ffn
+    x = moe_input(cfg, 4, card)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y, aux = tffn.moe_ffn(cfg, ffn, x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    ffn.to("cpu")
+    y_cpu, aux_cpu = tffn.moe_ffn(cfg, ffn, x.cpu())
+    bound = PIM_REL if dtype == "float32" else LOGITS_REL
+    assert rel_err(y, y_cpu) < bound
+    assert abs(float(aux) - float(aux_cpu)) <= 1e-5 * abs(float(aux_cpu))
+
+
+@pytest.mark.parametrize("impl", ["einsum", "gather"])
+def test_families_moe_ffn_graph_replays_bit_for_bit(card, impl):
+    """moe_ffn captured in a CUDA graph and replayed on new inputs equals
+    the eager call on them bit for bit: no data-dependent shape, no host
+    sync, no atomic-ordered float adds."""
+    cfg = family_config("qwen3-moe-30b-a3b", impl=impl)
+    ffn = init_params(cfg, 5).layers[0].ffn
+    static = moe_input(cfg, 6, card)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tffn.moe_ffn(cfg, ffn, static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, _ = tffn.moe_ffn(cfg, ffn, static)
+    for seed in (7, 8):
+        x = moe_input(cfg, seed, card)
+        static.copy_(x)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, tffn.moe_ffn(cfg, ffn, x)[0])
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_families_mla_card_matches_cpu(card, dtype):
+    """mla_train at 128 positions (bf16: the flash kernel's tensor-core
+    route at dk 24 / dv 16; float32: tiled) and mla_decode (split over the
+    keys at dk 40 / dv 32) on the card against the CPU; the decode writes
+    the same cache entries."""
+    cfg = family_config("deepseek-v2-lite-16b", dtype=dtype)
+    model = init_params(cfg, 6)
+    p = model.layers[0].attn
+    x = moe_input(cfg, 9, card, tokens=256)[:1]
+    pos = torch.arange(128, dtype=torch.int32, device=card)
+    fa.reset_launches()
+    out, (ckv, krope) = tattn.mla_train(cfg, p, x, pos)
+    torch.cuda.synchronize()
+    assert fa.ROUTES["tensor_core" if dtype == "bfloat16" else "tiled"] == 1
+    cache = tattn.mla_init_cache(cfg, 1, 130, card)
+    cache["ckv"][:, :128], cache["krope"][:, :128] = ckv, krope
+    cache["kpos"][:, :128] = pos
+    x1 = x[:, :1] * 0.5
+    dec, cache = tattn.mla_decode(cfg, p, x1, 128, cache)
+    assert fa.ROUTES["split_kv"] == 1
+    p.to("cpu")
+    out_c, (ckv_c, _) = tattn.mla_train(cfg, p, x.cpu(), pos.cpu())
+    cache_c = {k: v.cpu().clone() for k, v in cache.items()}
+    cache_c["kpos"][:, 128] = -1
+    dec_c, cache_c = tattn.mla_decode(cfg, p, x1.cpu(), 128, cache_c)
+    bound = PIM_REL if dtype == "float32" else LOGITS_REL
+    assert rel_err(out, out_c) < bound and rel_err(ckv, ckv_c) < bound
+    assert rel_err(dec, dec_c) < bound
+    assert torch.equal(cache["kpos"].cpu(), cache_c["kpos"])
+
+
+class RouterLog:
+    """The router probabilities (on the host) of every ``moe_ffn`` call
+    made inside the ``with`` block, in call order."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        self.orig = tffn.moe_ffn
+
+        def record(cfg, p, x):
+            logits = x.reshape(-1, x.shape[-1]).float() @ p.router
+            self.calls.append(torch.softmax(logits, -1).cpu())
+            return self.orig(cfg, p, x)
+
+        tffn.moe_ffn = record
+        return self
+
+    def __exit__(self, *exc):
+        tffn.moe_ffn = self.orig
+
+
+def routing_flips(cfg, ref, got, S):
+    """Tokens whose top-k experts differ between two teacher-forced runs
+    (prefill of S positions, then decode steps): request, position, MoE
+    layer, the reference's margin (k-th less (k+1)-th probability) and
+    k-th probability, and whether an earlier flip reaches it."""
+    if cfg.moe is None:
+        return []
+    K, n_moe = cfg.moe.top_k, cfg.n_layers - cfg.moe.first_k_dense
+    flips = []
+    for i, (a, b) in enumerate(zip(ref, got)):
+        step, layer = divmod(i, n_moe)
+        top = a.topk(K + 1, dim=-1)
+        sa = top.indices[:, :K].sort(-1).values
+        sb = b.topk(K, dim=-1).indices.sort(-1).values
+        for row in (sa != sb).any(-1).nonzero().flatten().tolist():
+            req, pos = divmod(row, S) if step == 0 else (row, S + step - 1)
+            flips.append(dict(
+                request=req, position=pos, layer=layer,
+                margin=float(top.values[row, K - 1] - top.values[row, K]),
+                p_k=float(top.values[row, K - 1])))
+    for f in flips:
+        f["follows"] = any(g["request"] == f["request"]
+                           and g["position"] <= f["position"]
+                           and g["layer"] < f["layer"] for g in flips)
+    return flips
+
+
+@pytest.mark.parametrize("case", list(FAMILY_CASES))
+def test_families_generate_graph_is_the_eager_argmax_chain(card, case):
+    """Each new family's greedy_generate at the smoke size: one replay per
+    call (DECODE_STATS 1), its tokens the eager loop's argmax chain bit for
+    bit (llava: the patches a static input of the graph, positions after
+    them), and the card's teacher-forced logits within the bound of the
+    CPU's on the requests no routing flip reaches; a flip that follows no
+    earlier one has a reference (CPU) margin within the bound of its k-th
+    probability, and is named in the message."""
+    arch, kw = FAMILY_CASES[case]
+    cfg = family_config(arch, **kw)
+    model = init_params(cfg, 7)
+    for seed in (1, 2):                    # the capture's call, a replay
+        inputs = family_inputs(cfg, seed, card)
+        engine.DECODE_STATS["dispatches"] = 0
+        toks = greedy_generate(cfg, model, inputs, max_new_tokens=5)
+        assert engine.DECODE_STATS["dispatches"] == 1
+        assert toks.shape == (2, 5) and toks.dtype == torch.int32
+        with RouterLog() as card_log:
+            forced = family_forced(cfg, model, inputs,
+                                   [toks[:, t:t + 1] for t in range(4)],
+                                   None)
+        chain = torch.stack([lg[:, 0].argmax(-1) for lg in forced],
+                            dim=1).to(torch.int32)
+        assert torch.equal(toks.cpu(), chain)
+    assert len(model.generate_graphs) == 1
+    with RouterLog() as cpu_log:
+        on_cpu = family_forced(cfg, model.to("cpu"),
+                               {k: v.cpu() for k, v in inputs.items()},
+                               [toks[:, t:t + 1].cpu() for t in range(4)],
+                               "cpu")
+    S = 24 + (cfg.n_patches if cfg.frontend == "vision_patches" else 0)
+    flips = routing_flips(cfg, cpu_log.calls, card_log.calls, S)
+    assert all(f["follows"] or f["margin"] <= LOGITS_REL * f["p_k"]
+               for f in flips), flips
+    for t, (a, b) in enumerate(zip(forced, on_cpu)):
+        rows = [r for r in range(2) if not any(
+            f["request"] == r and f["position"] <= S - 1 + t for f in flips)]
+        if rows:
+            assert rel_err(a[rows], b[rows]) < LOGITS_REL, \
+                f"step {t} on requests {rows}; flips {flips}"
+
+
+def test_families_audio_card_matches_cpu(card):
+    """musicgen through prefill and teacher-forced decode_step on seeded
+    frames (greedy_generate raises for it, as the reference's does): the
+    card's per-codebook logits within the bound of the CPU's."""
+    cfg = get_config("musicgen-medium", smoke=True)
+    model = init_params(cfg, 8)
+    inputs = family_inputs(cfg, 3, card)
+    frames = family_inputs(cfg, 4, card, length=4)["frame_embeds"]
+    steps = [frames[:, t:t + 1] for t in range(4)]
+    with pytest.raises(ValueError, match="frame_embeds"):
+        greedy_generate(cfg, model, inputs, max_new_tokens=2)
+    fa.reset_launches()
+    on_card = family_forced(cfg, model, inputs, steps, None)
+    # prefill's 24 rows per pair and each decode step's one: split_kv
+    assert fa.ROUTES["split_kv"] == 5 * cfg.n_layers
+    assert on_card[0].shape == (2, 1, cfg.n_codebooks, cfg.vocab_size)
+    on_cpu = family_forced(cfg, model.to("cpu"),
+                           {k: v.cpu() for k, v in inputs.items()},
+                           [s.cpu() for s in steps], "cpu")
+    for t, (a, b) in enumerate(zip(on_card, on_cpu)):
+        assert rel_err(a, b) < LOGITS_REL, f"step {t}"
