@@ -56,7 +56,13 @@ each, every mismatch fatal:
                144 of phase 16's deepseek path), recurrentgemma-2b's
                decode on a 2,048-slot ring under its window, MLA's
                prefill at dk 192 /
-               dv 128, Qwen3-4B's heads at a 2,048-token prompt) against
+               dv 128, Qwen3-4B's heads at a 2,048-token prompt,
+               recurrentgemma-2b's heads, dk = dv = 256, at decode over
+               phase 18's 144-slot ring and at a 128-token prefill;
+               pim_matmul w4 shift_add also at recurrentgemma-2b's GeGLU
+               shapes, (4, 2560) @ (2560, 7680) and (4, 7680) @ (7680,
+               2560) on ``swap_ab``, (512, 2560) @ (2560, 7680) and (512,
+               7680) @ (7680, 2560) on ``tensor_core``) against
                their plain versions on the card (flash in float32, on the
                tiled route, and bf16), with device and per-call times,
                bound and the time of one PyTorch library call (the
@@ -185,10 +191,31 @@ each, every mismatch fatal:
                MoE model's router choices recorded on both sides, a request
                held until the first routing flip that reaches it, each
                flip reported and held inside the rounding (a reference
-               margin within 2e-2 of the k-th probability).
+               margin within 2e-2 of the k-th probability);
+18. recurrent — falcon-mamba-7b (bf16, all 64 layers) and recurrentgemma-2b
+               (pim_w4 shift_add, all 26 layers: 8 (rec, rec, attn)
+               blocks and a 2-layer rec tail) at their published widths
+               with phase 7's traffic and checks, each ``greedy_generate``
+               call one CUDA-graph replay that holds the recurrent states'
+               prefill and in-place decode writes: launches by route from
+               the config (falcon-mamba none of either LM kernel, as the
+               reference's Mamba block runs plain matmuls; recurrentgemma
+               1,248 pim_matmul, 78 ``tensor_core`` and 1,170 ``swap_ab``,
+               and 128 flash_attn, 8 ``tensor_core`` and 120 ``split_kv``
+               over the 144-slot ring; pim_matmul's launches also by
+               (route, K, N), each shape's from the config), decode against
+               prefill measured, the scan's share of prefill's kernels (its
+               addcmul loop, beside the loop's byte bound, and the decays'
+               exp);
+19. recurrent parity — each at full width and a cut depth (falcon-mamba 2
+               layers, recurrentgemma 5: one block and the tail) as phase
+               8, and decode against prefill on the card and on the CPU
+               within the reference's 3e-2.
 
-Then the kernel table as JSON (MLA's two flash rows with their launches on
-phase 16's deepseek path), the card's name and power limit, and the
+Then the kernel table as JSON (each pim_matmul row with the launches at
+its own (route, K, N) on its path, MLA's two flash rows with their
+launches on phase 16's deepseek path, recurrentgemma-2b's six rows with
+theirs on phase 18's path), the card's name and power limit, and the
 result line. Nanoseconds and nanojoules of the DDR3 meter are outputs of
 the simulated DRAM's model; milliseconds and microseconds are times of the
 card. Everything measured is also written to ``chiprun_out/chip_smoke.json``.
@@ -253,6 +280,10 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 128, 16
 # prefill (M = batch x prompt); the first is the table's row
 PIM_SHAPES = ((4, 2560, 9728), (4, 9728, 2560), (512, 2560, 9728),
               (512, 9728, 2560))
+# recurrentgemma-2b's GeGLU linears (d_ff 7,680) at decode and prefill,
+# timed at its pim_w4 shift_add only
+PIM_SHAPES_RG = ((4, 2560, 7680), (4, 7680, 2560), (512, 2560, 7680),
+                 (512, 7680, 2560))
 # decode-sized calls are timed over this many copies of their weights,
 # cycled (4 x 25 MB of int8 codes, beyond the 50 MB L2), as a decode step
 # reads 108 different weights
@@ -265,7 +296,10 @@ WEIGHT_COPIES = 4
 # (one kv head of 256, 10 query heads, a 2,048-slot ring under its 2,048
 # window, positions unsorted), MLA's prefill (16 heads, dk 192, dv 128),
 # Qwen3-4B's heads at a 2,048-token causal prompt (batch 1) and MLA's
-# decode over phase 16's 144-slot cache (deepseek's serving shape)
+# decode over phase 16's 144-slot cache (deepseek's serving shape); then
+# recurrentgemma-2b's at phase 18's serving shapes: decode over its
+# 144-slot ring (prompt 128 + 16 tokens, under the 2,048 window) and
+# prefill at 128 tokens, dk = dv = 256
 FLASH_SHAPES = {
     "prefill": (4, 8, 4, 128, 128, 128, 128, 127, None, False),
     "decode": (4, 8, 4, 128, 128, 1, 144, 135, None, False),
@@ -275,6 +309,10 @@ FLASH_SHAPES = {
     "prefill,mla": (4, 16, 1, 192, 128, 128, 128, 127, None, False),
     "prefill,2k": (1, 8, 4, 128, 128, 2048, 2048, 2047, None, False),
     "decode,mla,144": (4, 1, 16, 576, 512, 1, 144, 135, None, False),
+    "decode,recurrentgemma,144": (4, 1, 10, 256, 256, 1, 144, 135, 2048,
+                                  False),
+    "prefill,recurrentgemma": (4, 1, 10, 256, 256, 128, 128, 127, 2048,
+                               False),
 }
 # the three flash routes at these query positions per pair (G = 4: 4 to
 # 256 rows) over these key slots: the route threshold
@@ -305,6 +343,18 @@ FAMILIES = (
      {"quant": "pim_w4", "quant_mode": "shift_add"}, 4, ()),
     ("serve-musicgen", "musicgen-medium", {}, 4, ()),
 )
+# Phases 18-19: the recurrent families at their published widths and full
+# depths with phase 7's traffic: (label, arch, overrides, the depth phase
+# 19 cuts it to). recurrentgemma-2b's 5 layers are one (rec, rec, attn)
+# block and the 2-layer rec tail.
+RECURRENT = (
+    ("serve-falcon-mamba", "falcon-mamba-7b", {}, 2),
+    ("serve-recurrentgemma", "recurrentgemma-2b",
+     {"quant": "pim_w4", "quant_mode": "shift_add"}, 5),
+)
+# tests/test_decode_consistency.py's bound for both recurrent families:
+# their float32 state paths differ in op order between prefill and decode
+RECURRENT_DECODE_REL = 3e-2
 SHIFT_KS = (1, -1, 31, 32, 33, -33, 999, -999, 65535, 65536, 70000)
 # phase 2b: the row entries on (B, 16, 2,048) states, B = 1 and 64 (one
 # subarray; the full device's slots); shift chains of these many hops (and
@@ -1090,7 +1140,7 @@ def device_share(torch, fn) -> dict:
     busy_ms = sum(k[0] for k in kernels)
     return {"wall_ms": wall_ms, "device_ms": busy_ms,
             "busy_share": busy_ms / wall_ms if wall_ms else 0.0,
-            "top": [{"name": k[1][:80], "ms": k[0], "count": k[2]}
+            "top": [{"name": k[1], "ms": k[0], "count": k[2]}
                     for k in kernels], "launch_calls": launch_calls,
             "driver_launch_calls": driver_calls,
             "graph_launches": graph_launches}
@@ -1145,12 +1195,15 @@ def phase_lm_kernels(torch, device):
 
     gen = torch.Generator(device=device).manual_seed(11)
     rows = {}
-    for m, k, n in PIM_SHAPES:
+    cases = [(shape, (4, 8), ("shift_add", "dequant"))
+             for shape in PIM_SHAPES]
+    cases += [(shape, (4,), ("shift_add",)) for shape in PIM_SHAPES_RG]
+    for (m, k, n), bit_widths, modes in cases:
         x = torch.randn((m, k), generator=gen, device=device).to(
             torch.bfloat16)
         w = torch.randn((k, n), generator=gen, device=device)
         decode = m < pm.TC_MIN_M
-        for bits in (4, 8):
+        for bits in bit_widths:
             w_int, scales = pm.quantize(w, bits)
             w_deq = pref.ref_dequant(w_int, scales, bits).to(
                 torch.bfloat16)
@@ -1159,7 +1212,7 @@ def phase_lm_kernels(torch, device):
                 (w_int.clone(), w_deq.clone())
                 for _ in range(WEIGHT_COPIES - 1 if decode else 0)]
             out = torch.empty((m, n), device=device)
-            for mode in ("shift_add", "dequant"):
+            for mode in modes:
                 def kernel(w_int, w_deq, x=x, scales=scales, mode=mode,
                            bits=bits):
                     return pm.pim_matmul(x, w_int, scales, mode=mode,
@@ -1584,10 +1637,11 @@ def cfg_name(cfg) -> str:
 
 def pim_linears(cfg) -> int:
     """The quantized linears one pass of the model runs, each one
-    pim_matmul launch: every dense FFN's, a MoE layer's shared experts'
-    (attention, the routed experts and the heads are not quantized, as in
-    the reference)."""
-    if not cfg.quant:
+    pim_matmul launch: every dense FFN's (the hybrid's: one per layer,
+    recurrent or attention), a MoE layer's shared experts' (attention, the
+    routed experts, the recurrent mixers and the heads are not quantized,
+    as in the reference; an SSM layer has no FFN)."""
+    if not cfg.quant or cfg.family == "ssm":
         return 0
     per_ffn = 3 if cfg.act in ("swiglu", "geglu") else 2
     if cfg.moe is None:
@@ -1730,10 +1784,13 @@ def say_flips(flips) -> str:
         for f in flips) or "no routing flip"
 
 
-def decode_vs_prefill(torch, cfg, model, batch, max_len):
+def decode_vs_prefill(torch, cfg, model, batch, max_len, bound=LOGITS_REL,
+                      device=None):
     """prefill(S) against prefill(S − 1) + decode_step(S − 1) on the last
     position: (rel, the last token's routing flips between the two, held).
-    Held to LOGITS_REL without MoE. With MoE it is measured, not held: the
+    Held to ``bound`` without MoE (measured, not held, where it is None:
+    the recurrent families at full depth). With MoE it is measured, not
+    held: the
     two paths round the hidden state differently (MLA's absorbed decode
     more so: the reference's own test allows deepseek 3e-2 at 3 layers),
     which moves router choices whose margin lies inside that difference,
@@ -1744,20 +1801,22 @@ def decode_vs_prefill(torch, cfg, model, batch, max_len):
     S = prompt_len(cfg, batch)
     pre = dict(batch, **{key: batch[key][:, :-1]})
     with RouterLog(torch) as full_log:
-        full, _ = prefill(cfg, model, batch, max_len)
+        full, _ = prefill(cfg, model, batch, max_len, device=device)
     with RouterLog(torch) as dec_log:
-        _, caches = prefill(cfg, model, pre, max_len)
+        _, caches = prefill(cfg, model, pre, max_len, device=device)
         dec, _ = decode_step(cfg, model, {key: batch[key][:, -1:]}, S - 1,
-                             caches)
+                             caches, device=device)
     rel = rel_err(torch, dec, full)
     if cfg.moe is not None:
         B, n = full.shape[0], len(full_log.calls)
         last = [c.reshape(B, S, -1)[:, -1] for c in full_log.calls]
         return rel, router_flips(torch, cfg, last, dec_log.calls[n:],
                                  lambda i, row: (row, S - 1, i)), False
-    if not rel < LOGITS_REL:
+    if bound is None:
+        return rel, [], False
+    if not rel < bound:
         raise AssertionError(f"{cfg.arch_id}: decode vs prefill logits rel "
-                             f"{rel} >= {LOGITS_REL}")
+                             f"{rel} >= {bound}")
     return rel, [], True
 
 
@@ -1777,30 +1836,60 @@ def counted(torch, fn):
         launches={"pim_matmul": pm.LAUNCHES["pim_matmul"],
                   "flash_attn": fa.LAUNCHES["flash_attn"]},
         routes=dict(pm.ROUTES), flash_routes=dict(fa.ROUTES),
+        shapes={shape_key(*key): n for key, n in sorted(pm.SHAPES.items())},
         dispatches=engine.DECODE_STATS["dispatches"])
+
+
+def shape_key(route: str, k: int, n: int) -> str:
+    """pim_matmul's launches at (K, N) on ``route``, as counts name them."""
+    return f"{route} ({k},{n})"
+
+
+def attention_layers(cfg) -> int:
+    """Layers with attention, each one flash_attn launch per pass: every
+    layer, but none of an SSM model's and the hybrid's ``attn`` entries of
+    its full (rec, rec, attn) blocks (the tail is recurrent)."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.rglru is not None:
+        pat = cfg.rglru.pattern
+        return cfg.n_layers // len(pat) * pat.count("attn")
+    return cfg.n_layers
 
 
 def expected_counts(cfg, passes):
     """Launches and routes of prefill and ``passes - 1`` decode steps:
     each quantized linear one pim_matmul launch per pass (prefill's, M =
     batch x prompt, on the tensor cores; a decode step's, M = batch, on the
-    swapped operands), each layer one flash_attn launch per pass
+    swapped operands), each attention layer one flash_attn launch per pass
     (prefill's, hundreds of rows per pair in bf16, on the tensor cores; a
-    decode step's split over the keys)."""
-    n, L = pim_linears(cfg), cfg.n_layers
+    decode step's split over the keys). Without MoE, pim_matmul's launches
+    also by (route, K, N): each dense FFN's w1 (and w3) at (d_model, d_ff),
+    its w2 at (d_ff, d_model)."""
+    n, L = pim_linears(cfg), attention_layers(cfg)
+    shapes = None
+    if cfg.moe is None:
+        D, F = cfg.d_model, cfg.d_ff
+        up = n - n // (3 if cfg.act in ("swiglu", "geglu") else 2)
+        shapes = {shape_key(route, *kn): count * per
+                  for route, per in (("tensor_core", 1),
+                                     ("swap_ab", passes - 1))
+                  for kn, count in sorted({(D, F): up, (F, D): n - up}
+                                          .items()) if count * per}
     return dict(
         launches={"pim_matmul": n * passes, "flash_attn": L * passes},
         routes={"tensor_core": n, "swap_ab": n * (passes - 1),
                 "cuda_core": 0},
         flash_routes={"tiled": 0, "split_kv": L * (passes - 1),
-                      "tensor_core": L})
+                      "tensor_core": L},
+        shapes=shapes)
 
 
 def check_counts(what, got, cfg, passes,
-                 keys=("launches", "routes", "flash_routes")):
+                 keys=("launches", "routes", "flash_routes", "shapes")):
     exp = expected_counts(cfg, passes)
     for k in keys:
-        if got[k] != exp[k]:
+        if exp[k] is not None and got[k] != exp[k]:
             raise AssertionError(f"{what}: {k} {got[k]}, expected {exp[k]}")
 
 
@@ -1858,12 +1947,13 @@ def replay_checks(torch, cfg, model, batch, label):
 
 
 def run_serve(torch, device, cfg=None, label="serve", *, variants=(),
-              notes=False):
+              notes=False, dvp_bound=LOGITS_REL):
     """The serving path of ``cfg`` (phase 7: Qwen3-4B at full width and
     depth): ``greedy_generate`` as one CUDA-graph replay per call, beside
     the eager prefill and decode steps; each of ``variants`` (configs on
     the same weights, e.g. another MoE dispatch) replayed and checked the
-    same way. Returns (record, launches, routes and flash routes of one
+    same way; decode against prefill held to ``dvp_bound`` (None: measured
+    only). Returns (record, launches, routes and flash routes of one
     replayed call)."""
     import gc
 
@@ -1915,7 +2005,7 @@ def run_serve(torch, device, cfg=None, label="serve", *, variants=(),
     # against prefill on the prompt's last position
     max_len = S + SERVE_NEW
     dvp, dvp_flips, dvp_held = decode_vs_prefill(torch, cfg, model, batch,
-                                                 max_len)
+                                                 max_len, dvp_bound)
 
     prefill_ms = statistics.median(
         timed(torch, lambda: prefill(cfg, model, batch, max_len))
@@ -1978,10 +2068,12 @@ def run_serve(torch, device, cfg=None, label="serve", *, variants=(),
         decode_vs_prefill_rel=dvp, decode_vs_prefill_flips=dvp_flips,
         decode_vs_prefill_held=dvp_held, tokens=out.cpu().tolist(),
         profile=shares, routes=routes, flash_routes=flash_routes,
-        variants=other)
-    dvp_note = (f"(bound {LOGITS_REL})" if dvp_held else
+        pim_shapes=counts["shapes"], variants=other)
+    dvp_note = (f"(bound {dvp_bound})" if dvp_held else
                 "(MoE: measured, not held; the last token's routing "
-                f"between the two: {say_flips(dvp_flips)})")
+                f"between the two: {say_flips(dvp_flips)})" if cfg.moe else
+                "(measured at full depth, not held; phase 19 holds it at "
+                f"the cut depth to {RECURRENT_DECODE_REL})")
     say(f"{label} {cfg_name(cfg)} ({L} layers, d_model {cfg.d_model}): "
         f"batch {SERVE_BATCH}, prompt {SERVE_PROMPT}"
         + (f" after {cfg.n_patches} patches" if S != SERVE_PROMPT else "")
@@ -2022,10 +2114,23 @@ def run_serve(torch, device, cfg=None, label="serve", *, variants=(),
                         if "pim_matmul" in k["name"]
                         or "reduce_splits" in k["name"])
               for name, sh in shares.items()}
+    # the recurrent scan's loop, one addcmul kernel per step and layer, and
+    # Mamba's decays, exp(dt * A) over the scan's (B, chunk, I, N)
+    scan_ms = {name: sum(k["ms"] for k in sh["top"] if "addcmul" in k["name"])
+               for name, sh in shares.items()}
+    exp_ms = sum(k["ms"] for k in shares["prefill"]["top"]
+                 if "exp_kernel" in k["name"])
     record["flash_ms"], record["pim_matmul_ms"] = flash_ms, pim_ms
+    record["scan_ms"], record["scan_exp_ms"] = scan_ms, exp_ms
+    scan = ""
+    if cfg.ssm is not None or cfg.rglru is not None:
+        record["scan_bound_ms"] = bound = scan_bound_ms(cfg, S)
+        scan = (f", the scan's loop (addcmul) {scan_ms['prefill']:.3f} ms "
+                f"(bound {bound:.3f} ms, bytes: its decays and inputs read "
+                f"once, its states written once), exp {exp_ms:.3f} ms")
     say(f"{label} prefill: {shares['prefill']['device_ms']:.3f} ms of "
         f"kernels, pim_matmul {pim_ms['prefill']:.3f} ms and flash_attn "
-        f"{flash_ms['prefill']:.3f} ms of it"
+        f"{flash_ms['prefill']:.3f} ms of it{scan}"
         + (" (with the tiled kernel at prefill, one H100 took 44.793 ms, "
            "flash 3.619 ms of it)" if notes else ""))
     say(f"{label} decode step: {shares['decode step']['device_ms']:.3f} ms "
@@ -2040,6 +2145,24 @@ def run_serve(torch, device, cfg=None, label="serve", *, variants=(),
     say(f"{label}: {record['left_gb']:.3f} GB still allocated after the "
         "model and its graphs are freed")
     return record, launches, routes, flash_routes
+
+
+def scan_bound_ms(cfg, S: int) -> float:
+    """The byte bound of prefill's scan loop over an S-token prompt: in
+    every recurrent layer, the float32 decays a and inputs b read once and
+    the states written once, over the padded length (B, Sp, I, N) for
+    Mamba, (B, Sp, W) for the RG-LRU."""
+    if cfg.ssm is not None:
+        chunk, state = cfg.ssm.scan_chunk, (cfg.ssm.expand * cfg.d_model
+                                            * cfg.ssm.d_state)
+        layers = cfg.n_layers
+    else:
+        chunk, state = cfg.rglru.scan_chunk, cfg.rglru.lru_width
+        layers = cfg.n_layers - attention_layers(cfg)
+    chunk = min(chunk, S)
+    padded = -(-S // chunk) * chunk
+    return (3 * layers * SERVE_BATCH * padded * state * 4
+            / H100_BYTES_PER_S * 1e3)
 
 
 def run_audio(torch, device, cfg, label):
@@ -2171,15 +2294,18 @@ def moe_parity(torch, cfg, model, device):
     return compare
 
 
-def run_lm_parity(torch, device, cfg=None, label="lm parity"):
-    """Full width, PARITY_LAYERS layers: greedy_generate on the card (one
-    graph replay), its tokens the card's eager argmax chain; then the same
-    weights and tokens teacher-forced on the CPU, and the CPU's eager
-    greedy_generate, whose tokens must equal the card's wherever the card's
-    top-2 margin exceeds twice the bound. An audio model: seeded frames
-    teacher-forced on both. A MoE model: both sides' router choices
-    recorded; a request is held from the first position a routing flip
-    (which must lie inside the rounding) reaches."""
+def run_lm_parity(torch, device, cfg=None, label="lm parity",
+                  dvp_bound=None):
+    """Full width, PARITY_LAYERS layers (or ``cfg``'s): greedy_generate on
+    the card (one graph replay), its tokens the card's eager argmax chain;
+    then the same weights and tokens teacher-forced on the CPU, and the
+    CPU's eager greedy_generate, whose tokens must equal the card's
+    wherever the card's top-2 margin exceeds twice the bound. An audio
+    model: seeded frames teacher-forced on both. A MoE model: both sides'
+    router choices recorded; a request is held from the first position a
+    routing flip (which must lie inside the rounding) reaches. With
+    ``dvp_bound``, decode against prefill held to it on the card and on
+    the CPU."""
     from repro_torch.models import init_params
     from repro_torch.serve import engine
     from repro_torch.serve.engine import greedy_generate
@@ -2203,6 +2329,10 @@ def run_lm_parity(torch, device, cfg=None, label="lm parity"):
         card = [lg.cpu() for lg in teacher_forced(cfg, model, batch, feed,
                                                   device)]
     moe = moe_parity(torch, cfg, model, device) if cfg.moe else None
+    dvp = {}
+    if dvp_bound is not None:
+        dvp["card"] = decode_vs_prefill(torch, cfg, model, batch,
+                                        S + PARITY_NEW, dvp_bound)[0]
     if not audio:
         toks = toks.cpu()
         if not torch.equal(toks, argmax_chain(torch, cfg, card)):
@@ -2218,6 +2348,10 @@ def run_lm_parity(torch, device, cfg=None, label="lm parity"):
     if not audio:
         cpu_toks = greedy_generate(cfg, model, batch,
                                    max_new_tokens=PARITY_NEW, device="cpu")
+    if dvp_bound is not None:
+        dvp["cpu"] = decode_vs_prefill(torch, cfg, model, batch,
+                                       S + PARITY_NEW, dvp_bound,
+                                       device="cpu")[0]
     cpu_s = time.perf_counter() - t
     flips = []
     if cfg.moe is not None:
@@ -2265,7 +2399,7 @@ def run_lm_parity(torch, device, cfg=None, label="lm parity"):
             f"prompt {PARITY_PROMPT}"
             + (f" after {cfg.n_patches} patches" if S != PARITY_PROMPT
                else "") + f", {PARITY_NEW} tokens")
-    say(f"{label} {cfg_name(cfg)} at full width, {PARITY_LAYERS} layers, "
+    say(f"{label} {cfg_name(cfg)} at full width, {cfg.n_layers} layers, "
         f"batch "
         f"{PARITY_BATCH}, {what}: card ("
         + ("eager, kernels" if audio else "one graph replay, kernels")
@@ -2277,9 +2411,13 @@ def run_lm_parity(torch, device, cfg=None, label="lm parity"):
            f"; the CPU's greedy tokens: {equal} of {toks.numel()} equal to "
            f"the card's, {checked} held to them (those before a card top-2 "
            f"margin within twice the bound)")
+        + ("" if dvp_bound is None else
+           f"; decode vs prefill rel on the card {dvp['card']:.3e}, on the "
+           f"CPU {dvp['cpu']:.3e} (bound {dvp_bound})")
         + f"; CPU run {cpu_s:.1f} s")
     out = {"rel_per_step": rels, "cpu_s": cpu_s, "flips": flips,
-           "tokens_checked": checked, "moe_layer": moe}
+           "tokens_checked": checked, "moe_layer": moe,
+           "decode_vs_prefill": dvp}
     if moe is not None:
         say(f"{label} {cfg.arch_id} MoE layer 0 at full width on identical "
             f"inputs ({moe['tokens']} tokens), card vs CPU: "
@@ -2299,7 +2437,7 @@ def say_share(name: str, sh: dict) -> None:
     say(f"profile {name}: {sh['wall_ms']:.2f} ms on the host clock, "
         f"{sh['device_ms']:.3f} ms of kernels, busy share "
         f"{sh['busy_share']:.3f}; top: "
-        + "; ".join(f"{k['name']} {k['ms']:.3f} ms x{k['count']}"
+        + "; ".join(f"{k['name'][:80]} {k['ms']:.3f} ms x{k['count']}"
                     for k in sh["top"][:3]))
 
 
@@ -3183,6 +3321,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.rowops import ops
 
+    run_start = time.perf_counter()
     device = torch.device("cuda")
     card = card_line()
     record = {"card": card, "torch": torch.__version__,
@@ -3521,6 +3660,31 @@ def main() -> int:
             arch, overrides, n_layers=PARITY_LAYERS))
         for label, arch, overrides, _, _ in FAMILIES}
 
+    # 18. the recurrent families at their published widths and full
+    # depths, with the launch counts reset just before a replayed call and
+    # read just after it (inside run_serve); decode against prefill
+    # measured here and held at the cut depth in phase 19
+    recurrent = record["recurrent"] = {}
+    recurrent_counts = {}
+    for label, arch, overrides, _ in RECURRENT:
+        cfg = family_config(arch, overrides)
+        recurrent[label], r_launches, r_routes, r_flash = run_serve(
+            torch, device, cfg, label, dvp_bound=None)
+        recurrent_counts[label] = (r_launches, r_routes, r_flash)
+        say(f"kernels {label} " + json.dumps(r_launches) + " routes "
+            + json.dumps(r_routes) + " flash routes " + json.dumps(r_flash)
+            + ("" if any(r_launches.values()) else
+               " (the path bypasses both LM kernels, as the reference's "
+               "does: its Mamba block computes every product with plain "
+               "matmuls and it has no attention)"))
+
+    # 19. each recurrent family's card against the CPU at full width and
+    # the cut depth, and decode against prefill held on both
+    record["recurrent_parity"] = {
+        label: run_lm_parity(torch, device, family_config(
+            arch, overrides, n_layers=depth), dvp_bound=RECURRENT_DECODE_REL)
+        for label, arch, overrides, depth in RECURRENT}
+
     # the row entries at the full device's 64 slots, in place (as most of
     # the main path's segments run); every shape is in chip_smoke.json
     table = []
@@ -3549,17 +3713,22 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
-    # one row per LM kernel, at the shape of the serving path it runs at
-    # (pim_matmul: decode's on the swapped operands, prefill's first on the
-    # tensor cores; flash_attn: decode's split over the keys, prefill's on
-    # the tensor cores); every shape is in chip_smoke.json
-    (m, k, n), (pm_, pk, pn) = PIM_SHAPES[0], PIM_SHAPES[2]
+    # one row per LM kernel at each shape of the serving path it runs at,
+    # each with the launches at its own shape (pim_matmul: decode's two on
+    # the swapped operands, prefill's two on the tensor cores; flash_attn:
+    # decode's split over the keys, prefill's on the tensor cores); every
+    # other shape is in chip_smoke.json
+    from repro_torch.kernels.pim_matmul.ops import TC_MIN_M
+
+    def pim_rows(shapes, launches_by_shape):
+        for m, k, n in shapes:
+            route = "swap_ab" if m < TC_MIN_M else "tensor_core"
+            yield ("pim_matmul",
+                   f"pim_matmul[shift_add,w4] ({m},{k})@({k},{n})",
+                   launches_by_shape.get(shape_key(route, k, n), 0))
+
     for kernel, row, launched in (
-            ("pim_matmul", f"pim_matmul[shift_add,w4] ({m},{k})@({k},{n})",
-             lm_routes["swap_ab"]),
-            ("pim_matmul",
-             f"pim_matmul[shift_add,w4] ({pm_},{pk})@({pk},{pn})",
-             lm_routes["tensor_core"]),
+            *pim_rows(PIM_SHAPES, record["serve"]["pim_shapes"]),
             ("flash_attn", "flash_attn[decode]", flash_routes["split_kv"]),
             ("flash_attn", "flash_attn[prefill]",
              flash_routes["tensor_core"])):
@@ -3584,6 +3753,25 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # recurrentgemma-2b's rows at phase 18's serving shapes, each with the
+    # launches at its own shape on its path: pim_matmul at its two decode
+    # and two prefill shapes, flash_attn at decode over its 144-slot ring
+    # and at prefill
+    _, _, rg_flash = recurrent_counts["serve-recurrentgemma"]
+    for kernel, row, launched in (
+            *pim_rows(PIM_SHAPES_RG,
+                      recurrent["serve-recurrentgemma"]["pim_shapes"]),
+            ("flash_attn", "flash_attn[decode,recurrentgemma,144]",
+             rg_flash["split_kv"]),
+            ("flash_attn", "flash_attn[prefill,recurrentgemma]",
+             rg_flash["tensor_core"])):
+        r = lm_rows[row]
+        table.append({
+            "name": row, "route": "cuda", "source": SOURCES[kernel],
+            "replaces": REPLACES[kernel], "launches": launched,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     # ripple_add at the bit-plane layer's width (byte lanes), launched on
     # the kernel bench's path; every width is in chip_smoke.json
     r = ripple_rows["ripple_add[w8]"]
@@ -3595,6 +3783,9 @@ def main() -> int:
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     record["table"] = table
+    record["elapsed_s"] = time.perf_counter() - run_start
+    say(f"chip_smoke: {record['elapsed_s']:.1f} s from the start to the "
+        "kernel table")
     out = ROOT / "chiprun_out"
     try:
         out.mkdir(exist_ok=True)

@@ -2,9 +2,9 @@
 
 The port's own copy of the reference's configurations (plain dataclasses),
 so that it imports nothing of the reference package. The port's models
-run every attention family (dense, MoE, MLA, the vision and audio
-frontends); ``models.init_params`` raises for the recurrent ones (SSM,
-RG-LRU), which wait.
+run every one of them: the attention families (dense, MoE, MLA, the vision
+and audio frontends), SSM (falcon-mamba) and the RG-LRU hybrid
+(recurrentgemma).
 """
 from __future__ import annotations
 

@@ -98,17 +98,21 @@ def _exact(a, np_dtype, device) -> torch.Tensor:
 
 def lm_params_from_numpy(cfg, params: dict, device=None):
     """The port's model from the reference's ``init_params`` pytree, its
-    leaves as numpy arrays: the ``stack`` and, for an MoE config with
-    ``first_k_dense``, the ``dense_head_layers``; GQA or MLA attention;
-    dense or MoE FFNs (the float32 ``router``, the stacked experts, the
-    ``shared`` FFN); ``lm_head``, or the audio frontend's ``heads``. The
-    stacked ``(L, ...)`` layer leaves are sliced per layer; quantized
-    linears keep ``w_int`` int8 and ``scales`` float32 exactly, the router
-    stays float32; other float weights take the config's dtype."""
-    from .models import attention, ffn, transformer
+    leaves as numpy arrays: the ``stack`` (transformer or Mamba layers)
+    and, for an MoE config with ``first_k_dense``, the
+    ``dense_head_layers``; for the hybrid, the ``blocks`` (``sub{i}`` per
+    pattern entry: RG-LRU or GQA, each with its dense FFN) and the
+    ``tail``; GQA or MLA attention; dense or MoE FFNs (the float32
+    ``router``, the stacked experts, the ``shared`` FFN); ``lm_head``, or
+    the audio frontend's ``heads``. The stacked ``(L, ...)`` layer leaves
+    are sliced per layer; quantized linears keep ``w_int`` int8 and
+    ``scales`` float32 exactly; the reference's float32 leaves stay
+    float32 (the router; Mamba's ``dt_bias``, ``A_log`` and ``D``; RG-LRU's
+    ``b_a``, ``b_x`` and ``lam``); other float weights take the config's
+    dtype."""
+    from .models import attention, ffn, rglru, ssm, transformer
     from .models.common import Linear, Norm, dtype_of
 
-    transformer.check_supported(cfg)
     device = resolve_device(device)
     dt = dtype_of(cfg)
 
@@ -135,14 +139,17 @@ def lm_params_from_numpy(cfg, params: dict, device=None):
         return ffn.DenseFFN(lin(f["w1"], i), lin(f["w2"], i),
                             lin(f["w3"], i) if "w3" in f else None)
 
+    def leaves(p, i, names, f32=()):
+        return {k: flt(at(p[k], i), torch.float32 if k in f32 else dt)
+                for k in names if k in p}
+
     def attn_p(a, i):
         if cfg.attn_type == "mla":
             return attention.MLA(*(flt(at(a[k], i)) for k in (
                 "w_dkv", "kv_norm", "w_uk", "w_uv", "w_q", "w_o")))
-        opt = {k: flt(at(a[k], i)) for k in
-               ("bq", "bk", "bv", "q_norm", "k_norm") if k in a}
-        return attention.GQA(*(flt(at(a[k], i))
-                               for k in ("wq", "wk", "wv", "wo")), **opt)
+        return attention.GQA(**leaves(a, i, ("wq", "wk", "wv", "wo", "bq",
+                                             "bk", "bv", "q_norm",
+                                             "k_norm")))
 
     def ffn_p(f, i, moe):
         if not moe:
@@ -152,20 +159,54 @@ def lm_params_from_numpy(cfg, params: dict, device=None):
                           *(flt(at(f[k], i)) for k in ("w1", "w3", "w2")),
                           shared)
 
+    def n_of(stack, ln="ln1"):
+        return np.asarray(stack[ln]["w"]).shape[0]
+
     def layers_of(stack, moe):
-        n = np.asarray(stack["ln1"]["w"]).shape[0]
         return [transformer.TFLayer(norm(stack["ln1"], i),
                                     attn_p(stack["attn"], i),
                                     norm(stack["ln2"], i),
                                     ffn_p(stack["ffn"], i, moe))
-                for i in range(n)]
+                for i in range(n_of(stack))]
 
-    moe = cfg.moe is not None
+    def mamba_layers(stack):
+        mix = stack["mix"]
+        return [transformer.MambaLayer(norm(stack["ln"], i), ssm.Mamba(
+            **leaves(mix, i, ("in_proj", "conv_w", "conv_b", "x_proj",
+                              "dt_proj", "dt_bias", "A_log", "D",
+                              "out_proj", "dt_norm", "b_norm", "c_norm"),
+                     f32=("dt_bias", "A_log", "D"))))
+            for i in range(n_of(stack, "ln"))]
+
+    def subs(stack):
+        def mix(m, i):
+            if "lam" not in m:
+                return attn_p(m, i)
+            return rglru.RGLRU(**leaves(
+                m, i, ("w_in", "w_gate_branch", "conv_w", "conv_b", "w_a",
+                       "b_a", "w_x", "b_x", "lam", "w_out"),
+                f32=("b_a", "b_x", "lam")))
+        return [transformer.HybridSub(norm(stack["ln1"], i),
+                                      mix(stack["mix"], i),
+                                      norm(stack["ln2"], i),
+                                      dense(stack["mlp"], i))
+                for i in range(n_of(stack))]
+
+    layers, blocks, tail = [], [], []
+    if cfg.family == "ssm":
+        layers = mamba_layers(params["stack"])
+    elif cfg.rglru is not None:
+        per_sub = [subs(params["blocks"][f"sub{j}"])
+                   for j in range(len(cfg.rglru.pattern))]
+        blocks = [list(block) for block in zip(*per_sub)]
+        tail = subs(params["tail"]) if "tail" in params else []
+    else:
+        layers = layers_of(params["stack"], cfg.moe is not None)
     dense_head = (layers_of(params["dense_head_layers"], False)
                   if "dense_head_layers" in params else [])
     lm_head = flt(params["lm_head"]) if "lm_head" in params else None
     heads = flt(params["heads"]) if "heads" in params else None
-    return transformer.LM(cfg, flt(params["embed"]),
-                          layers_of(params["stack"], moe),
+    return transformer.LM(cfg, flt(params["embed"]), layers,
                           norm(params["final_norm"]), lm_head,
-                          dense_head_layers=dense_head, heads=heads)
+                          dense_head_layers=dense_head, heads=heads,
+                          blocks=blocks, tail=tail)

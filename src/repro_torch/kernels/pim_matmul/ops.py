@@ -24,12 +24,13 @@ from a failure (a launch that returns a CUDA error raises):
 Each picks its own tiles and K splits, so the reference's block sizes and
 ``interpret`` have no counterpart.
 
-``LAUNCHES["pim_matmul"]`` counts kernel launches and ``ROUTES`` splits
-them by route; a plain-version call counts nothing. A call made while the
-current stream captures a CUDA graph runs nothing then: it counts in
-``CAPTURED``, by route, instead, and whoever replays the graph adds what it
-captured at each replay (``count_replay``; ``serve.engine`` does), so that
-the counts stay launches that ran.
+``LAUNCHES["pim_matmul"]`` counts kernel launches, ``ROUTES`` splits
+them by route and ``SHAPES`` by (route, K, N); a plain-version call counts
+nothing. A call made while the current stream captures a CUDA graph runs
+nothing then: it counts in ``CAPTURED`` and ``CAPTURED_SHAPES`` instead,
+and whoever replays the graph adds what it captured at each replay
+(``count_replay``; ``serve.engine`` does), so that the counts stay
+launches that ran.
 """
 from __future__ import annotations
 
@@ -41,6 +42,8 @@ from . import ref as _ref
 LAUNCHES = {"pim_matmul": 0}
 ROUTES = {"tensor_core": 0, "swap_ab": 0, "cuda_core": 0}
 CAPTURED = dict.fromkeys(ROUTES, 0)
+SHAPES: dict[tuple[str, int, int], int] = {}
+CAPTURED_SHAPES: dict[tuple[str, int, int], int] = {}
 # The least M that takes the tensor-core kernel: prefill takes it, decode
 # (M = batch) the swapped-operand kernel, which holds the batch in at most
 # two n8 fragments, so TC_MIN_M must stay <= 17. On one H100 the swapped
@@ -53,25 +56,37 @@ def reset_launches() -> None:
     LAUNCHES["pim_matmul"] = 0
     for r in ROUTES:
         ROUTES[r] = 0
+    SHAPES.clear()
 
 
-def _count(which: str) -> None:
-    """Count one launch of route ``which``, or one captured launch (a
-    build of torch without CUDA has no capture to ask about)."""
-    if torch.cuda.is_available() \
-            and torch.cuda.is_current_stream_capturing():
+def _add(counts: dict, key, n: int = 1) -> None:
+    counts[key] = counts.get(key, 0) + n
+
+
+def _count(which: str, shape: tuple[int, int] | None = None) -> None:
+    """Count one launch of route ``which`` (at ``shape``, (K, N)), or one
+    captured launch (a build of torch without CUDA has no capture to ask
+    about)."""
+    capturing = torch.cuda.is_available() \
+        and torch.cuda.is_current_stream_capturing()
+    if shape is not None:
+        _add(CAPTURED_SHAPES if capturing else SHAPES, (which, *shape))
+    if capturing:
         CAPTURED[which] += 1
         return
     LAUNCHES["pim_matmul"] += 1
     ROUTES[which] += 1
 
 
-def count_replay(routes: dict) -> None:
-    """Count one replay of a graph that captured ``routes``, launches by
-    route (``CAPTURED`` after its capture less ``CAPTURED`` before)."""
+def count_replay(routes: dict, shapes: dict | None = None) -> None:
+    """Count one replay of a graph that captured ``routes`` and
+    ``shapes``, launches by route and by (route, K, N) (``CAPTURED`` and
+    ``CAPTURED_SHAPES`` after its capture less before)."""
     for which, n in routes.items():
         LAUNCHES["pim_matmul"] += n
         ROUTES[which] += n
+    for key, n in (shapes or {}).items():
+        _add(SHAPES, key, n)
 
 
 def route(m: int, k: int, n: int, dtype: torch.dtype) -> str:
@@ -188,7 +203,7 @@ def _launch(x, w_int, scales, out, mode, bits, which, splits=None):
     if rc != 0:
         raise RuntimeError(f"pim_matmul kernel launch failed ({which}): "
                            f"CUDA error {rc}")
-    _count(which)
+    _count(which, (k, n))
     return out
 
 

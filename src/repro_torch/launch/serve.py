@@ -2,7 +2,9 @@
 ``PYTHONPATH=src python -m repro_torch.launch.serve --arch <id>``.
 
 The reference CLI's flags, plus ``--device`` (the CUDA card unless
-``cpu`` is asked for). Weights are random, made from seed 0.
+``cpu`` is asked for). Weights are random, made from seed 0. Every
+architecture of ``repro_torch.configs`` runs, e.g. ``--arch
+falcon-mamba-7b --smoke --device cpu``.
 """
 import argparse
 

@@ -1,25 +1,37 @@
-"""Decoder assembly for the attention families: embeds → layers → logits,
-prefill and single-token decode.
+"""Decoder assembly: embeds → layers → logits, prefill and single-token
+decode.
 
-Port of ``repro.models.transformer`` for the dense, MoE (with
-``first_k_dense`` dense head layers), MLA, vision-patch and audio-frame
-configurations. Where the reference stacks every layer's weights along a
-leading axis and scans, the port keeps one ``TFLayer`` module per layer in
-an ``nn.ModuleList`` per stack (``dense_head_layers``, then ``layers``)
-and loops. The decode caches keep the reference's stacked layout per
-stack: ``caches["stack"] = {"k": (L, B, Sc, KV, dh), "v": ..., "kpos":
-(L, B, Sc)}`` for GQA, ``{"ckv": (L, B, Sc, rank), "krope": ..., "kpos":
-...}`` for MLA, and ``caches["dense_head"]`` alike for the dense head
-layers; ``decode_step`` updates them in place and returns them.
+Port of ``repro.models.transformer`` for every family: dense, MoE (with
+``first_k_dense`` dense head layers), MLA, the vision-patch and
+audio-frame frontends, SSM (falcon-mamba) and the RG-LRU hybrid
+(recurrentgemma). Where the reference stacks every layer's weights along a
+leading axis and scans, the port keeps one module per layer in an
+``nn.ModuleList`` per stack and loops:
+
+- ``dense_head_layers`` and ``layers`` (the reference's ``stack``):
+  ``TFLayer``s, or for SSM ``MambaLayer``s;
+- ``blocks``: the hybrid's super-blocks, one ``nn.ModuleList`` of
+  ``HybridSub``s per block, in the order of ``rglru.pattern`` (``rec``:
+  RG-LRU, ``attn``: GQA, each followed by a dense FFN), then ``tail``,
+  the ``HybridSub``s of the leftover layers, the leading ``rec`` prefix of
+  the pattern (``_hybrid_layout``).
+
+The decode caches keep the reference's stacked layout and key names, each
+layer's entries along a leading axis: ``caches["stack"] = {"k": (L, B, Sc,
+KV, dh), "v": ..., "kpos": (L, B, Sc)}`` for GQA, ``{"ckv": (L, B, Sc,
+rank), "krope": ..., "kpos": ...}`` for MLA, ``{"h": (L, B, I, N)
+float32, "conv": (L, B, d_conv - 1, I)}`` for SSM, and
+``caches["dense_head"]`` alike for the dense head layers; for the hybrid,
+``caches["blocks"]["sub{i}"]`` holds RG-LRU state ``{"h": (n_blocks, B,
+W) float32, "conv": ...}`` or a GQA (ring) cache, and ``caches["tail"]``
+RG-LRU state. ``decode_step`` writes every entry, attention or recurrent,
+in place and returns the caches.
 
 The tied (or untied) output head is cast to float32 once, when the model is
 built (the ``head_f32`` buffer; the audio frontend's per-codebook
 ``heads_f32``), since the logits are a float32 product as in the reference
 (at Qwen3-4B's width that copy is 1.56 GB, which a cast per call would
 allocate again every step).
-
-The recurrent families, SSM (falcon-mamba) and RG-LRU (recurrentgemma),
-wait (ROADMAP A7): ``init_params`` raises for them.
 """
 from __future__ import annotations
 
@@ -32,19 +44,10 @@ from torch import nn
 from .._device import resolve_device, same_device
 from . import attention as attn
 from . import ffn as ffn_mod
+from . import rglru as rg
+from . import ssm as ssm_mod
 from .common import (Norm, apply_norm, dtype_of, embed_init, frozen,
                      make_norm_params, sinusoidal_pos_emb)
-
-
-def check_supported(cfg) -> None:
-    """Raise for the configurations this slice of the port does not run."""
-    why = [sub.upper() for sub in ("ssm", "rglru")
-           if getattr(cfg, sub) is not None]
-    if why:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: {', '.join(why)} is not ported yet (ROADMAP "
-            "A7, the recurrent families); the port runs the attention "
-            "families: dense, MoE, MLA, the vision and audio frontends")
 
 
 # ---------------------------------------------------------------------------
@@ -61,19 +64,58 @@ class TFLayer(nn.Module):
         self.ln1, self.attn, self.ln2, self.ffn = ln1, attn_p, ln2, ffn
 
 
+class MambaLayer(nn.Module):
+    """One SSM layer: ``ln``, ``mix`` (a ``Mamba`` block)."""
+
+    def __init__(self, ln: Norm, mix: ssm_mod.Mamba):
+        super().__init__()
+        self.ln, self.mix = ln, mix
+
+
+class HybridSub(nn.Module):
+    """One sub-layer of a Griffin block: ``ln1``, ``mix`` (``RGLRU`` or
+    ``GQA``), ``ln2``, ``mlp`` (a ``DenseFFN``)."""
+
+    def __init__(self, ln1: Norm, mix: nn.Module, ln2: Norm,
+                 mlp: ffn_mod.DenseFFN):
+        super().__init__()
+        self.ln1, self.mix, self.ln2, self.mlp = ln1, mix, ln2, mlp
+
+
+def _hybrid_layout(cfg) -> tuple[int, int]:
+    """(blocks, tail layers) of a hybrid config: ``n_layers // len(pattern)``
+    blocks, the rest the leading (``rec``) prefix of the pattern."""
+    pat = cfg.rglru.pattern
+    n_blocks, tail = divmod(cfg.n_layers, len(pat))
+    if any(k != "rec" for k in pat[:tail]):
+        raise ValueError(f"{cfg.arch_id}: the {tail} tail layers must be "
+                         f"the leading (rec) prefix of the pattern {pat}")
+    return n_blocks, tail
+
+
+def _layout(cfg) -> dict:
+    """Layers per ModuleList: dense head, layers, blocks, tail."""
+    n_head = cfg.moe.first_k_dense if cfg.moe is not None else 0
+    if cfg.rglru is not None:
+        n_blocks, tail = _hybrid_layout(cfg)
+        return dict(dense_head=0, layers=0, blocks=n_blocks, tail=tail)
+    return dict(dense_head=n_head, layers=cfg.n_layers - n_head, blocks=0,
+                tail=0)
+
+
 class LM(nn.Module):
     """A decoder: ``embed`` (V, D), ``dense_head_layers`` (an MoE config's
-    ``first_k_dense`` dense layers), ``layers``, ``final_norm``, and
-    ``lm_head`` (D, V) unless the embeddings are tied, or for the audio
-    frontend ``heads`` (n_codebooks, D, V). ``generate_graphs`` keeps
-    ``serve.engine``'s CUDA graphs of this model, which moving or casting
-    it drops."""
+    ``first_k_dense`` dense layers), ``layers``, ``blocks`` and ``tail``
+    (the hybrid's), ``final_norm``, and ``lm_head`` (D, V) unless the
+    embeddings are tied, or for the audio frontend ``heads``
+    (n_codebooks, D, V). ``generate_graphs`` keeps ``serve.engine``'s CUDA
+    graphs of this model, which moving or casting it drops."""
 
     def __init__(self, cfg, embed: torch.Tensor, layers, final_norm: Norm,
                  lm_head: torch.Tensor | None = None, *,
-                 dense_head_layers=(), heads: torch.Tensor | None = None):
+                 dense_head_layers=(), heads: torch.Tensor | None = None,
+                 blocks=(), tail=()):
         super().__init__()
-        check_supported(cfg)
         audio = cfg.frontend == "audio_frames"
         if audio and (heads is None or lm_head is not None):
             raise ValueError(f"{cfg.arch_id}: the audio frontend takes "
@@ -82,16 +124,21 @@ class LM(nn.Module):
                           or (lm_head is None) != cfg.tie_embeddings):
             raise ValueError(f"{cfg.arch_id}: lm_head must be given iff the "
                              "embeddings are untied")
-        n_head = cfg.moe.first_k_dense if cfg.moe is not None else 0
-        if len(dense_head_layers) != n_head \
-                or len(layers) != cfg.n_layers - n_head:
-            raise ValueError(f"{cfg.arch_id}: {len(dense_head_layers)} dense "
-                             f"head layers and {len(layers)} layers, "
-                             f"expected {n_head} and {cfg.n_layers - n_head}")
+        got = dict(dense_head=len(dense_head_layers), layers=len(layers),
+                   blocks=len(blocks), tail=len(tail))
+        if got != _layout(cfg):
+            raise ValueError(f"{cfg.arch_id}: layers per stack {got}, "
+                             f"expected {_layout(cfg)}")
+        pat = cfg.rglru.pattern if cfg.rglru is not None else ()
+        if any(len(b) != len(pat) for b in blocks):
+            raise ValueError(f"{cfg.arch_id}: a block holds "
+                             f"{len(pat)} sub-layers {pat}")
         self.cfg = cfg
         self.embed = frozen(embed)
         self.dense_head_layers = nn.ModuleList(dense_head_layers)
         self.layers = nn.ModuleList(layers)
+        self.blocks = nn.ModuleList(nn.ModuleList(b) for b in blocks)
+        self.tail = nn.ModuleList(tail)
         self.final_norm = final_norm
         self.lm_head = frozen(lm_head)
         self.heads = frozen(heads)
@@ -117,11 +164,19 @@ class LM(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
-    def stacks(self):
-        """(cache name, layers) of each non-empty stack, in order."""
-        return [(name, layers) for name, layers in
-                (("dense_head", self.dense_head_layers),
-                 ("stack", self.layers)) if len(layers)]
+    def walk(self):
+        """(cache name, sub-layer name or None, index in its stack, layer)
+        of every layer, in the order they run: ``caches[name][i]`` (for a
+        block, ``caches["blocks"][sub][i]``) is its entry."""
+        for name, layers in (("dense_head", self.dense_head_layers),
+                             ("stack", self.layers)):
+            for i, layer in enumerate(layers):
+                yield name, None, i, layer
+        for i, block in enumerate(self.blocks):
+            for j, sub in enumerate(block):
+                yield "blocks", f"sub{j}", i, sub
+        for i, layer in enumerate(self.tail):
+            yield "tail", None, i, layer
 
 
 def _init_attn(gen, cfg):
@@ -140,12 +195,23 @@ def init_tf_layer(gen, cfg, moe: bool = False) -> TFLayer:
                    else ffn_mod.init_dense_ffn(gen, cfg, d_ff))
 
 
+def init_mamba_layer(gen, cfg) -> MambaLayer:
+    return MambaLayer(make_norm_params(cfg, cfg.d_model, gen.device),
+                      ssm_mod.init_mamba(gen, cfg))
+
+
+def init_hybrid_sub(gen, cfg, kind: str) -> HybridSub:
+    mix = rg.init_rglru(gen, cfg) if kind == "rec" else _init_attn(gen, cfg)
+    return HybridSub(make_norm_params(cfg, cfg.d_model, gen.device), mix,
+                     make_norm_params(cfg, cfg.d_model, gen.device),
+                     ffn_mod.init_dense_ffn(gen, cfg, cfg.d_ff))
+
+
 def init_params(cfg, seed: int = 0, *, device=None) -> LM:
     """A model with random weights drawn by a ``torch.Generator`` seeded
     with ``seed``, one tensor at a time, on the card unless
     ``device="cpu"``. The reference's ``jax.random`` weights differ;
     ``convert.lm_params_from_numpy`` carries those across."""
-    check_supported(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(int(seed))
     dt = dtype_of(cfg)
@@ -159,12 +225,20 @@ def init_params(cfg, seed: int = 0, *, device=None) -> LM:
         else:
             lm_head = embed_init(gen, cfg.vocab_size, cfg.d_model, dt).T \
                 .contiguous()
-    n_head = cfg.moe.first_k_dense if cfg.moe is not None else 0
-    dense_head = [init_tf_layer(gen, cfg) for _ in range(n_head)]
-    layers = [init_tf_layer(gen, cfg, moe=cfg.moe is not None)
-              for _ in range(cfg.n_layers - n_head)]
+    n = _layout(cfg)
+    dense_head = [init_tf_layer(gen, cfg) for _ in range(n["dense_head"])]
+    if cfg.family == "ssm":
+        layers = [init_mamba_layer(gen, cfg) for _ in range(n["layers"])]
+    else:
+        layers = [init_tf_layer(gen, cfg, moe=cfg.moe is not None)
+                  for _ in range(n["layers"])]
+    pat = cfg.rglru.pattern if cfg.rglru is not None else ()
+    blocks = [[init_hybrid_sub(gen, cfg, kind) for kind in pat]
+              for _ in range(n["blocks"])]
+    tail = [init_hybrid_sub(gen, cfg, "rec") for _ in range(n["tail"])]
     return LM(cfg, embed, layers, make_norm_params(cfg, cfg.d_model, device),
-              lm_head, dense_head_layers=dense_head, heads=heads)
+              lm_head, dense_head_layers=dense_head, heads=heads,
+              blocks=blocks, tail=tail)
 
 
 def check_model_device(model: LM, device=None) -> torch.device:
@@ -223,6 +297,61 @@ def tf_layer_decode(cfg, p: TFLayer, x, pos: int, cache):
     return x + f, cache
 
 
+def mamba_layer_train(cfg, p: MambaLayer, x):
+    """Returns (x, the layer's recurrent state)."""
+    y, state = ssm_mod.mamba_train(cfg, p.mix, apply_norm(cfg, p.ln, x))
+    return x + y, state
+
+
+def mamba_layer_decode(cfg, p: MambaLayer, x, state):
+    y, state = ssm_mod.mamba_decode(cfg, p.mix, apply_norm(cfg, p.ln, x),
+                                    state)
+    return x + y, state
+
+
+def hybrid_sub_train(cfg, p: HybridSub, x, positions):
+    """Returns (x, RG-LRU state or the attention's (k, v))."""
+    h = apply_norm(cfg, p.ln1, x)
+    if isinstance(p.mix, rg.RGLRU):
+        y, entry = rg.rglru_train(cfg, p.mix, h)
+    else:
+        y, entry = _attn_train(cfg, p.mix, h, positions)
+    x = x + y
+    return x + ffn_mod.dense_ffn(cfg, p.mlp, apply_norm(cfg, p.ln2, x)), \
+        entry
+
+
+def hybrid_sub_decode(cfg, p: HybridSub, x, pos: int, cache):
+    h = apply_norm(cfg, p.ln1, x)
+    if isinstance(p.mix, rg.RGLRU):
+        y, cache = rg.rglru_decode(cfg, p.mix, h, cache)
+    else:
+        y, cache = _attn_decode(cfg, p.mix, h, pos, cache)
+    x = x + y
+    return x + ffn_mod.dense_ffn(cfg, p.mlp, apply_norm(cfg, p.ln2, x)), \
+        cache
+
+
+def layer_train(cfg, layer, x, positions):
+    """Any layer over the full sequence: (x, aux, its cache entry)."""
+    if isinstance(layer, TFLayer):
+        return tf_layer_train(cfg, layer, x, positions)
+    if isinstance(layer, MambaLayer):
+        x, state = mamba_layer_train(cfg, layer, x)
+    else:
+        x, state = hybrid_sub_train(cfg, layer, x, positions)
+    return x, 0.0, state
+
+
+def layer_decode(cfg, layer, x, pos: int, cache):
+    """Any layer at one position, its cache entry updated in place."""
+    if isinstance(layer, TFLayer):
+        return tf_layer_decode(cfg, layer, x, pos, cache)[0]
+    if isinstance(layer, MambaLayer):
+        return mamba_layer_decode(cfg, layer, x, cache)[0]
+    return hybrid_sub_decode(cfg, layer, x, pos, cache)[0]
+
+
 def _tokens(batch, device) -> torch.Tensor:
     """``batch["tokens"]`` (a tensor or an array) as indices on ``device``."""
     t = batch["tokens"]
@@ -266,15 +395,13 @@ def embed_inputs(cfg, model: LM, batch):
 
 
 def backbone_train(cfg, model: LM, x, positions):
-    """Run every stack; returns (hidden, aux, {stack name: per-layer
-    attention entries})."""
+    """Run every layer; returns (hidden, aux, {(cache name, sub-layer name
+    or None): the per-layer cache entries, in stack order})."""
     entries, aux = {}, 0.0
-    for name, layers in model.stacks():
-        entries[name] = []
-        for layer in layers:
-            x, aux_i, kv = tf_layer_train(cfg, layer, x, positions)
-            aux = aux + aux_i
-            entries[name].append(kv)
+    for name, sub, _, layer in model.walk():
+        x, aux_i, entry = layer_train(cfg, layer, x, positions)
+        aux = aux + aux_i
+        entries.setdefault((name, sub), []).append(entry)
     return apply_norm(cfg, model.final_norm, x), aux, entries
 
 
@@ -300,16 +427,30 @@ def _stacked(per_layer: list) -> dict:
 
 
 def init_caches(cfg, batch: int, max_len: int, device):
-    """Empty decode caches (kpos −1) for every layer, stacked per stack."""
-    check_supported(cfg)
-    n_head = cfg.moe.first_k_dense if cfg.moe is not None else 0
+    """Empty decode caches for every layer, stacked per stack: attention
+    slots with kpos −1, recurrent state zero."""
+    n = _layout(cfg)
+
+    def repeat(one: dict, k: int) -> dict:
+        return {key: v[None].repeat(k, *([1] * v.dim()))
+                for key, v in one.items()}
+
+    if cfg.family == "ssm":
+        return {"stack": repeat(ssm_mod.mamba_init_state(cfg, batch, device),
+                                n["layers"])}
+    if cfg.rglru is not None:
+        rec = rg.rglru_init_state(cfg, batch, device)
+        caches = {"blocks": {
+            f"sub{i}": repeat(rec if kind == "rec" else _attn_init_cache(
+                cfg, batch, max_len, device), n["blocks"])
+            for i, kind in enumerate(cfg.rglru.pattern)}}
+        if n["tail"]:
+            caches["tail"] = repeat(rec, n["tail"])
+        return caches
     one = _attn_init_cache(cfg, batch, max_len, device)
-    caches = {}
-    for name, n in (("dense_head", n_head), ("stack", cfg.n_layers - n_head)):
-        if n:
-            caches[name] = {k: v[None].repeat(n, *([1] * v.dim()))
-                            for k, v in one.items()}
-    return caches
+    return {name: repeat(one, n[key])
+            for name, key in (("dense_head", "dense_head"),
+                              ("stack", "layers")) if n[key]}
 
 
 def _attn_cache_from_prefill(cfg, kv, max_len: int):
@@ -343,18 +484,33 @@ def _attn_cache_from_prefill(cfg, kv, max_len: int):
     return cache
 
 
+def _cache_from_prefill(cfg, entry, max_len: int) -> dict:
+    """A recurrent state (a dict) as it is; attention entries as a decode
+    cache (``_attn_cache_from_prefill``)."""
+    if isinstance(entry, dict):
+        return entry
+    return _attn_cache_from_prefill(cfg, entry, max_len)
+
+
 @torch.no_grad()
 def prefill(cfg, model: LM, batch, max_cache_len: int, *, device=None):
     """Process a prompt batch; returns (last-position logits float32, (B, 1,
     V) or the audio frontend's (B, 1, n_codebooks, V), decode caches). Runs
-    on the card unless ``device="cpu"``, which must be where the model is."""
+    on the card unless ``device="cpu"``, which must be where the model is.
+    A recurrent layer's state is the prompt's: its conv state holds the
+    prompt's last ``d_conv - 1`` inputs, fewer for a shorter prompt (as in
+    the reference), which ``decode_step`` refuses."""
     check_model_device(model, device)
     x, positions, _ = embed_inputs(cfg, model, batch)
     h, _, entries = backbone_train(cfg, model, x, positions)
-    caches = {name: _stacked([_attn_cache_from_prefill(cfg, kv,
-                                                       max_cache_len)
-                              for kv in kvs])
-              for name, kvs in entries.items()}
+    caches = {}
+    for (name, sub), es in entries.items():
+        stacked = _stacked([_cache_from_prefill(cfg, e, max_cache_len)
+                            for e in es])
+        if sub is None:
+            caches[name] = stacked
+        else:
+            caches.setdefault(name, {})[sub] = stacked
     return _logits_chunk(cfg, model, h[:, -1:, :]), caches
 
 
@@ -376,10 +532,9 @@ def decode_step(cfg, model: LM, token_inputs, pos: int, caches, *,
         x = model.embed[_tokens(token_inputs, dev)]
         if cfg.pos_emb == "sinusoidal":
             x = _add_sinusoidal(cfg, x, at)
-    for name, layers in model.stacks():
-        stack = caches[name]
-        for i, layer in enumerate(layers):
-            x, _ = tf_layer_decode(cfg, layer, x, pos,
-                                   {k: v[i] for k, v in stack.items()})
+    for name, sub, i, layer in model.walk():
+        stack = caches[name] if sub is None else caches[name][sub]
+        x = layer_decode(cfg, layer, x, pos,
+                         {k: v[i] for k, v in stack.items()})
     x = apply_norm(cfg, model.final_norm, x)
     return _logits_chunk(cfg, model, x), caches

@@ -16,7 +16,10 @@ the graph's input, replays the graph once and returns a copy of its output.
 The graphs live on the model (``LM.generate_graphs``), at most
 ``MAX_GRAPHS`` signatures, the least recently used dropped first, and die
 with it. A capture or a replay that fails raises: the card has no eager
-path. On the CPU the loop runs eagerly.
+path. On the CPU the loop runs eagerly. The same holds for every family:
+a recurrent model's prefill states and its decode steps' in-place state
+writes are captured with the rest (static shapes, no host
+synchronisation).
 
 ``DECODE_STATS["dispatches"]`` counts the host's dispatches of the decode
 loop, as the reference's does: on the card one per call with
@@ -128,6 +131,7 @@ class _Graph:
 
         t = time.perf_counter()
         pim0, flash0 = dict(_pim.CAPTURED), dict(_flash.CAPTURED)
+        shapes0 = dict(_pim.CAPTURED_SHAPES)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         self.graph = torch.cuda.CUDAGraph()
@@ -136,6 +140,9 @@ class _Graph:
                                  max_cache_len, self.temperature, self.u)
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.pim_routes = {k: v - pim0[k] for k, v in _pim.CAPTURED.items()}
+        self.pim_shapes = {k: v - shapes0.get(k, 0)
+                           for k, v in _pim.CAPTURED_SHAPES.items()
+                           if v != shapes0.get(k, 0)}
         self.flash_routes = {k: v - flash0[k]
                              for k, v in _flash.CAPTURED.items()}
         self.capture_s = time.perf_counter() - t
@@ -148,7 +155,7 @@ class _Graph:
             self.temperature.fill_(temperature)
         self.graph.replay()
         DECODE_STATS["dispatches"] += 1
-        _pim.count_replay(self.pim_routes)
+        _pim.count_replay(self.pim_routes, self.pim_shapes)
         _flash.count_replay(self.flash_routes)
         return self.out.clone()
 

@@ -5,7 +5,10 @@ special value, ``pim_matmul`` and ``flash_attn`` on each of their routes,
 odd and random sizes), the smoke-size serving path on the card against
 the CPU, and ``greedy_generate``'s CUDA graphs (one replay per call, the
 eager loop's tokens and launches, a bounded cache per model) at the smoke
-size and at Qwen3-4B's full width with 2 layers.
+size and at Qwen3-4B's full width with 2 layers; then the MoE, MLA and
+frontend families (``-k families``) and the recurrent ones (``-k
+recurrent``: falcon-mamba-7b and recurrentgemma-2b at the smoke size,
+recurrentgemma-2b at full width with 5 layers, the ring's wrap).
 
 Needs a CUDA card and ``nvcc`` (the kernels build at first use); every test
 here skips elsewhere. It imports nothing of JAX, so on the card machine it
@@ -1388,3 +1391,130 @@ def test_families_audio_card_matches_cpu(card):
                            [s.cpu() for s in steps], "cpu")
     for t, (a, b) in enumerate(zip(on_card, on_cpu)):
         assert rel_err(a, b) < LOGITS_REL, f"step {t}"
+
+
+# ---------------------------------------------------------------------------
+# The recurrent families on the card
+# ---------------------------------------------------------------------------
+
+RECURRENT_CASES = {
+    "falcon-mamba-7b": ("falcon-mamba-7b", True, {}),
+    "recurrentgemma-2b": ("recurrentgemma-2b", True, {}),
+    "recurrentgemma-2b-pim_w4": ("recurrentgemma-2b", True,
+                                 {"quant": "pim_w4"}),
+    # full width, 5 layers: one (rec, rec, attn) block and the 2-layer tail
+    "recurrentgemma-2b-pim_w4-full-width": ("recurrentgemma-2b", False,
+                                            {"quant": "pim_w4",
+                                             "n_layers": 5}),
+}
+
+
+def forced(cfg, model, prompt, toks, device=None):
+    """The eager loop teacher-forced with ``toks`` on ``device`` (the card
+    unless "cpu"): each step's logits and their argmax chain."""
+    s, n = prompt.shape[1], toks.shape[1]
+    lg, caches = prefill(cfg, model, {"tokens": prompt}, s + n,
+                         device=device)
+    logits = [lg]
+    for t in range(n - 1):
+        lg, caches = decode_step(cfg, model, {"tokens": toks[:, t:t + 1]},
+                                 s + t, caches, device=device)
+        logits.append(lg)
+    chain = torch.stack([torch.argmax(lg[:, 0, :cfg.vocab_size], -1)
+                         for lg in logits], dim=1).to(torch.int32)
+    return logits, chain
+
+
+def recurrent_counts(cfg, passes):
+    """Launches per route of prefill and ``passes - 1`` decode steps: each
+    quantized FFN linear (3 per layer, GeGLU) one pim_matmul, each full
+    block's attention one flash_attn; an SSM model neither. pim_matmul's
+    also by (route, K, N): w1 and w3 at (d_model, d_ff), w2 at (d_ff,
+    d_model)."""
+    n = 3 * cfg.n_layers if cfg.quant and cfg.rglru is not None else 0
+    pat = cfg.rglru.pattern if cfg.rglru is not None else ()
+    a = cfg.n_layers // len(pat) * pat.count("attn") if pat else 0
+    D, F = cfg.d_model, cfg.d_ff
+    shapes = {(route, *kn): count * per
+              for route, per in (("tensor_core", 1), ("swap_ab", passes - 1))
+              for kn, count in (((D, F), 2 * n // 3), ((F, D), n // 3))
+              if count * per}
+    return ({"pim_matmul": n * passes},
+            {"tensor_core": n, "swap_ab": n * (passes - 1), "cuda_core": 0},
+            {"flash_attn": a * passes},
+            {"tiled": 0, "split_kv": a * (passes - 1), "tensor_core": a},
+            shapes)
+
+
+@pytest.mark.parametrize("case", list(RECURRENT_CASES))
+def test_recurrent_generate_graph_is_the_eager_argmax_chain(card, case):
+    """greedy_generate of a recurrent family: one replay per call
+    (DECODE_STATS 1) whose tokens are the eager loop's argmax chain bit for
+    bit, its launches per route (and pim_matmul's per shape) those of
+    prefill and the decode steps, and
+    the card's teacher-forced logits within the bound of the CPU's. The
+    prompt of 40 positions is over two of the smoke size's 16-step scan
+    chunks, with padding."""
+    arch, smoke, kw = RECURRENT_CASES[case]
+    cfg = get_config(arch, smoke=smoke, **kw)
+    model = init_params(cfg, 7)
+    n = 5
+    for seed in (1, 2):                    # the capture's call, a replay
+        prompt = prompt_on(card, cfg, seed, length=40)
+        engine.DECODE_STATS["dispatches"] = 0
+        pm.reset_launches()
+        fa.reset_launches()
+        toks = greedy_generate(cfg, model, {"tokens": prompt},
+                               max_new_tokens=n)
+        torch.cuda.synchronize()
+        assert engine.DECODE_STATS["dispatches"] == 1
+        if seed == 2:
+            assert (dict(pm.LAUNCHES), dict(pm.ROUTES), dict(fa.LAUNCHES),
+                    dict(fa.ROUTES), dict(pm.SHAPES)) \
+                == recurrent_counts(cfg, n)
+        logits, chain = forced(cfg, model, prompt, toks)
+        assert toks.shape == (2, n) and torch.equal(toks, chain)
+    assert len(model.generate_graphs) == 1
+    model.to("cpu")
+    on_cpu, _ = forced(cfg, model, prompt.cpu(), toks.cpu(), "cpu")
+    for t, (a, b) in enumerate(zip(logits, on_cpu)):
+        assert rel_err(a, b) < LOGITS_REL, f"step {t}"
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-2b"])
+def test_recurrent_decode_writes_state_in_place(card, arch):
+    """decode_step on the card writes each layer's recurrent state into the
+    caches' tensors it was given (no new tensors), as on the CPU."""
+    cfg = get_config(arch, smoke=True)
+    model = init_params(cfg, 9)
+    prompt = prompt_on(card, cfg, 3)
+    _, caches = prefill(cfg, model, {"tokens": prompt}, 30)
+    key = "stack" if cfg.ssm is not None else "tail"
+    h, conv = caches[key]["h"], caches[key]["conv"]
+    before = h.clone()
+    _, out = decode_step(cfg, model, {"tokens": prompt[:, :1]}, 24, caches)
+    assert out[key]["h"] is h and out[key]["conv"] is conv
+    assert not torch.equal(h, before)
+
+
+def test_recurrent_ring_wraps_on_the_card(card):
+    """recurrentgemma at the smoke size (window 16): 30 new tokens after an
+    8-token prompt, so the attention's 16-slot ring wraps; the replay's
+    tokens are the eager chain bit for bit (bf16), and in float32 the
+    card's logits over the wrap are within PIM_REL of the CPU's."""
+    cfg = get_config("recurrentgemma-2b", smoke=True)
+    model = init_params(cfg, 10)
+    prompt = prompt_on(card, cfg, 4, length=8)
+    toks = greedy_generate(cfg, model, {"tokens": prompt},
+                           max_new_tokens=30)
+    _, chain = forced(cfg, model, prompt, toks)
+    assert torch.equal(toks, chain)
+    cfg32 = get_config("recurrentgemma-2b", smoke=True, dtype="float32")
+    model32 = init_params(cfg32, 10)
+    _, caches = prefill(cfg32, model32, {"tokens": prompt}, 38)
+    assert caches["blocks"]["sub2"]["k"].shape[2] == 16
+    logits, _ = forced(cfg32, model32, prompt, toks)
+    on_cpu, _ = forced(cfg32, model32.to("cpu"), prompt.cpu(), toks.cpu(),
+                       "cpu")
+    for t, (a, b) in enumerate(zip(logits, on_cpu)):
+        assert rel_err(a, b) < PIM_REL, f"step {t}"

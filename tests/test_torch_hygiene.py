@@ -25,6 +25,7 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.core.bitplane, "
             "repro_torch.kernels.rowops.ops, repro_torch.convert, "
             "repro_torch.configs, repro_torch.models, "
+            "repro_torch.models.ssm, repro_torch.models.rglru, "
             "repro_torch.kernels.pim_matmul.ops, "
             "repro_torch.kernels.flash_attn.ops, repro_torch.serve.engine, "
             "repro_torch.serve.pim_front, repro_torch.core.pim.lint, "

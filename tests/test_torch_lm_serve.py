@@ -178,11 +178,28 @@ def test_configs_are_the_reference(arch):
             == dataclasses.asdict(jconfigs.get_config(arch, smoke=smoke))
 
 
-@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-2b"])
-def test_unported_configs_raise(arch):
+@pytest.mark.parametrize("arch", jconfigs.ARCH_IDS)
+def test_every_config_builds(arch):
+    """Every configuration builds at the smoke size on the CPU, from a seed
+    (``init_params``) and from the reference's weights
+    (``lm_params_from_numpy``), with the same parameters: names, shapes
+    and dtypes."""
     cfg = pconfigs.get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        init_params(cfg, 0, device=CPU)
+    jcfg = jconfigs.get_config(arch, smoke=True)
+    ours = init_params(cfg, 0, device=CPU)
+    params = to_numpy(jax.jit(lambda k: jax_init(jcfg, k))(
+        jax.random.PRNGKey(0)))
+    theirs = lm_params_from_numpy(cfg, params, device=CPU)
+
+    def shapes(model):
+        return {k: (tuple(v.shape), v.dtype) for k, v in
+                list(model.named_parameters()) + list(model.named_buffers())}
+
+    assert shapes(ours) == shapes(theirs)
+    n_ref = sum(np.asarray(a).size for a in jax.tree.leaves(params))
+    assert sum(v.numel() for v in theirs.parameters()) + sum(
+        b.numel() for n, b in theirs.named_buffers()
+        if not n.endswith("_f32")) == n_ref
 
 
 def test_conversion_keeps_codes_and_scales_exactly():
@@ -359,6 +376,35 @@ def test_captured_launches_count_at_replay(ops, name, monkeypatch):
         ops.count_replay(routes)
     assert ops.LAUNCHES[name] == 7 and ops.ROUTES[which] == 7
     ops.reset_launches()
+
+
+def test_pim_matmul_counts_launches_by_shape(monkeypatch):
+    """pim_matmul also counts each launch by (route, K, N): a launch at once
+    in SHAPES, a captured one in CAPTURED_SHAPES, which each replay adds."""
+    pm.reset_launches()
+    captured = dict(pm.CAPTURED_SHAPES)
+    pm._count("swap_ab", (64, 192))
+    assert pm.SHAPES == {("swap_ab", 64, 192): 1}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    pm._count("tensor_core", (192, 64))
+    pm._count("tensor_core", (192, 64))
+    pm._count("tensor_core", (64, 192))
+    assert pm.SHAPES == {("swap_ab", 64, 192): 1}
+    shapes = {k: v - captured.get(k, 0)
+              for k, v in pm.CAPTURED_SHAPES.items()
+              if v != captured.get(k, 0)}
+    assert shapes == {("tensor_core", 192, 64): 2,
+                      ("tensor_core", 64, 192): 1}
+    for _ in range(2):
+        pm.count_replay({"tensor_core": 3}, shapes)
+    assert pm.SHAPES == {("swap_ab", 64, 192): 1,
+                         ("tensor_core", 192, 64): 4,
+                         ("tensor_core", 64, 192): 2}
+    assert pm.ROUTES["tensor_core"] == 6
+    pm.reset_launches()
+    assert pm.SHAPES == {}
 
 
 def test_moving_the_model_drops_its_graphs(served):
