@@ -210,12 +210,43 @@ each, every mismatch fatal:
 19. recurrent parity — each at full width and a cut depth (falcon-mamba 2
                layers, recurrentgemma 5: one block and the tail) as phase
                8, and decode against prefill on the card and on the CPU
-               within the reference's 3e-2.
+               within the reference's 3e-2;
+20. train    — Qwen3-4B pim_w4 shift_add at full width and depth (36
+               layers, d_model 2,560, remat) with the reference CLI's
+               training defaults (batch 8 x 256 seeded next-token data,
+               AdamW lr 1e-3, warmup_cosine over 100 steps with 10 of
+               warm-up): one forward and one backward pass counted apart
+               (pim_matmul 108 forward; 324 backward: the recompute's 108,
+               dx on the transposed codes and the dscales accumulator;
+               flash 36 and 36, each with its log-sum-exp; all on the
+               tensor cores, by (K, N) from the config), then TRAIN_STEPS
+               steps, each with its loss, grad norm, skipped flag, ms on
+               CUDA events, peak memory and launches (another count fails
+               the run; so do a non-finite loss, a skipped step and a loss
+               at the last step not below the first), then one step with
+               microbatches 2 against one with 1 from the same state
+               (loss 5e-3, params 5e-2, the reference test's bounds); then
+               the trained model served: ``greedy_generate`` one replay,
+               its tokens the eager argmax chain, ``head_f32`` refreshed,
+               and a model rebuilt through ``convert`` from the trained
+               params giving the same logits bit for bit;
+21. train parity — full width, 2 layers, 2 x 64 tokens: one training
+               pass's loss and every gradient leaf on the card against the
+               port on the CPU, within 2e-2 of max |CPU|.
+
+Phase 6 also holds the training shapes: pim_matmul w4 shift_add at (2048,
+2560) @ (2560, 9728) and (2048, 9728) @ (9728, 2560), and flash_attn at
+Qwen3-4B's heads over 8 x 256 tokens with the log-sum-exp
+(``flash_attn[prefill,lse]``, the log-sum-exp within FLASH_LSE_ABS of the
+plain version's). The front of phase 14 runs on the 64-slot device, where
+the step's energy sum follows XLA's order (``compile.xla_sum``), card
+against CPU bit for bit.
 
 Then the kernel table as JSON (each pim_matmul row with the launches at
 its own (route, K, N) on its path, MLA's two flash rows with their
 launches on phase 16's deepseek path, recurrentgemma-2b's six rows with
-theirs on phase 18's path), the card's name and power limit, and the
+theirs on phase 18's path, the training rows with theirs over phase 20's
+measured steps), the card's name and power limit, and the
 result line. Nanoseconds and nanojoules of the DDR3 meter are outputs of
 the simulated DRAM's model; milliseconds and microseconds are times of the
 card. Everything measured is also written to ``chiprun_out/chip_smoke.json``.
@@ -225,6 +256,7 @@ from __future__ import annotations
 import functools
 import importlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -274,6 +306,23 @@ PIM_REL = 1e-4
 FLASH_BF16_REL = 1e-2
 FLASH_F32_ABS = 2e-5
 LOGITS_REL = 2e-2
+# The log-sum-exp the flash forward returns for training: float32 on both
+# sides from the same bf16 q, k (the tensor-core route's scores in log2
+# units, m ln 2 + log l), about 1e-6 of |lse| apart; held at 1e-3 absolute
+FLASH_LSE_ABS = 1e-3
+# Phase 20: the reference CLI's training defaults (launch/train.py: batch
+# 8, 256 tokens, lr 1e-3, warmup_cosine over --steps 100 with steps // 10
+# of warm-up), TRAIN_STEPS steps, then one with microbatches 2 against one
+# with 1 from the same state, held to the reference test's bounds
+# (tests/test_train_and_ckpt.py: loss 5e-3, params 5e-2)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 8, 256, 4, 1e-3
+TRAIN_SCHEDULE = {"warmup_steps": 10, "total_steps": 100}
+TRAIN_MB_LOSS, TRAIN_MB_PARAMS = 5e-3, 5e-2
+# Phase 21: card against CPU at full width with 2 layers on 2 x 64 tokens
+# (the CPU's plain bit-plane products keep it to seconds); loss and each
+# gradient leaf within 2e-2 of max |CPU|, the bf16 model's bound
+TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 2, 64
+GRAD_REL = 2e-2
 LM_ARCH = ("qwen3-4b", {"quant": "pim_w4", "quant_mode": "shift_add"})
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 128, 16
 # (M, K, N) of the serving path's FFN linears at decode (M = batch) and at
@@ -284,6 +333,10 @@ PIM_SHAPES = ((4, 2560, 9728), (4, 9728, 2560), (512, 2560, 9728),
 # timed at its pim_w4 shift_add only
 PIM_SHAPES_RG = ((4, 2560, 7680), (4, 7680, 2560), (512, 2560, 7680),
                  (512, 7680, 2560))
+# Phase 20's training linears: (M, K, N) at M = batch 8 x 256 tokens, each
+# shape taken by a forward, its recompute, the dscales accumulator and the
+# other shape's dx on the transposed codes
+PIM_SHAPES_TRAIN = ((2048, 2560, 9728), (2048, 9728, 2560))
 # decode-sized calls are timed over this many copies of their weights,
 # cycled (4 x 25 MB of int8 codes, beyond the 50 MB L2), as a decode step
 # reads 108 different weights
@@ -314,6 +367,9 @@ FLASH_SHAPES = {
     "prefill,recurrentgemma": (4, 1, 10, 256, 256, 128, 128, 127, 2048,
                                False),
 }
+# phase 20's training attention: Qwen3-4B's heads over 8 x 256 causal
+# tokens, the forward asked for the log-sum-exp
+FLASH_TRAIN = (8, 8, 4, 128, 128, 256, 256, 255, None, False)
 # the three flash routes at these query positions per pair (G = 4: 4 to
 # 256 rows) over these key slots: the route threshold
 FLASH_ROUTES = ("split_kv", "tensor_core", "tiled")
@@ -1197,7 +1253,8 @@ def phase_lm_kernels(torch, device):
     rows = {}
     cases = [(shape, (4, 8), ("shift_add", "dequant"))
              for shape in PIM_SHAPES]
-    cases += [(shape, (4,), ("shift_add",)) for shape in PIM_SHAPES_RG]
+    cases += [(shape, (4,), ("shift_add",))
+              for shape in PIM_SHAPES_RG + PIM_SHAPES_TRAIN]
     for (m, k, n), bit_widths, modes in cases:
         x = torch.randn((m, k), generator=gen, device=device).to(
             torch.bfloat16)
@@ -1255,6 +1312,9 @@ def phase_lm_kernels(torch, device):
         name = f"flash_attn[{phase}]"
         rows[name] = flash_row(torch, device, gen, shape)
         _say_row(name, rows[name])
+    name = "flash_attn[prefill,lse]"
+    rows[name] = flash_lse_row(torch, device, gen, FLASH_TRAIN)
+    _say_row(name, rows[name])
     return rows
 
 
@@ -1836,6 +1896,7 @@ def counted(torch, fn):
         launches={"pim_matmul": pm.LAUNCHES["pim_matmul"],
                   "flash_attn": fa.LAUNCHES["flash_attn"]},
         routes=dict(pm.ROUTES), flash_routes=dict(fa.ROUTES),
+        lse_routes=dict(fa.LSE_ROUTES),
         shapes={shape_key(*key): n for key, n in sorted(pm.SHAPES.items())},
         dispatches=engine.DECODE_STATS["dispatches"])
 
@@ -2439,6 +2500,345 @@ def say_share(name: str, sh: dict) -> None:
         f"{sh['busy_share']:.3f}; top: "
         + "; ".join(f"{k['name'][:80]} {k['ms']:.3f} ms x{k['count']}"
                     for k in sh["top"][:3]))
+
+
+# ---------------------------------------------------------------------------
+# Phases 20-21: training's gradient path
+# ---------------------------------------------------------------------------
+
+def train_batch(torch, cfg, seed, batch, seq, device):
+    """Seeded next-token data: ``seq + 1`` tokens per row, the inputs the
+    first ``seq`` and the labels the last ``seq``."""
+    import numpy as np
+    tok = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (batch, seq + 1)), dtype=torch.long,
+        device=device)
+    return {"tokens": tok[:, :-1].contiguous(),
+            "labels": tok[:, 1:].contiguous()}
+
+
+def train_expected(cfg, passes: int = 1) -> dict:
+    """pim_matmul and flash_attn launches of ``passes`` training passes of
+    ``cfg``, forward and backward apart. Forward: each quantized linear one
+    launch at its (K, N), each attention layer one flash launch with the
+    log-sum-exp, all on the tensor cores (M = tokens of the pass). Backward,
+    with ``cfg.remat``: the layer's forward again (the recompute: the same
+    launches), then per linear two more, dx on the transposed codes (w1,
+    w3 at (d_ff, d_model), w2 at (d_model, d_ff)) and the unscaled
+    accumulator for dscales at the forward's (K, N); flash's backward is
+    plain torch."""
+    n, L = pim_linears(cfg), attention_layers(cfg)
+    D, F = cfg.d_model, cfg.d_ff
+    up = n - n // 3                     # SwiGLU: w1 and w3 up, w2 down
+    down = n - up
+    tc = "tensor_core"
+    fwd = {shape_key(tc, D, F): up, shape_key(tc, F, D): down}
+    bwd = {shape_key(tc, D, F): 2 * up + down,
+           shape_key(tc, F, D): 2 * down + up}
+
+    def times(d):
+        return {k: v * passes for k, v in d.items()}
+
+    return {
+        "forward": {"pim_matmul": n * passes, "flash_lse": L * passes,
+                    "shapes": times(fwd)},
+        "backward": {"pim_matmul": 3 * n * passes, "flash_lse": L * passes,
+                     "shapes": times(bwd)},
+        "remat": {"pim_matmul": n * passes, "flash_lse": L * passes}}
+
+
+def train_counts(counts: dict) -> dict:
+    """What ``counted`` read, as ``train_expected`` names it."""
+    return {"pim_matmul": counts["launches"]["pim_matmul"],
+            "flash_lse": counts["lse_routes"]["tensor_core"],
+            "shapes": counts["shapes"]}
+
+
+def check_train_counts(what, got, exp) -> None:
+    other = {k: v for k, v in got["routes"].items() if k != "tensor_core"}
+    flash_other = {k: v for k, v in got["flash_routes"].items()
+                   if k != "tensor_core"}
+    if (train_counts(got) != exp or any(other.values())
+            or any(flash_other.values())
+            or got["launches"]["flash_attn"] != exp["flash_lse"]):
+        raise AssertionError(f"{what}: launches {train_counts(got)} routes "
+                             f"{got['routes']} flash {got['flash_routes']}, "
+                             f"expected {exp} on the tensor cores, every "
+                             "flash launch with its log-sum-exp")
+
+
+def add_counts(a: dict, b: dict) -> dict:
+    return {"pim_matmul": a["pim_matmul"] + b["pim_matmul"],
+            "flash_lse": a["flash_lse"] + b["flash_lse"],
+            "shapes": {k: a["shapes"].get(k, 0) + b["shapes"].get(k, 0)
+                       for k in sorted({**a["shapes"], **b["shapes"]})}}
+
+
+def event_ms(torch, fn):
+    """``fn()`` and its ms on CUDA events."""
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def run_train(torch, device):
+    """Phase 20: Qwen3-4B pim_w4 shift_add at full width and depth takes
+    TRAIN_STEPS AdamW steps (the reference CLI's defaults: batch 8 x 256
+    tokens, lr 1e-3, warmup_cosine over 100 steps with 10 of warm-up) on
+    one seeded batch, then one step with microbatches=2 against one with 1
+    from the same state; then serves the trained model. Returns (record,
+    launches of the measured steps by (route, K, N))."""
+    import gc
+
+    from repro_torch.convert import lm_params_from_numpy, lm_params_to_numpy
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.schedule import warmup_cosine
+    from repro_torch.train import (init_train_state, make_train_step,
+                                   trainable_params)
+
+    cfg = lm_config()
+    if not cfg.remat:
+        raise AssertionError("the training phase runs with remat")
+    label = f"train {cfg_name(cfg)} ({cfg.n_layers} layers, d_model " \
+        f"{cfg.d_model}, remat)"
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    model = init_params(cfg, 5, device=device)
+    params = trainable_params(model)
+    n_train = sum(p.numel() for p in params)
+    batch = train_batch(torch, cfg, 7, TRAIN_BATCH, TRAIN_SEQ, device)
+    rec = {"config": cfg_name(cfg), "layers": cfg.n_layers,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "lr": TRAIN_LR,
+           "schedule": TRAIN_SCHEDULE, "trainable_params": n_train}
+
+    # one forward and one backward pass, counted apart (grads dropped)
+    exp1 = train_expected(cfg)
+    (loss, _), fwd_ms, fwd = counted(torch, lambda: loss_fn(cfg, model,
+                                                            batch))
+    _, bwd_ms, bwd = counted(torch, lambda: loss.backward())
+    check_train_counts(f"{label}: forward", fwd, exp1["forward"])
+    check_train_counts(f"{label}: backward", bwd, exp1["backward"])
+    for p in params:
+        p.grad = None
+    del loss
+    codes_t = sum(b.numel() for n, b in model.named_buffers()
+                  if n.endswith("w_int_t"))
+    rec["codes_t_gb"] = codes_t / 1e9
+    rec["launches"] = {"forward": train_counts(fwd),
+                       "backward": train_counts(bwd),
+                       "of which remat's recompute": exp1["remat"]}
+    say(f"{label}: {n_train / 1e9:.3f} B trainable parameters (every "
+        f"floating leaf; the int8 codes frozen), transposed codes "
+        f"{codes_t / 1e9:.3f} GB int8 built by the first backward; one "
+        f"pass of {TRAIN_BATCH} x {TRAIN_SEQ} tokens: forward "
+        f"{fwd_ms:.1f} ms, launches " + json.dumps(train_counts(fwd))
+        + f"; backward {bwd_ms:.1f} ms, launches "
+        + json.dumps(train_counts(bwd)) + " (remat's recompute "
+        + json.dumps(exp1["remat"]) + " of them; the rest dx on the "
+        "transposed codes and the accumulator for dscales)")
+
+    sched = functools.partial(warmup_cosine, **TRAIN_SCHEDULE)
+    step = make_train_step(cfg, AdamWConfig(lr=TRAIN_LR), sched)
+    opt = init_train_state(model)
+    hist, step_shapes = [], {}
+    exp_step = add_counts(exp1["forward"], exp1["backward"])
+    for i in range(TRAIN_STEPS):
+        torch.cuda.reset_peak_memory_stats()
+        (m, ms), host_ms, counts = counted(
+            torch, lambda: event_ms(torch, lambda: step(model, opt, batch)))
+        check_train_counts(f"{label}: step {i + 1}", counts, exp_step)
+        for k, v in counts["shapes"].items():
+            step_shapes[k] = step_shapes.get(k, 0) + v
+        h = {k: float(m[k]) for k in ("loss", "grad_norm", "skipped",
+                                      "lr_scale")}
+        h.update(ms=ms, host_ms=host_ms,
+                 peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                 launches=train_counts(counts))
+        hist.append(h)
+        say(f"train step {i + 1}: loss {h['loss']:.4f}, grad_norm "
+            f"{h['grad_norm']:.4f}, skipped {h['skipped']:.0f}, lr_scale "
+            f"{h['lr_scale']:.3f}, {ms:.1f} ms (CUDA events), peak "
+            f"{h['peak_gb']:.2f} GB, launches "
+            + json.dumps(h["launches"]))
+    rec["steps"] = hist
+    bad = [i + 1 for i, h in enumerate(hist)
+           if h["skipped"] or not all(map(math.isfinite, (
+               h["loss"], h["grad_norm"])))]
+    if bad or not hist[-1]["loss"] < hist[0]["loss"]:
+        raise AssertionError(f"{label}: steps {bad} skipped or not finite, "
+                             f"or the loss did not fall: "
+                             f"{[h['loss'] for h in hist]}")
+
+    # step TRAIN_STEPS + 1 from one state, microbatches 1 and 2
+    with torch.no_grad():
+        snap = ([p.detach().clone() for p in params],
+                [t.clone() for t in opt["mu"]],
+                [t.clone() for t in opt["nu"]], opt["step"].clone())
+    (m1, ms1), _, c1 = counted(
+        torch, lambda: event_ms(torch, lambda: step(model, opt, batch)))
+    with torch.no_grad():
+        after1 = [p.detach().clone() for p in params]
+        for dst, src in zip(params + opt["mu"] + opt["nu"],
+                            snap[0] + snap[1] + snap[2]):
+            dst.copy_(src)
+        opt["step"] = snap[3]
+    del snap
+    step2 = make_train_step(cfg, AdamWConfig(lr=TRAIN_LR), sched,
+                            microbatches=2)
+    (m2, ms2), _, c2 = counted(
+        torch, lambda: event_ms(torch, lambda: step2(model, opt, batch)))
+    check_train_counts(f"{label}: microbatches 1", c1, exp_step)
+    check_train_counts(f"{label}: microbatches 2", c2,
+                       add_counts(*[train_expected(cfg, 2)[k]
+                                    for k in ("forward", "backward")]))
+    with torch.no_grad():
+        dparams = max(float((a.float() - p.detach().float()).abs().max())
+                      for a, p in zip(after1, params))
+    del after1
+    dloss = abs(float(m1["loss"]) - float(m2["loss"]))
+    rec["microbatches"] = {"loss_1": float(m1["loss"]),
+                           "loss_2": float(m2["loss"]), "dloss": dloss,
+                           "dparams": dparams, "ms_1": ms1, "ms_2": ms2,
+                           "skipped": [float(m1["skipped"]),
+                                       float(m2["skipped"])]}
+    say(f"train step {TRAIN_STEPS + 1} from one state: microbatches 1 "
+        f"loss {float(m1['loss']):.4f} ({ms1:.1f} ms), microbatches 2 loss "
+        f"{float(m2['loss']):.4f} ({ms2:.1f} ms): |dloss| {dloss:.2e} "
+        f"(bound {TRAIN_MB_LOSS}), max |dparam| {dparams:.2e} (bound "
+        f"{TRAIN_MB_PARAMS}); launches "
+        + json.dumps(train_counts(c2)) + " with 2")
+    if not (dloss < TRAIN_MB_LOSS and dparams < TRAIN_MB_PARAMS) \
+            or float(m1["skipped"]) or float(m2["skipped"]):
+        raise AssertionError(f"{label}: microbatches 2 against 1: loss "
+                             f"{dloss}, params {dparams}")
+    del opt, step, step2, m1, m2
+    gc.collect()
+
+    # serve the trained model; a model rebuilt through convert from the
+    # trained params gives the same logits, bit for bit (a stale
+    # head_f32 would not)
+    sbatch = prompt_batch(torch, cfg, 3, SERVE_BATCH, SERVE_PROMPT, device)
+    tokens, first_ms, _, counts, _, forced = replay_checks(
+        torch, cfg, model, sbatch, f"{label}, trained")
+    head_fresh = torch.equal(model.head_f32, model.embed.detach().float())
+    t = time.perf_counter()
+    rebuilt = lm_params_from_numpy(cfg, lm_params_to_numpy(model),
+                                   device=device)
+    convert_s = time.perf_counter() - t
+    again = teacher_forced(cfg, rebuilt, sbatch, tokens[:, :-1], device)
+    same = all(torch.equal(a, b) for a, b in zip(forced, again))
+    if not (head_fresh and same):
+        raise AssertionError(f"{label}: head_f32 refreshed {head_fresh}; "
+                             f"the rebuilt model's logits equal: {same}")
+    rec["serve"] = {"first_call_ms": first_ms, "launches": counts,
+                    "convert_s": convert_s}
+    say(f"train serve: the trained model's greedy_generate (one graph "
+        f"replay, {SERVE_BATCH} x {SERVE_PROMPT} + {SERVE_NEW} tokens) is "
+        "its eager argmax chain bit for bit, launches per call "
+        + json.dumps(counts["launches"]) + "; head_f32 refreshed in place; "
+        f"a model rebuilt through convert ({convert_s:.1f} s) gives the "
+        f"same prefill and {SERVE_NEW - 1} decode logits bit for bit")
+    del model, rebuilt, forced, again, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["left_allocated_gb"] = (torch.cuda.memory_allocated() - base) / 1e9
+    return rec, step_shapes
+
+
+def run_train_parity(torch, device):
+    """Phase 21: full width, TRAIN_CHECK_LAYERS layers: one training pass's
+    loss and every gradient leaf on the card against the port on the CPU
+    (the same weights, built on the CPU and copied), within GRAD_REL of
+    max |CPU| per leaf."""
+    import copy
+
+    from repro_torch.convert import lm_params_to_numpy
+    from repro_torch.models import init_params, loss_fn, trainable
+    from repro_torch.models.transformer import tree_leaves
+
+    cfg = lm_config(n_layers=TRAIN_CHECK_LAYERS)
+    cpu_model = init_params(cfg, 9, device="cpu")
+    card_model = copy.deepcopy(cpu_model).to(device)
+    batch = train_batch(torch, cfg, 11, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ,
+                        "cpu")
+    out = {}
+    for where, model in (("card", card_model), ("cpu", cpu_model)):
+        trainable(model)
+        t = time.perf_counter()
+        loss, _ = loss_fn(cfg, model, {k: v.to(model.device)
+                                       for k, v in batch.items()})
+        loss.backward()
+        out[where] = (float(loss.detach()), dict(tree_leaves(
+            lm_params_to_numpy(model, grads=True))),
+            time.perf_counter() - t)
+    (lc, gc_, card_s), (lp, gp, cpu_s) = out["card"], out["cpu"]
+    worst, errs = 0.0, {}
+    for key, ref in gp.items():
+        err = float(abs(gc_[key] - ref).max() / (abs(ref).max() + 1e-30))
+        errs[key] = err
+        worst = max(worst, err)
+    loss_rel = abs(lc - lp) / abs(lp)
+    top = max(errs, key=errs.get)
+    say(f"train parity {cfg_name(cfg)} at full width, "
+        f"{TRAIN_CHECK_LAYERS} layers, {TRAIN_CHECK_BATCH} x "
+        f"{TRAIN_CHECK_SEQ} tokens: loss card {lc:.5f}, CPU {lp:.5f} (rel "
+        f"{loss_rel:.2e}); {len(errs)} gradient leaves, worst {top} "
+        f"{worst:.2e} of max |CPU| (bound {GRAD_REL}); card {card_s:.1f} s, "
+        f"CPU {cpu_s:.1f} s")
+    if set(gc_) != set(gp) or loss_rel > GRAD_REL or worst > GRAD_REL:
+        raise AssertionError(f"train parity: loss rel {loss_rel}, worst "
+                             f"leaf {top} {worst}")
+    return {"loss_card": lc, "loss_cpu": lp, "loss_rel": loss_rel,
+            "grad_rel": errs, "card_s": card_s, "cpu_s": cpu_s}
+
+
+def flash_lse_row(torch, device, gen, shape):
+    """Phase 20's flash shape with the log-sum-exp: the kernel of its route
+    against the plain version, output in bf16 within FLASH_BF16_REL and
+    the log-sum-exp within FLASH_LSE_ABS, then timed beside the plain
+    version and SDPA (which returns no log-sum-exp)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attn import ops as fa
+    from repro_torch.kernels.flash_attn import ref as fref
+
+    B, KV, G, dk, dv, sq, sk, last, window, ring = shape
+    q, k, v, pos_q, pos_k, seen = flash_operands(torch, device, gen, shape)
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    got, lse = fa.flash_attention(qb, kb, vb, pos_q, pos_k, return_lse=True)
+    exp, exp_lse = fref.ref_flash_attention(qb, kb, vb, pos_q, pos_k,
+                                            return_lse=True)
+    torch.cuda.synchronize()
+    err = max_abs_err(got.float(), exp.float())
+    lse_err = max_abs_err(lse, exp_lse)
+    bound = FLASH_BF16_REL * float(exp.float().abs().max())
+    if not (err < bound and lse_err < FLASH_LSE_ABS
+            and torch.isfinite(lse).all()):
+        raise AssertionError(f"flash_attn lse {shape}: out err {err} "
+                             f"(bound {bound}), lse err {lse_err}")
+    qt = qb.reshape(B, sq, KV * G, dk).transpose(1, 2).contiguous()
+    kt, vt = (t.transpose(1, 2).contiguous() for t in (kb, vb))
+    pairs = int(seen.sum())
+    row = _kernel_row(
+        torch,
+        lambda: fa.flash_attention(qb, kb, vb, pos_q, pos_k,
+                                   return_lse=True),
+        lambda: fref.ref_flash_attention(qb, kb, vb, pos_q, pos_k,
+                                         return_lse=True),
+        lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=seen[:, None], enable_gqa=True),
+        2 * (qb.numel() + kb.numel() + vb.numel() + B * sq * KV * G * dv)
+        + 4 * (pos_q.numel() + pos_k.numel() + B * KV * G * sq),
+        2 * (dk + dv) * KV * G * pairs,
+        f"q ({B}, {sq}, {KV}, {G}, {dk}), k ({B}, {sk}, {KV}, {dk}), v "
+        f"(.., {dv}) bf16, lse (B, KV, G, Sq) float32, {pairs} seen "
+        "(query, key) pairs", err, per_graph=10, reps=10)
+    row["route"] = fa.route(sq, G, torch.bfloat16, dk, dv)
+    row["lse_max_abs_err"] = lse_err
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -3685,6 +4085,15 @@ def main() -> int:
             arch, overrides, n_layers=depth), dvp_bound=RECURRENT_DECODE_REL)
         for label, arch, overrides, depth in RECURRENT}
 
+    # 20. training's gradient path: Qwen3-4B pim_w4 at full width and
+    # depth takes AdamW steps, the launch counts reset just before each
+    # step and read just after it (inside run_train), then serves
+    record["train"], train_shapes = run_train(torch, device)
+
+    # 21. one training pass's loss and gradients, card against CPU, at
+    # full width with 2 layers
+    record["train_parity"] = run_train_parity(torch, device)
+
     # the row entries at the full device's 64 slots, in place (as most of
     # the main path's segments run); every shape is in chip_smoke.json
     table = []
@@ -3765,6 +4174,23 @@ def main() -> int:
              rg_flash["split_kv"]),
             ("flash_attn", "flash_attn[prefill,recurrentgemma]",
              rg_flash["tensor_core"])):
+        r = lm_rows[row]
+        table.append({
+            "name": row, "route": "cuda", "source": SOURCES[kernel],
+            "replaces": REPLACES[kernel], "launches": launched,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    # training's rows at phase 20's shapes, each with the launches of the
+    # measured steps (TRAIN_STEPS of them) at its own (route, K, N): each
+    # pim_matmul shape is a forward, its recompute, the dscales
+    # accumulator and the other shape's dx on the transposed codes; flash
+    # with the log-sum-exp, forward and recompute
+    train_flash = sum(h["launches"]["flash_lse"]
+                      for h in record["train"]["steps"])
+    for kernel, row, launched in (
+            *pim_rows(PIM_SHAPES_TRAIN, train_shapes),
+            ("flash_attn", "flash_attn[prefill,lse]", train_flash)):
         r = lm_rows[row]
         table.append({
             "name": row, "route": "cuda", "source": SOURCES[kernel],

@@ -210,3 +210,41 @@ def lm_params_from_numpy(cfg, params: dict, device=None):
                           norm(params["final_norm"]), lm_head,
                           dense_head_layers=dense_head, heads=heads,
                           blocks=blocks, tail=tail)
+
+
+def _numpy_leaf(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy: floats as float32 (a bf16 value is exact in
+    float32), int8 codes as int8."""
+    t = t.detach().cpu()
+    return (t.to(torch.float32) if t.is_floating_point() else t).numpy()
+
+
+def lm_params_to_numpy(model, *, grads: bool = False) -> dict:
+    """The reverse of :func:`lm_params_from_numpy`: the model's parameters
+    as the reference's ``init_params`` pytree of numpy arrays (stacked
+    layers along a leading axis; floats as float32, codes as int8). With
+    ``grads``, each floating leaf's ``.grad`` instead (zeros where the
+    loss does not reach it, e.g. the audio frontend's unused ``embed``) and
+    no codes: the tree ``jax.grad`` gives over the reference's
+    ``adamw.partition`` trainable tree, laid on the port's names."""
+    from .models.transformer import param_tree
+
+    def leaf(x):
+        ts = x if isinstance(x, list) else [x]
+        if grads:
+            if not ts[0].is_floating_point():
+                return None
+            ts = [torch.zeros_like(t) if t.grad is None else t.grad
+                  for t in ts]
+        arrs = [_numpy_leaf(t) for t in ts]
+        return np.stack(arrs) if isinstance(x, list) else arrs[0]
+
+    def walk(tree):
+        out = {}
+        for k, v in tree.items():
+            got = walk(v) if isinstance(v, dict) else leaf(v)
+            if got is not None and not (isinstance(got, dict) and not got):
+                out[k] = got
+        return out
+
+    return walk(param_tree(model))

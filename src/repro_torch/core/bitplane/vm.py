@@ -34,7 +34,7 @@ import torch
 from ..._device import resolve_device
 from ..pim import isa
 from ..pim import exec as pim_exec
-from ..pim.compile import sequential_sum
+from ..pim.compile import xla_sum
 from ..pim.device import DeviceConfig, make_device
 from ..pim.ir import PimProgram, ProgramBuilder
 from ..pim.schedule import (Phase, _sum_steps, compiled_for, schedule,
@@ -238,7 +238,7 @@ class PimVM:
                                     self._bank_steps(progs, bank_payloads),
                                     async_host=self.async_host)
             self._device = res.state
-            self._wall_ns = self._wall_ns + sequential_sum(res.wall_ns)
+            self._wall_ns = self._wall_ns + xla_sum(res.wall_ns)
             self._host_overlap_ns = (self._host_overlap_ns
                                      + _sum_steps(res.host_overlap_ns_lazy))
             per_step = res.reads          # [k][bank] -> per-read rows
@@ -299,7 +299,7 @@ class PimVM:
                 async_host=self.async_host)
             self._device = res.state
             self._wall_ns = self._wall_ns + sum(
-                sequential_sum(pr.wall_ns) for pr in res.phases)
+                xla_sum(pr.wall_ns) for pr in res.phases)
             self._host_overlap_ns = self._host_overlap_ns + sum(
                 _sum_steps(pr.host_overlap_ns_lazy) for pr in res.phases)
 
@@ -463,7 +463,7 @@ class PimVM:
         self._flush()
         if self.n_banks == 1:
             return float(self.state.meter.total_energy_nj)
-        return float(sequential_sum(
+        return float(xla_sum(
             self._device.banks.meter.total_energy_nj))
 
     @property
@@ -478,7 +478,7 @@ class PimVM:
         self._flush()
         if self.n_banks == 1:
             return float(self.state.meter.e_burst)
-        return float(sequential_sum(self._device.banks.meter.e_burst))
+        return float(xla_sum(self._device.banks.meter.e_burst))
 
     def counts(self) -> dict:
         self._flush()

@@ -29,7 +29,8 @@ from .exec import (ExecResult, RUNNER_STATS, execute, make_pipeline_runner,
 from .device import (DeviceConfig, DeviceState, bus_time_ns,
                      channel_bus_model, channel_occupancy, device_wall_ns,
                      host_bus_ns, issue_bus_ns, make_device, paper_device)
-from .schedule import (CopyDrainStats, Phase, PhaseResult, PipelineResult,
+from .schedule import (CopyDrainStats, Phase, PhaseResult, PipelinePlan,
+                       PipelineResult,
                        SCHED_STATS, ScheduleResult, WorkloadResult,
                        compiled_for, gather_rows, schedule, schedule_pipeline,
                        schedule_workload, shard_lanes, shard_rows,
@@ -82,7 +83,8 @@ __all__ = [
     "DeviceConfig", "DeviceState", "bus_time_ns", "channel_bus_model",
     "channel_occupancy", "device_wall_ns", "host_bus_ns", "issue_bus_ns",
     "make_device", "paper_device",
-    "CopyDrainStats", "Phase", "PhaseResult", "PipelineResult",
+    "CopyDrainStats", "Phase", "PhaseResult", "PipelinePlan",
+    "PipelineResult",
     "SCHED_STATS", "ScheduleResult", "WorkloadResult", "compiled_for",
     "gather_rows", "schedule", "schedule_pipeline", "schedule_workload",
     "shard_lanes", "shard_rows", "stream_key", "xor_reduce_program",

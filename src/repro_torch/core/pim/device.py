@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from . import ir
-from .compile import sequential_sum
+from .compile import xla_sum
 from .state import (NUM_ROWS, ROW_WORDS, SubarrayState, make_bank,
                     resolve_device)
 from .timing import DDR3Timing, DEFAULT_TIMING, burst_time_ns
@@ -266,10 +266,10 @@ def channel_occupancy(cfg: DeviceConfig, issue_slot, host_slot):
 
 def device_wall_ns(bus_ns, exec_ns) -> torch.Tensor:
     """Legacy device-wide serialization: wall = Σ bus + max exec (float32,
-    summed left to right). Kept as the A/B reference against the
-    channel-aware model."""
+    Σ in the order of the reference's eager ``jnp.sum``). Kept as the A/B
+    reference against the channel-aware model."""
     bus_ns = torch.from_numpy(np.array(bus_ns, np.float32).reshape(-1))
     exec_ns = torch.from_numpy(np.array(exec_ns, np.float32).reshape(-1))
-    return sequential_sum(bus_ns) + (
+    return xla_sum(bus_ns) + (
         torch.max(exec_ns) if exec_ns.numel()
         else torch.zeros((), dtype=torch.float32))

@@ -37,7 +37,7 @@ import torch
 from . import ir
 from .compile import (CompiledProgram, SegHost, SegMaj, SegNot, SegScan,
                       SegShiftRun, compile_program, fold_tables,
-                      sequential_sum)
+                      xla_sum)
 from .isa import T0 as isa_T0, T1 as isa_T1, T2 as isa_T2
 from .state import CostMeter, SubarrayState, as_rows, make_subarray
 from .timing import DDR3Timing, DEFAULT_TIMING, apply_refresh
@@ -395,7 +395,7 @@ def bank_parallel(program, cfg: DDR3Timing = DEFAULT_TIMING, *,
     def wrapped(states: SubarrayState):
         out = runner(states).state
         wall_ns = torch.max(out.meter.time_ns)
-        energy_nj = sequential_sum(out.meter.total_energy_nj)
+        energy_nj = xla_sum(out.meter.total_energy_nj)
         return out, wall_ns, energy_nj
 
     return wrapped

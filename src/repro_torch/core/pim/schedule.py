@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import hashlib
 from typing import Callable, Sequence
 
 import numpy as np
@@ -54,7 +55,7 @@ import torch
 
 from . import exec as pim_exec
 from . import ir
-from .compile import CompiledProgram, compile_program, sequential_sum
+from .compile import CompiledProgram, compile_program, xla_sum
 from .device import (DeviceConfig, DeviceState, channel_occupancy,
                      host_bus_ns, issue_bus_ns)
 from .ir import PimProgram, ProgramBuilder
@@ -565,7 +566,7 @@ def _make_step_fn(cfg: DeviceConfig, runners, group_slots, bus_j,
             hidden = torch.zeros_like(c["host_ch"])
         busy = c["busy0"] - hidden
         wall = torch.max(busy) + compute_ns
-        energy = sequential_sum(e1 - e0)
+        energy = xla_sum(e1 - e0, fused=True)
         # The outgoing double-buffer credit: only an ASYNC step prefetches
         # the next step's transfers under its compute window; a sync step
         # resets it to zero.
@@ -573,7 +574,7 @@ def _make_step_fn(cfg: DeviceConfig, runners, group_slots, bus_j,
                       else torch.zeros((), dtype=torch.float32,
                                        device=bits.device))
         return (new_banks, tuple(reads), wall, energy, credit_out, busy,
-                sequential_sum(hidden))
+                xla_sum(hidden, fused=True))
 
     return step
 
@@ -790,11 +791,11 @@ def schedule(device: DeviceState,
 # ---------------------------------------------------------------------------
 
 def _sum_steps(x):
-    """The reference's ``jnp.sum(jnp.asarray(x))`` of a per-step value: a
-    (K,) float32 tensor summed left to right, or the plain 0.0 that a sync
-    schedule records for its hidden host time."""
+    """The reference's eager ``jnp.sum(jnp.asarray(x))`` of a per-step
+    value: a (K,) float32 tensor summed in XLA's order, or the plain 0.0
+    that a sync schedule records for its hidden host time."""
     if isinstance(x, torch.Tensor):
-        return sequential_sum(x.reshape(-1))
+        return xla_sum(x)
     return x
 
 
@@ -882,7 +883,7 @@ class _StepsResult:
 
     @property
     def total_wall_ns(self) -> float:
-        return float(sequential_sum(self.wall_ns))
+        return float(xla_sum(self.wall_ns))
 
     @property
     def host_overlap_ns(self) -> float:
@@ -978,6 +979,44 @@ def _as_phase(d) -> Phase:
     return Phase(steps=tuple(d))
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class PipelinePlan:
+    """A lowered multi-phase workload: one cached step plan per phase and
+    the signature the workload plan cache is keyed on. The same object
+    comes back from warm ``schedule_workload`` calls of the same phase
+    sequence (fresh payload data included)."""
+
+    phases: tuple               # per-phase _StepPlan
+    n_steps: tuple              # per-phase step count
+    async_host: tuple           # per-phase resolved async-host flag
+    signature: bytes            # 128-bit digest of the phase sequence
+
+
+# Workload plans by phase sequence ((step-plan key, n_steps) per phase),
+# LRU-bounded like the reference's.
+_workload_plan_cache: dict = {}
+_WORKLOAD_PLAN_CACHE_MAX = 64
+
+
+def _workload_plan(keys, plans, n_steps, async_hosts) -> PipelinePlan:
+    """The cached :class:`PipelinePlan` of one phase sequence, its
+    signature the reference's: ``sequence_digest`` over the 16-byte
+    blake2b of each ``repr((plan key, n_steps))``."""
+    wkey = tuple(keys)
+    wplan = _workload_plan_cache.pop(wkey, None)
+    if wplan is None:
+        if len(_workload_plan_cache) >= _WORKLOAD_PLAN_CACHE_MAX:
+            _workload_plan_cache.pop(next(iter(_workload_plan_cache)))
+        wplan = PipelinePlan(
+            phases=tuple(plans), n_steps=tuple(n_steps),
+            async_host=tuple(async_hosts),
+            signature=ir.sequence_digest(
+                hashlib.blake2b(repr(k).encode(), digest_size=16).digest()
+                for k in keys))
+    _workload_plan_cache[wkey] = wplan      # (re)insert at the MRU end
+    return wplan
+
+
 @dataclasses.dataclass
 class PhaseResult(_StepsResult):
     """One phase's slice of a :class:`WorkloadResult` — the
@@ -1014,7 +1053,7 @@ class WorkloadResult:
 
     @property
     def total_energy_nj(self) -> float:
-        return float(sum(float(sequential_sum(p.energy_nj))
+        return float(sum(float(xla_sum(p.energy_nj))
                          for p in self.phases))
 
     @property
@@ -1053,7 +1092,7 @@ def schedule_workload(device: DeviceState, phases, *,
     phase_list = [_as_phase(d) for d in phases]
     if not phase_list:
         raise ValueError("schedule_workload needs at least one phase")
-    lowered = []                        # per phase: (plan, flats, async)
+    plans, flats_p, keys, a_hs = [], [], [], []
     for p, ph in enumerate(phase_list):
         step_list = list(ph.steps)
         if not step_list:
@@ -1064,12 +1103,19 @@ def schedule_workload(device: DeviceState, phases, *,
             hint="each phase of schedule_workload is ONE recurring "
                  "step layout; split heterogeneous steps into "
                  "separate phases")
-        plan = _plan_for(cfg, stripped0, groups0, deferred0,
-                         use_kernels=use_kernels, interpret=interpret,
-                         refresh=refresh, async_host=a_h)
-        lowered.append((plan, flats, a_h))
+        plans.append(_plan_for(cfg, stripped0, groups0, deferred0,
+                               use_kernels=use_kernels, interpret=interpret,
+                               refresh=refresh, async_host=a_h))
+        keys.append((_plan_key(cfg, groups0, deferred0,
+                               use_kernels=use_kernels, interpret=interpret,
+                               refresh=refresh, async_host=a_h),
+                     len(step_list)))
+        flats_p.append(flats)
+        a_hs.append(a_h)
+    wplan = _workload_plan(keys, plans, [len(f) for f in flats_p], a_hs)
     if verify:
-        _verify_plans([plan for plan, _, _ in lowered], "workload layout")
+        _verify_plans(wplan.phases, "workload layout")
+    lowered = list(zip(wplan.phases, flats_p, wplan.async_host))
 
     n_ph = len(lowered)
     if order is None:

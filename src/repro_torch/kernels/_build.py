@@ -62,13 +62,13 @@ LIBRARIES = {
         (_HERE / "flash_attn" / "csrc" / "flash_attn.cu",),
         {
             "flash_attn_fwd": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _I, _I, _I, _F, _I, _P),
+                               _I, _I, _I, _F, _I, _P, _P),
             "flash_attn_tc": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _I, _I, _I, _F, _P),
+                              _I, _I, _I, _F, _P, _P),
             "flash_attn_tc_smem_bytes": (_I, _I, _I),
             "flash_attn_split_kv_splits": (_I, _I, _I, _I, _I, _I, _I),
             "flash_attn_split_kv": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                    _I, _I, _I, _I, _I, _F, _I, _I, _P),
+                                    _I, _I, _I, _I, _I, _F, _I, _I, _P, _P),
         },
     ),
 }

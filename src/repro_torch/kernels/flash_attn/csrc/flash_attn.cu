@@ -163,7 +163,7 @@ flash_tiled_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const int* __restrict__ pos_q,
                    const int* __restrict__ pos_k, T* __restrict__ out,
                    int sq, int sk, int kv_heads, int g, int dk, int dv,
-                   int window, float scale) {
+                   int window, float scale, float* __restrict__ lse) {
   static_assert(DVP % 16 == 0 && DKP >= DVP, "widths: 16s, DKP >= DVP");
   static_assert(BQ == 16 || BQ == 32 || BQ == 64, "BQ is 16, 32 or 64");
   constexpr int DJ = DVP / 16;      // accumulator columns per thread
@@ -344,12 +344,19 @@ flash_tiled_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (d < dv) store(out + off + d, acc[i][j] / denom);
     }
   }
+  // lse (b, kv_heads, g, sq) = m + log(max(l, 1e-30)), when asked for
+  if (lse != nullptr && tid < BQ && row0 + tid < rows) {
+    const int gr = row0 + tid;
+    lse[(static_cast<long long>(bh) * g + gr % g) * sq + gr / g] =
+        m_s[tid] + logf(fmaxf(l_s[tid], 1e-30f));
+  }
 }
 
-// The operands and sizes of one call.
+// The operands and sizes of one call; lse may be null.
 struct Call {
   const void *q, *k, *v, *pos_q, *pos_k;
   void* out;
+  float* lse;
   int b, sq, sk, kv_heads, g, dk, dv, window;
   float scale;
   cudaStream_t stream;
@@ -368,7 +375,7 @@ int launch(const Call& a) {
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const int*>(a.pos_q),
       static_cast<const int*>(a.pos_k), static_cast<T*>(a.out), a.sq, a.sk,
-      a.kv_heads, a.g, a.dk, a.dv, a.window, a.scale);
+      a.kv_heads, a.g, a.dk, a.dv, a.window, a.scale, a.lse);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -772,7 +779,7 @@ template <typename T>
 __global__ void __launch_bounds__(kMergeThreads)
 flash_merge_kernel(const float* __restrict__ ws, T* __restrict__ out,
                    int splits, int pairs, int rows, int dv, int sq,
-                   int kv_heads, int g) {
+                   int kv_heads, int g, float* __restrict__ lse) {
   extern __shared__ float wl[];                 // [2][splits]: w_s, l_s
   __shared__ float top[kMergeThreads / 32];
   const int tid = threadIdx.x, lane = tid % 32;
@@ -813,6 +820,11 @@ flash_merge_kernel(const float* __restrict__ ws, T* __restrict__ out,
       (((static_cast<long long>(b) * sq + s_q) * kv_heads + kvh) * g + gi)
       * dv + d;
   store(out + off, acc / fmaxf(l, 1e-30f));
+  // lse (b, kv_heads, g, sq) = M + log(max(l, 1e-30)): every thread of the
+  // row holds the same M and l; column 0's writes it
+  if (lse != nullptr && d == 0)
+    lse[(static_cast<long long>(bh) * g + gi) * sq + s_q] =
+        m + logf(fmaxf(l, 1e-30f));
 }
 
 template <typename T, int RB>
@@ -849,7 +861,7 @@ template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* pos_q,
            const void* pos_k, void* out, void* workspace, int b, int sq,
            int sk, int kv_heads, int g, int dk, int dv, int window,
-           float scale, int splits, cudaStream_t stream) {
+           float scale, int splits, float* lse, cudaStream_t stream) {
   const int rows = sq * g, pairs = b * kv_heads;
   const Geometry geo = geometry(rows, dk, dv, sizeof(T));
   cudaError_t err = configure_rb<T>(geo, nullptr);
@@ -880,7 +892,8 @@ int launch(const void* q, const void* k, const void* v, const void* pos_q,
   dim3 merge_grid(pairs * rows, (dv + kMergeThreads - 1) / kMergeThreads);
   flash_merge_kernel<T><<<merge_grid, kMergeThreads,
                           2 * sizeof(float) * splits, stream>>>(
-      ws, static_cast<T*>(out), splits, pairs, rows, dv, sq, kv_heads, g);
+      ws, static_cast<T*>(out), splits, pairs, rows, dv, sq, kv_heads, g,
+      lse);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -899,6 +912,7 @@ constexpr int kBK = 64;            // keys per tile
 constexpr int kMaxDim = 256;       // the largest dk and dv it takes
 constexpr int kScanTiles = 64;     // tiles per pass of the block's tile scan
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4],
                                             unsigned addr) {
@@ -983,7 +997,8 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
                 const int* __restrict__ pos_q, const int* __restrict__ pos_k,
                 __nv_bfloat16* __restrict__ out, int sq, int sk,
                 int kv_heads, int g, int dk, int dv, int window,
-                float scale_log2, int words, int vec) {
+                float scale_log2, int words, int vec,
+                float* __restrict__ lse) {
   using L = Layout<DKP, DVP>;
   constexpr int kQS = L::kQS, kVS = L::kVS, kStages = L::kStages;
   constexpr int NT = DVP / 8;          // output n-tiles of 8 columns
@@ -1370,6 +1385,14 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
     lh += __shfl_xor_sync(0xffffffffu, lh, 1);
     lh += __shfl_xor_sync(0xffffffffu, lh, 2);
     if (!real[h]) continue;
+    if (lse != nullptr && tq == 0) {
+      // m is in log2 units: lse = m ln 2 + log(max(l, 1e-30)); a row that
+      // saw no key keeps the reference's -1e30
+      const int gr = row0 + wrow + 8 * h;
+      lse[(static_cast<long long>(blockIdx.y) * g + gr % g) * sq + gr / g] =
+          m[h] == kNegInf ? kNegInf
+                          : m[h] * kLn2 + logf(fmaxf(lh, 1e-30f));
+    }
     __nv_bfloat16* dst = out + q_row(wrow + 8 * h) * dv;
     const float inv = 1.f / fmaxf(lh, 1e-30f);
 #pragma unroll
@@ -1387,10 +1410,11 @@ flash_tc_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// The operands and sizes of one call.
+// The operands and sizes of one call; lse may be null.
 struct Call {
   const void *q, *k, *v, *pos_q, *pos_k;
   void* out;
+  float* lse;
   int b, sq, sk, kv_heads, g, dk, dv, window;
   float scale;
   cudaStream_t stream;
@@ -1425,7 +1449,7 @@ int launch(const Call& a, size_t* smem_bytes) {
       static_cast<const __nv_bfloat16*>(a.v),
       static_cast<const int*>(a.pos_q), static_cast<const int*>(a.pos_k),
       static_cast<__nv_bfloat16*>(a.out), a.sq, a.sk, a.kv_heads, a.g, a.dk,
-      a.dv, a.window, a.scale * kLog2e, words, vec);
+      a.dv, a.window, a.scale * kLog2e, words, vec, a.lse);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1467,14 +1491,17 @@ extern "C" {
 // The tiled route. q (b, sq, kv_heads, g, dk), k (b, sk, kv_heads, dk), v
 // (b, sk, kv_heads, dv), pos_q (sq,) and pos_k (b, sk) int32, out (b, sq,
 // kv_heads, g, dv). window < 0: none. bf16: the tensors are bf16 (else
-// float32). 1 <= dk, dv <= 576.
+// float32). 1 <= dk, dv <= 576. lse: null, or float32 (b, kv_heads, g, sq)
+// that takes each row's log-sum-exp m + log(max(l, 1e-30)) (every route).
 int flash_attn_fwd(const void* q, const void* k, const void* v,
                    const void* pos_q, const void* pos_k, void* out, int b,
                    int sq, int sk, int kv_heads, int g, int dk, int dv,
-                   int window, float scale, int bf16, void* stream) {
+                   int window, float scale, int bf16, void* lse,
+                   void* stream) {
   if (!dims_ok(b, sq, sk, kv_heads, g, dk, dv))
     return static_cast<int>(cudaErrorInvalidValue);
-  const tiled::Call call{q, k, v, pos_q, pos_k, out, b, sq, sk, kv_heads,
+  const tiled::Call call{q, k, v, pos_q, pos_k, out,
+                         static_cast<float*>(lse), b, sq, sk, kv_heads,
                          g, dk, dv, window, scale,
                          static_cast<cudaStream_t>(stream)};
   return bf16 ? tiled::launch_widths<__nv_bfloat16, 0, 0>(call)
@@ -1486,12 +1513,12 @@ int flash_attn_fwd(const void* q, const void* k, const void* v,
 int flash_attn_tc(const void* q, const void* k, const void* v,
                   const void* pos_q, const void* pos_k, void* out, int b,
                   int sq, int sk, int kv_heads, int g, int dk, int dv,
-                  int window, float scale, void* stream) {
+                  int window, float scale, void* lse, void* stream) {
   if (!dims_ok(b, sq, sk, kv_heads, g, dk, dv) || dk > tc::kMaxDim
       || dv > tc::kMaxDim)
     return static_cast<int>(cudaErrorInvalidValue);
-  const tc::Call call{q, k, v, pos_q, pos_k, out, b, sq, sk, kv_heads, g,
-                      dk, dv, window, scale,
+  const tc::Call call{q, k, v, pos_q, pos_k, out, static_cast<float*>(lse),
+                      b, sq, sk, kv_heads, g, dk, dv, window, scale,
                       static_cast<cudaStream_t>(stream)};
   return tc::launch_widths(call);
 }
@@ -1502,7 +1529,7 @@ int flash_attn_tc_smem_bytes(int dk, int dv, int sk) {
   if (dk <= 0 || dv <= 0 || sk <= 0 || dk > tc::kMaxDim || dv > tc::kMaxDim)
     return 0;
   const tc::Call call{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                      1, 1, sk, 1, 1, dk, dv, -1, 1.f, nullptr};
+                      nullptr, 1, 1, sk, 1, 1, dk, dv, -1, 1.f, nullptr};
   size_t bytes = 0;
   tc::launch_widths(call, &bytes);
   return static_cast<int>(bytes);
@@ -1557,7 +1584,7 @@ int flash_attn_split_kv(const void* q, const void* k, const void* v,
                         const void* pos_q, const void* pos_k, void* out,
                         void* workspace, int b, int sq, int sk, int kv_heads,
                         int g, int dk, int dv, int window, float scale,
-                        int bf16, int splits, void* stream) {
+                        int bf16, int splits, void* lse, void* stream) {
   if (!dims_ok(b, sq, sk, kv_heads, g, dk, dv) || splits < 1
       || splits > split::kMaxSplits
       || static_cast<long long>(b) * ((static_cast<long long>(sq) * g + 3)
@@ -1568,10 +1595,11 @@ int flash_attn_split_kv(const void* q, const void* k, const void* v,
   if (bf16)
     return split::launch<__nv_bfloat16>(q, k, v, pos_q, pos_k, out,
                                         workspace, b, sq, sk, kv_heads, g,
-                                        dk, dv, window, scale, splits, s);
+                                        dk, dv, window, scale, splits,
+                                        static_cast<float*>(lse), s);
   return split::launch<float>(q, k, v, pos_q, pos_k, out, workspace, b, sq,
                               sk, kv_heads, g, dk, dv, window, scale, splits,
-                              s);
+                              static_cast<float*>(lse), s);
 }
 
 }  // extern "C"

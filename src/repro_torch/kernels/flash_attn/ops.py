@@ -48,6 +48,8 @@ from . import ref as _ref
 LAUNCHES = {"flash_attn": 0}
 ROUTES = {"tiled": 0, "split_kv": 0, "tensor_core": 0}
 CAPTURED = dict.fromkeys(ROUTES, 0)
+# the launches among ROUTES' that also wrote the log-sum-exp (training)
+LSE_ROUTES = dict.fromkeys(ROUTES, 0)
 # The largest dk and dv the kernels take: MLA's decode reads a 576-wide
 # latent key (kv_lora_rank 512 + rope 64) and a 512-wide value.
 MAX_HEAD_DIM = 576
@@ -71,17 +73,21 @@ def reset_launches() -> None:
     LAUNCHES["flash_attn"] = 0
     for r in ROUTES:
         ROUTES[r] = 0
+        LSE_ROUTES[r] = 0
 
 
-def _count(which: str) -> None:
-    """Count one launch of route ``which``, or one captured launch (a
-    build of torch without CUDA has no capture to ask about)."""
+def _count(which: str, lse: bool = False) -> None:
+    """Count one launch of route ``which`` (in ``LSE_ROUTES`` too when it
+    wrote the log-sum-exp), or one captured launch (a build of torch
+    without CUDA has no capture to ask about)."""
     if torch.cuda.is_available() \
             and torch.cuda.is_current_stream_capturing():
         CAPTURED[which] += 1
         return
     LAUNCHES["flash_attn"] += 1
     ROUTES[which] += 1
+    if lse:
+        LSE_ROUTES[which] += 1
 
 
 def count_replay(routes: dict) -> None:
@@ -162,15 +168,17 @@ def _check(q, k, v, pos_q, pos_k):
                          f"{sorted(map(str, devices))}")
 
 
-def flash_attention(q, k, v, pos_q, pos_k, *, window=None,
-                    scale=None) -> torch.Tensor:
+def flash_attention(q, k, v, pos_q, pos_k, *, window=None, scale=None,
+                    return_lse: bool = False):
     """Masked online-softmax attention forward; returns (B, Sq, KV, G, dv)
-    in q's dtype. ``window=None`` means no window; ``scale`` defaults to
-    dk ** -0.5."""
+    in q's dtype, and with ``return_lse`` also the float32 log-sum-exp
+    (B, KV, G, Sq) of each row, m + log(max(l, 1e-30)), which the backward
+    (``models.flash``) needs. ``window=None`` means no window; ``scale``
+    defaults to dk ** -0.5."""
     _check(q, k, v, pos_q, pos_k)
     if not _on_card(q):
         return _ref.ref_flash_attention(q, k, v, pos_q, pos_k, window=window,
-                                        scale=scale)
+                                        scale=scale, return_lse=return_lse)
     B, Sq, KV, G, dk = q.shape
     Sk, dv = k.shape[1], v.shape[-1]
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
@@ -179,8 +187,10 @@ def flash_attention(q, k, v, pos_q, pos_k, *, window=None,
         raise ValueError(f"flash_attention: window must be >= 0, got "
                          f"{window}")
     out = torch.empty((B, Sq, KV, G, dv), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, KV, G, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     if not (1 <= dk <= MAX_HEAD_DIM and 1 <= dv <= MAX_HEAD_DIM):
         raise ValueError(f"flash_attention: head sizes dk {dk}, dv {dv}; "
                          f"the kernels take 1 to {MAX_HEAD_DIM}")
@@ -188,14 +198,17 @@ def flash_attention(q, k, v, pos_q, pos_k, *, window=None,
     pos_k = (pos_k if pos_k.dim() == 2 else pos_k[None, :].expand(B, Sk)
              ).to(torch.int32).contiguous()
     scale = float(dk ** -0.5 if scale is None else scale)
-    return _launch(q, k, v, pos_q, pos_k, out, window, scale,
-                   route(Sq, G, q.dtype, dk, dv))
+    _launch(q, k, v, pos_q, pos_k, out, window, scale,
+            route(Sq, G, q.dtype, dk, dv), lse=lse)
+    return (out, lse) if return_lse else out
 
 
-def _launch(q, k, v, pos_q, pos_k, out, window, scale, which, splits=None):
+def _launch(q, k, v, pos_q, pos_k, out, window, scale, which, splits=None,
+            lse=None):
     """Launch the kernel(s) of route ``which`` into ``out`` (int32
-    contiguous positions, pos_k (B, Sk)); ``splits`` overrides the split
-    route's own choice of key splits."""
+    contiguous positions, pos_k (B, Sk)) and, when given, the float32
+    (B, KV, G, Sq) ``lse``; ``splits`` overrides the split route's own
+    choice of key splits."""
     B, Sq, KV, G, dk = q.shape
     Sk, dv = k.shape[1], v.shape[-1]
     bf16 = int(q.dtype == torch.bfloat16)
@@ -209,6 +222,7 @@ def _launch(q, k, v, pos_q, pos_k, out, window, scale, which, splits=None):
     sizes = (B, Sq, Sk, KV, G, dk, dv, -1 if window is None else int(window),
              scale, bf16)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    lse_ptr = None if lse is None else lse.data_ptr()
     if which == "split_kv":
         if splits is None:
             splits = _splits(B * KV, Sq * G, Sk, dk, dv, bf16,
@@ -216,13 +230,13 @@ def _launch(q, k, v, pos_q, pos_k, out, window, scale, which, splits=None):
         workspace = torch.empty(splits * B * KV * Sq * G * (dv + 2),
                                 dtype=torch.float32, device=q.device)
         rc = lib.flash_attn_split_kv(*args, workspace.data_ptr(), *sizes,
-                                     splits, stream)
+                                     splits, lse_ptr, stream)
     elif which == "tensor_core":
-        rc = lib.flash_attn_tc(*args, *sizes[:-1], stream)
+        rc = lib.flash_attn_tc(*args, *sizes[:-1], lse_ptr, stream)
     else:
-        rc = lib.flash_attn_fwd(*args, *sizes, stream)
+        rc = lib.flash_attn_fwd(*args, *sizes, lse_ptr, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed ({which}): "
                            f"CUDA error {rc}")
-    _count(which)
+    _count(which, lse is not None)
     return out

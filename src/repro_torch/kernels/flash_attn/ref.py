@@ -42,12 +42,20 @@ def _masked_scores(q, k, pos_q, pos_k, window, scale):
     return torch.where(ok, s, torch.full_like(s, NEG_INF))
 
 
-def ref_flash_attention(q, k, v, pos_q, pos_k, *, window=None, scale=None):
+def ref_flash_attention(q, k, v, pos_q, pos_k, *, window=None, scale=None,
+                        return_lse=False):
+    """With ``return_lse``, also the float32 log-sum-exp (B, KV, G, Sq) of
+    each row's scores, m + log(max(l, 1e-30)) as the reference's forward
+    saves it for the backward (a row that sees no key: -1e30)."""
     s = _masked_scores(q, k, pos_q, pos_k, window, scale)
-    p = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
-    p = p / torch.clamp(torch.sum(p, dim=-1, keepdim=True), min=1e-30)
-    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(torch.float32))
-    return out.to(q.dtype)
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = torch.clamp(torch.sum(p, dim=-1, keepdim=True), min=1e-30)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p / l,
+                       v.to(torch.float32)).to(q.dtype)
+    if return_lse:
+        return out, (m + torch.log(l))[..., 0]
+    return out
 
 
 def split_kv_flash_attention(q, k, v, pos_q, pos_k, *, splits, window=None,

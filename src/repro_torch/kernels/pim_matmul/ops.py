@@ -207,10 +207,64 @@ def _launch(x, w_int, scales, out, mode, bits, which, splits=None):
     return out
 
 
+class PimMatmul(torch.autograd.Function):
+    """``pim_matmul`` with the gradients of the reference's
+    ``pim_matmul_xla`` (y = acc · scales, acc the unscaled float32
+    bit-plane product; ``w_int`` takes none):
+
+    - dx = (dy · scales) in bf16 @ w_intᵀ, float32, then bf16 (x's type):
+      the same kernel on the transposed codes (whose bit planes are the
+      transposed planes) with unit scales, in either mode;
+    - dscales[n] = Σ_m dy[m, n] · acc[m, n], acc recomputed by the same
+      kernel with unit scales (shift_add), or in dequant mode
+      Σ_k dW[k, n] · w_int[k, n] with dW = xᵀ dy a plain bf16 matmul, as
+      the reference leaves it to XLA.
+
+    ``codes_t`` returns the transposed codes (N, K) int8, kept by the
+    caller (``models.common.Linear``) so that they are built once."""
+
+    @staticmethod
+    def forward(ctx, x, scales, w_int, codes_t, mode, bits):
+        ctx.save_for_backward(x, scales, w_int)
+        ctx.codes_t, ctx.mode, ctx.bits = codes_t, mode, bits
+        return pim_matmul(x, w_int, scales, mode=mode, bits=bits)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scales, w_int = ctx.saved_tensors
+        mode, bits = ctx.mode, ctx.bits
+        dy = dy.to(torch.float32)
+        dx = dscales = None
+        if ctx.needs_input_grad[0]:
+            ones_k = torch.ones(w_int.shape[0], dtype=torch.float32,
+                                device=x.device)
+            dx = pim_matmul((dy * scales).to(torch.bfloat16), ctx.codes_t(),
+                            ones_k, mode=mode, bits=bits).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            if mode == "shift_add":
+                ones_n = torch.ones(w_int.shape[1], dtype=torch.float32,
+                                    device=x.device)
+                acc = pim_matmul(x, w_int, ones_n, mode=mode, bits=bits)
+                dscales = (dy * acc).sum(0)
+            else:
+                dw = x.to(torch.bfloat16).T @ dy.to(torch.bfloat16)
+                dscales = (dw.to(torch.float32)
+                           * w_int.to(torch.float32)).sum(0)
+        return dx, dscales, None, None, None, None
+
+
 def pim_linear(x, w_int, scales, *, mode: str = "shift_add", bits: int = 4,
-               out_dtype=torch.bfloat16) -> torch.Tensor:
-    """Linear layer over arbitrary leading dims: (..., K) @ (K, N)."""
+               out_dtype=torch.bfloat16, codes_t=None) -> torch.Tensor:
+    """Linear layer over arbitrary leading dims: (..., K) @ (K, N). When
+    autograd records (training), through :class:`PimMatmul`; ``codes_t``
+    then returns the transposed codes (built here when not given)."""
     lead = x.shape[:-1]
-    y = pim_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w_int, scales,
-                   mode=mode, bits=bits)
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    if torch.is_grad_enabled() and (x.requires_grad or scales.requires_grad):
+        if codes_t is None:
+            def codes_t():
+                return w_int.T.contiguous()
+        y = PimMatmul.apply(x2, scales, w_int, codes_t, mode, bits)
+    else:
+        y = pim_matmul(x2, w_int, scales, mode=mode, bits=bits)
     return y.reshape(*lead, -1).to(out_dtype)

@@ -7,7 +7,10 @@ Port of ``repro.models.attention``. Every softmax goes through
 - ``impl="flash"`` runs the flash-attention forward of
   ``kernels/flash_attn`` (the CUDA kernel for a CUDA tensor, its plain
   version on the CPU) — the port's counterpart of the reference's
-  ``models/flash.py`` forward, which has the same masking semantics;
+  ``models/flash.py`` forward, which has the same masking semantics; when
+  autograd records (training) it goes through ``models.flash``'s
+  ``FlashAttention``, that forward with its log-sum-exp and the
+  reference's backward;
 - ``impl="naive"`` is a torch port of the reference's online-softmax scan
   over query and key chunks.
 
@@ -31,7 +34,10 @@ import torch
 from torch import nn
 
 from ..kernels.flash_attn import ops as _flash
+from . import flash as flash_mod
+from .flash import _chunk
 from .common import apply_rope, dense_init, dtype_of, frozen, rmsnorm
+from .ssm import records_grad
 
 NEG_INF = -1e30
 
@@ -39,13 +45,6 @@ NEG_INF = -1e30
 # ---------------------------------------------------------------------------
 # Chunked attention
 # ---------------------------------------------------------------------------
-
-def _chunk(n: int, c: int) -> int:
-    c = min(c, n)
-    while n % c:
-        c //= 2
-    return c
-
 
 def chunked_attention(q, k, v, pos_q, pos_k, *, window=None,
                       q_chunk: int = 512, k_chunk: int = 1024,
@@ -62,6 +61,10 @@ def chunked_attention(q, k, v, pos_q, pos_k, *, window=None,
     B, Sq, KV, G, dh = q.shape
     scale = (1.0 / math.sqrt(dh)) if scale is None else scale
     if impl == "flash":
+        if records_grad(q, k, v):
+            return flash_mod.flash_attention(q, k, v, pos_q, pos_k,
+                                             window=window, scale=scale,
+                                             q_chunk=q_chunk, k_chunk=k_chunk)
         return _flash.flash_attention(q, k, v, pos_q, pos_k, window=window,
                                       scale=scale)
     if impl != "naive":

@@ -1,10 +1,13 @@
 """Shared building blocks: norms, RoPE, initializers, linear (incl. PIM-quant).
 
-Port of ``repro.models.common``. Parameters live in ``nn.Module``s (float
-weights as frozen ``nn.Parameter``s, int8 codes and float32 scales as
-buffers); the functions take those modules where the reference takes
-parameter dicts. Weights keep the reference's layouts: a linear's weight is
-(d_in, d_out) and is applied as ``x @ w``.
+Port of ``repro.models.common``. Parameters live in ``nn.Module``s: every
+float leaf (weights, norms, biases, a quantized linear's float32 scales) is
+an ``nn.Parameter``, built frozen for serving (``models.trainable`` turns
+the gradient on, as the reference's ``adamw.partition`` trains every
+floating leaf); the int8 codes are buffers and never train. The functions
+take those modules where the reference takes parameter dicts. Weights keep
+the reference's layouts: a linear's weight is (d_in, d_out) and is applied
+as ``x @ w``.
 """
 from __future__ import annotations
 
@@ -23,7 +26,8 @@ def dtype_of(cfg) -> torch.dtype:
 
 
 def frozen(t: torch.Tensor | None):
-    """A tensor as a parameter that takes no gradient (the port serves)."""
+    """A tensor as a parameter that takes no gradient until training asks
+    for one (``models.trainable``)."""
     return None if t is None else nn.Parameter(t, requires_grad=False)
 
 
@@ -128,8 +132,10 @@ def sinusoidal_pos_emb(positions, d_model: int):
 
 class Linear(nn.Module):
     """A dense weight ``w`` (d_in, d_out), or int8 codes ``w_int``
-    (d_in, d_out) with float32 per-output ``scales`` as buffers; an optional
-    bias ``b``."""
+    (d_in, d_out), a buffer, with float32 per-output ``scales``, a
+    parameter; an optional bias ``b``. Training's backward reads the
+    transposed codes (``codes_t``), built at its first call and kept as the
+    non-persistent buffer ``w_int_t``."""
 
     def __init__(self, w: torch.Tensor | None = None, *,
                  w_int: torch.Tensor | None = None,
@@ -146,12 +152,19 @@ class Linear(nn.Module):
                 raise TypeError(f"Linear: w_int int8 and scales float32, got "
                                 f"{w_int.dtype} and {scales.dtype}")
             self.register_buffer("w_int", w_int)
-            self.register_buffer("scales", scales)
+            self.scales = frozen(scales)
         self.b = frozen(b)
 
     @property
     def quantized(self) -> bool:
         return "w_int" in self._buffers
+
+    def codes_t(self) -> torch.Tensor:
+        """The codes transposed, (d_out, d_in) int8, built once."""
+        if getattr(self, "w_int_t", None) is None:
+            self.register_buffer("w_int_t", self.w_int.T.contiguous(),
+                                 persistent=False)
+        return self.w_int_t
 
 
 def make_linear_params(gen, cfg, d_in: int, d_out: int, bias: bool = False,
@@ -173,7 +186,8 @@ def linear(cfg, p: Linear, x):
     if p.quantized:
         y = _pim.pim_linear(x.to(torch.bfloat16), p.w_int, p.scales,
                             mode=cfg.quant_mode,
-                            bits=cfg.quant_bits, out_dtype=x.dtype)
+                            bits=cfg.quant_bits, out_dtype=x.dtype,
+                            codes_t=p.codes_t)
     else:
         y = x @ p.w
     if p.b is not None:

@@ -20,7 +20,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from .common import dense_init, dtype_of, frozen
-from .ssm import chunks, conv_causal, conv_window, scan_inplace
+from .ssm import (chunks, conv_causal, conv_window, records_grad,
+                  scan_inplace)
 
 
 class RGLRU(nn.Module):
@@ -88,10 +89,14 @@ def rglru_train(cfg, p: RGLRU, x):
     a = F.pad(a, (0, 0, 0, Sp - S), value=1.0)
     bx = F.pad(bx, (0, 0, 0, Sp - S))
     h = torch.zeros((B, r.lru_width), dtype=torch.float32, device=x.device)
+    states = []
     for c0 in range(0, Sp, chunk):
         hs = scan_inplace(a[:, c0:c0 + chunk], bx[:, c0:c0 + chunk], h)
+        states.append(hs)
         h = hs[:, -1]
-    y = bx[:, :S].to(x.dtype) * gate
+    # serving's scan wrote the states over bx; training's returned them
+    hseq = torch.cat(states, dim=1) if records_grad(a, bx) else bx
+    y = hseq[:, :S].to(x.dtype) * gate
     state = {"h": h.clone(), "conv": u_pre[:, S - (r.d_conv - 1):]}
     return y @ p.w_out, state
 

@@ -97,11 +97,24 @@ def conv_window(conv_w, conv_b, state_conv, x_new, d_conv: int):
     return window, conv
 
 
+def records_grad(*tensors) -> bool:
+    """True when autograd records an op on any of ``tensors``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def scan_inplace(a, b, h0):
     """h_t = a_t · h_{t-1} + b_t over dim 1 of (B, c, ...) float32, from
-    h0 (B, ...): each h_t written over b_t, one ``addcmul`` per step.
-    Returns b, now the states."""
+    h0 (B, ...), one ``addcmul`` per step. Serving writes each h_t over
+    b_t and returns b, now the states; when autograd records (training),
+    which refuses writes into saved tensors, the same adds in the same
+    order go to new tensors, stacked into the states returned."""
     h = h0
+    if records_grad(a, b, h0):
+        hs = []
+        for t in range(b.shape[1]):
+            h = torch.addcmul(b[:, t], a[:, t], h)
+            hs.append(h)
+        return torch.stack(hs, dim=1)
     for t in range(b.shape[1]):
         h = torch.addcmul(b[:, t], a[:, t], h, out=b[:, t])
     return b

@@ -31,7 +31,16 @@ The tied (or untied) output head is cast to float32 once, when the model is
 built (the ``head_f32`` buffer; the audio frontend's per-codebook
 ``heads_f32``), since the logits are a float32 product as in the reference
 (at Qwen3-4B's width that copy is 1.56 GB, which a cast per call would
-allocate again every step).
+allocate again every step). Training reads the trainable head itself, cast
+per loss chunk as the reference does, and ``refresh_heads`` copies it into
+those buffers in place after an optimizer step.
+
+Training: ``loss_fn`` (``lm_loss``, ``musicgen_loss`` and the MoE aux
+loss) over ``backbone_loss``, which checkpoints each layer when
+``cfg.remat`` (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint``); ``param_tree`` lays the parameters out as the
+reference's pytree and ``trainable`` turns the gradient on for its
+floating leaves.
 """
 from __future__ import annotations
 
@@ -40,6 +49,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device, same_device
 from . import attention as attn
@@ -416,6 +426,183 @@ def _logits_chunk(cfg, model: LM, h):
         c = cfg.final_logit_softcap
         logits = c * torch.tanh(logits / c)
     return logits
+
+
+# ---------------------------------------------------------------------------
+# Training: the reference's parameter tree, losses
+# ---------------------------------------------------------------------------
+
+def _module_tree(m: nn.Module) -> dict:
+    """A module's parameters, persistent buffers and sub-modules by
+    attribute name: the reference's keys."""
+    out = {k: p for k, p in m._parameters.items() if p is not None}
+    out.update({k: b for k, b in m._buffers.items()
+                if b is not None and k not in m._non_persistent_buffers_set})
+    out.update({k: _module_tree(c) for k, c in m._modules.items()
+                if c is not None})
+    return out
+
+
+def _stacked_tree(trees: list) -> dict:
+    """Per-layer trees as one tree whose leaves list the layers' tensors
+    (the reference stacks them along a leading axis)."""
+    return {k: _stacked_tree([t[k] for t in trees])
+            if isinstance(trees[0][k], dict) else [t[k] for t in trees]
+            for k in trees[0]}
+
+
+def param_tree(model: LM) -> dict:
+    """The model's parameters (and int8 codes) in the reference's
+    ``init_params`` layout: ``embed``, ``final_norm``, ``lm_head`` or
+    ``heads``, and ``stack`` / ``dense_head_layers`` / ``blocks``
+    (``sub{i}``) / ``tail``, whose leaves are lists of per-layer
+    tensors."""
+    tree = {"embed": model.embed,
+            "final_norm": _module_tree(model.final_norm)}
+    if model.lm_head is not None:
+        tree["lm_head"] = model.lm_head
+    if model.heads is not None:
+        tree["heads"] = model.heads
+    for key, stack in (("dense_head_layers", model.dense_head_layers),
+                       ("stack", model.layers), ("tail", model.tail)):
+        if len(stack):
+            tree[key] = _stacked_tree([_module_tree(m) for m in stack])
+    if len(model.blocks):
+        tree["blocks"] = {
+            f"sub{j}": _stacked_tree([_module_tree(b[j])
+                                      for b in model.blocks])
+            for j in range(len(model.blocks[0]))}
+    return tree
+
+
+def tree_leaves(tree: dict, prefix: str = ""):
+    """(path, leaf) in the order of ``jax.tree.leaves`` (dict keys
+    sorted); a path joins the keys with "/"."""
+    for k in sorted(tree):
+        v, path = tree[k], f"{prefix}{k}"
+        if isinstance(v, dict):
+            yield from tree_leaves(v, path + "/")
+        else:
+            yield path, v
+
+
+def trainable(model: LM) -> list:
+    """Turn the gradient on for the leaves the reference's
+    ``adamw.partition`` trains (every floating one: weights, norms,
+    biases, the quantized linears' scales; the int8 codes stay frozen)
+    and return them as ``[(path, [tensor per layer])]`` in the reference's
+    tree order."""
+    out = []
+    for path, leaf in tree_leaves(param_tree(model)):
+        ts = leaf if isinstance(leaf, list) else [leaf]
+        if ts[0].is_floating_point():
+            for t in ts:
+                t.requires_grad_(True)
+            out.append((path, ts))
+    return out
+
+
+@torch.no_grad()
+def refresh_heads(model: LM) -> None:
+    """Copy the trained head into the float32 serving buffers in place
+    (their addresses, which ``generate_graphs`` hold, stay)."""
+    if model.heads is not None:
+        model.heads_f32.copy_(model.heads)
+    else:
+        model.head_f32.copy_(model.embed if model.lm_head is None
+                             else model.lm_head.T)
+
+
+def backbone_loss(cfg, model: LM, x, positions):
+    """Every layer over the full sequence for the loss: (hidden after the
+    final norm, aux). With ``cfg.remat`` each layer is checkpointed
+    (``use_reentrant=False``): its activations are recomputed in the
+    backward, the counterpart of the reference's ``jax.checkpoint``."""
+    aux = 0.0
+    for _, _, _, layer in model.walk():
+        def run(h, layer=layer):
+            return layer_train(cfg, layer, h, positions)[:2]
+        x, aux_i = (checkpoint(run, x, use_reentrant=False) if cfg.remat
+                    else run(x))
+        aux = aux + aux_i
+    return apply_norm(cfg, model.final_norm, x), aux
+
+
+def _train_head(cfg, model: LM, h, w):
+    """float32 logits of ``h`` against the trainable head ``w`` (D, V),
+    both cast per chunk as the reference's ``_logits_chunk``."""
+    logits = h.to(torch.float32) @ w.to(torch.float32)
+    if cfg.final_logit_softcap:
+        c = cfg.final_logit_softcap
+        logits = c * torch.tanh(logits / c)
+    return logits
+
+
+def _nll(logits, labels):
+    """(lse − gold) per position, float32."""
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    return torch.logsumexp(logits, dim=-1) - gold
+
+
+def _on(model: LM, batch, key: str, dtype, default_shape=None):
+    """``batch[key]`` (a tensor or an array) as ``dtype`` on the model's
+    device; ones of ``default_shape`` when absent."""
+    v = batch.get(key)
+    if v is None:
+        return torch.ones(default_shape, dtype=dtype, device=model.device)
+    if not isinstance(v, torch.Tensor):
+        v = torch.from_numpy(np.array(v))
+    return v.to(device=model.device, dtype=dtype)
+
+
+def lm_loss(cfg, model: LM, h, labels, mask):
+    """h (B, S, D); labels (B, S) int; mask (B, S) float32. Cross entropy
+    over chunks of ``cfg.loss_chunk`` positions (halved until it divides
+    S), summed in chunk order, over max(Σ mask, 1)."""
+    S = h.shape[1]
+    chunk = min(cfg.loss_chunk, S)
+    while S % chunk:
+        chunk //= 2
+    w = model.embed.T if cfg.tie_embeddings else model.lm_head
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, S, chunk):
+        mc = mask[:, c0:c0 + chunk]
+        nll = _nll(_train_head(cfg, model, h[:, c0:c0 + chunk], w),
+                   labels[:, c0:c0 + chunk])
+        tot = tot + torch.sum(nll * mc)
+        cnt = cnt + torch.sum(mc)
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def musicgen_loss(cfg, model: LM, h, labels, mask):
+    """labels (B, S, n_codebooks): the mean over codebooks of each head's
+    masked cross entropy."""
+    losses = []
+    for c in range(cfg.n_codebooks):
+        nll = _nll(h.to(torch.float32) @ model.heads[c].to(torch.float32),
+                   labels[..., c])
+        losses.append(torch.sum(nll * mask)
+                      / torch.clamp(torch.sum(mask), min=1.0))
+    return sum(losses) / len(losses)
+
+
+def loss_fn(cfg, model: LM, batch):
+    """The training objective: (ce loss + aux, {"ce_loss", "aux_loss"}).
+    batch: ``tokens``/``labels`` (+ ``mask``), or the frontends' inputs,
+    as tensors or arrays."""
+    x, positions, n_prefix = embed_inputs(cfg, model, batch)
+    h, aux = backbone_loss(cfg, model, x, positions)
+    labels = _on(model, batch, "labels", torch.long)
+    if cfg.frontend == "audio_frames":
+        mask = _on(model, batch, "mask", torch.float32, labels.shape[:2])
+        loss = musicgen_loss(cfg, model, h, labels, mask)
+    else:
+        if n_prefix:
+            h = h[:, n_prefix:]
+        mask = _on(model, batch, "mask", torch.float32, labels.shape)
+        loss = lm_loss(cfg, model, h, labels, mask)
+    return loss + aux, {"ce_loss": loss, "aux_loss": aux}
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,12 @@ eager loop's tokens and launches, a bounded cache per model) at the smoke
 size and at Qwen3-4B's full width with 2 layers; then the MoE, MLA and
 frontend families (``-k families``) and the recurrent ones (``-k
 recurrent``: falcon-mamba-7b and recurrentgemma-2b at the smoke size,
-recurrentgemma-2b at full width with 5 layers, the ring's wrap).
+recurrentgemma-2b at full width with 5 layers, the ring's wrap); the PIM
+schedule on a 64-slot device, card against CPU bit for bit, and
+``xla_sum`` at every length to 256; and training (``-k train``): the
+flash forward's log-sum-exp on every route, one pass's gradients card
+against CPU at the smoke size and at Qwen3-4B's full width with 1 layer, a
+training step card against CPU, serving unchanged after training.
 
 Needs a CUDA card and ``nvcc`` (the kernels build at first use); every test
 here skips elsewhere. It imports nothing of JAX, so on the card machine it
@@ -1114,6 +1119,93 @@ def test_serve_front_runs_the_row_kernels_on_the_card(card):
     assert rops.LAUNCHES["shift_cols"] == rops.LAUNCHES["bitwise"] == 0
 
 
+def _wide_layout(cfg, rng):
+    """64 slots of six random streams (payloads of their own per slot,
+    about a tenth idle) and three cross-bank COPYs."""
+    from repro_torch.core.pim.ir import ProgramBuilder
+
+    def stream():
+        b = ProgramBuilder(cfg.num_rows, cfg.words)
+        b.issue()
+        for kind in rng.choice(("write", "xor", "chain", "maj", "not",
+                                "read", "tra"), int(rng.integers(3, 12))):
+            r = [int(x) for x in rng.choice(cfg.num_rows - 8, 4,
+                                            replace=False)]
+            if kind == "write":
+                b.write_row(r[0], rng.integers(0, 2**32, (cfg.words,),
+                                               dtype=np.uint32))
+            elif kind == "xor":
+                b.ambit_xor(r[0], r[1], r[2])
+            elif kind == "chain":
+                b.shift_k(r[0], r[1], int(rng.choice([-1, 1]))
+                          * int(rng.integers(2, 50)))
+            elif kind == "maj":
+                b.ambit_maj(*r)
+            elif kind == "not":
+                b.ambit_not(r[0], r[1])
+            elif kind == "read":
+                b.read_row(r[0])
+            else:
+                b.tra(r[0], r[1], r[2])
+        return b.build()
+
+    pool = [stream() for _ in range(6)]
+    flat = []
+    for _ in range(cfg.n_slots):
+        p = pool[int(rng.integers(len(pool)))]
+        flat.append(None if rng.random() < 0.1 else p.with_payloads(
+            [rng.integers(0, 2**32, q.shape, dtype=np.uint32)
+             for q in p.payloads]))
+    moves = [((int(rng.integers(cfg.n_banks)), int(rng.integers(2)), j),
+              (int(rng.integers(cfg.n_banks)), int(rng.integers(2)), 20 + j))
+             for j in range(3)]
+    return tpim.gather_rows(cfg, moves, flat)
+
+
+def test_schedule_on_a_64_slot_device_card_matches_cpu(card):
+    """``paper_device(32, 32, 8, subarrays=2)``: three steps (sync with
+    COPY drains, async, async refreshed) and a 3-step pipeline; states,
+    reads, per-step wall and energy (summed in XLA's order by
+    ``compile.xla_sum``, from adds of slices and the meter fold) equal
+    to the CPU's, bit for bit."""
+    cfg = tpim.paper_device(32, 32, 8, subarrays=2)
+    rng = np.random.default_rng(64)
+    layouts = [_wide_layout(cfg, rng) for _ in range(3)]
+    flags = ({}, {"async_host": True}, {"async_host": True, "refresh": True})
+    got = {}
+    for where in ("cpu", card):
+        dev = tpim.make_device(cfg, device=where)
+        out = []
+        for lay, fl in zip(layouts, flags):
+            r = tpim.schedule(dev, lay, **fl)
+            dev = r.state
+            out.append((float(r.wall_ns), float(r.energy_nj),
+                        r.host_overlap_ns,
+                        [_reads_np(x) for x in r.reads]))
+        pipe = tpim.schedule_pipeline(dev, layouts[0], n_steps=3,
+                                      async_host=True)
+        out.append((pipe.wall_ns.cpu().numpy().view(np.uint32).tolist(),
+                    pipe.energy_nj.cpu().numpy().view(np.uint32).tolist(),
+                    pipe.total_wall_ns, pipe.host_overlap_ns))
+        got[str(where)] = (out, _state_np(pipe.state))
+    assert got["cpu"] == got[str(card)]
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_xla_sum_card_matches_cpu(card, fused):
+    """``xla_sum`` at every length from 1 to 256 and at 1,100 (two window
+    levels): the card's bits are the CPU's."""
+    from repro_torch.core.pim.compile import xla_sum
+    rng = np.random.default_rng(int(fused))
+    for n in list(range(1, 257)) + [1100]:
+        x = (rng.choice([-1, 1], n) * np.exp2(rng.uniform(-8, 10, n))) \
+            .astype(np.float32)
+        cpu = xla_sum(torch.from_numpy(x), fused=fused)
+        on_card = xla_sum(torch.from_numpy(x).to(card), fused=fused)
+        assert on_card.device.type == "cuda"
+        assert same_bits(on_card.cpu(), cpu), n
+
+
 @pytest.mark.parametrize("pct, paper, bound", [(0.0, 0.0, 0.0),
                                                (5.0, 0.005, 0.004),
                                                (10.0, 0.14, 0.04),
@@ -1518,3 +1610,156 @@ def test_recurrent_ring_wraps_on_the_card(card):
                        "cpu")
     for t, (a, b) in enumerate(zip(logits, on_cpu)):
         assert rel_err(a, b) < PIM_REL, f"step {t}"
+
+
+# ---------------------------------------------------------------------------
+# Training's gradient path on the card (``-k train``)
+# ---------------------------------------------------------------------------
+
+import copy  # noqa: E402
+
+from repro_torch.convert import lm_params_to_numpy  # noqa: E402
+from repro_torch.models import loss_fn, trainable  # noqa: E402
+from repro_torch.models.transformer import tree_leaves  # noqa: E402
+from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
+from repro_torch.train import (init_train_state, make_train_step,  # noqa: E402,E501
+                               trainable_params)
+
+LSE_ABS = 1e-3      # chip_smoke.py's FLASH_LSE_ABS
+GRAD_REL = 2e-2
+
+
+@pytest.mark.parametrize("shape", ROUTE_SHAPES[:6])
+@pytest.mark.parametrize("which", ["tiled", "split_kv", "tensor_core"])
+def test_train_flash_lse_on_every_route(card, shape, which):
+    """Each route writes the log-sum-exp through its pointer, as the plain
+    version computes it (bf16 inputs; float32 on the tiled and split
+    routes too), and the same output as without it."""
+    B, Sq, Sk, KV, G, dk, dv, window, invalid = shape
+    if which == "tensor_core" and max(dk, dv) > fa.TC_MAX_HEAD_DIM:
+        pytest.skip("the tensor-core route takes dk, dv <= 256")
+    for dtype in ((torch.bfloat16,) if which == "tensor_core"
+                  else (torch.bfloat16, torch.float32)):
+        q, k, v, pos_q, pos_k = flash_operands(shape, dtype, 3)
+        base = launch_route(q, k, v, pos_q, pos_k, window, which)
+        out = torch.empty_like(base)
+        lse = torch.full((B, KV, G, Sq), float("nan"), device=card)
+        fa._launch(q, k, v, pos_q, pos_k, out, window, dk ** -0.5, which,
+                   lse=lse)
+        exp_out, exp_lse = fref.ref_flash_attention(
+            q, k, v, pos_q, pos_k, window=window, return_lse=True)
+        torch.cuda.synchronize()
+        assert torch.equal(out, base), (which, dtype)
+        assert float((lse - exp_lse).abs().max()) < LSE_ABS, (which, dtype)
+        err = float((out.float() - exp_out.float()).abs().max())
+        assert err < flash_bound(exp_out), (which, dtype, err)
+
+
+def test_train_flash_lse_keeps_serving_launches(card):
+    """``return_lse`` counts in LSE_ROUTES beside ROUTES; without it the
+    serving call is what it was: one launch, no log-sum-exp."""
+    q, k, v, pos_q, pos_k = flash_operands(ROUTE_SHAPES[3], torch.bfloat16,
+                                           4)
+    fa.reset_launches()
+    a = fa.flash_attention(q, k, v, pos_q, pos_k)
+    b, lse = fa.flash_attention(q, k, v, pos_q, pos_k, return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and lse.dtype == torch.float32
+    assert fa.LAUNCHES["flash_attn"] == 2
+    assert sum(fa.LSE_ROUTES.values()) == 1
+
+
+def _grads(model, cfg, batch):
+    trainable(model)
+    loss, _ = loss_fn(cfg, model, {k: v.to(model.device)
+                                   for k, v in batch.items()})
+    loss.backward()
+    return float(loss.detach()), dict(tree_leaves(lm_params_to_numpy(
+        model, grads=True)))
+
+
+def _train_batch(cfg, b, s, seed=0):
+    tok = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (b, s + 1)), dtype=torch.long)
+    return {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+
+
+@pytest.mark.parametrize("overrides,layers", [
+    ({"quant": "pim_w4", "quant_mode": "shift_add"}, None),
+    ({"quant": "pim_w4", "quant_mode": "dequant"}, None),
+    ({}, None),
+    ({"quant": "pim_w4", "quant_mode": "shift_add"}, 1)])
+def test_train_grads_card_match_cpu(card, overrides, layers):
+    """One pass's loss and every gradient leaf, card against the CPU port,
+    at the smoke size and (layers 1) at Qwen3-4B's full width: the
+    autograd flash and ``PimMatmul`` backwards on the card."""
+    smoke = layers is None
+    cfg = get_config("qwen3-4b", smoke=smoke, **overrides,
+                     **({} if smoke else {"n_layers": layers}))
+    cpu_model = init_params(cfg, 2, device="cpu")
+    card_model = copy.deepcopy(cpu_model).to(card)
+    batch = _train_batch(cfg, 2, 32 if smoke else 64)
+    pm.reset_launches()
+    fa.reset_launches()
+    lc, gc_ = _grads(card_model, cfg, batch)
+    lp, gp = _grads(cpu_model, cfg, batch)
+    if cfg.quant:      # per linear: forward, recompute, dx (and acc)
+        per = 4 if cfg.quant_mode == "shift_add" else 3
+        assert pm.LAUNCHES["pim_matmul"] == per * 3 * cfg.n_layers
+    assert sum(fa.LSE_ROUTES.values()) == 2 * cfg.n_layers
+    assert abs(lc - lp) / abs(lp) < GRAD_REL
+    assert set(gc_) == set(gp)
+    for key, ref in gp.items():
+        err = float(abs(gc_[key] - ref).max() / (abs(ref).max() + 1e-30))
+        assert err < GRAD_REL, (key, err)
+
+
+def test_train_step_card_matches_cpu(card):
+    """One ``make_train_step`` step at the smoke size (pim_w4), card
+    against CPU: loss, grad norm and the updated params within the
+    microbatch bound 5e-2; nothing skipped."""
+    cfg = get_config("qwen3-4b", smoke=True, quant="pim_w4")
+    cpu_model = init_params(cfg, 3, device="cpu")
+    card_model = copy.deepcopy(cpu_model).to(card)
+    batch = _train_batch(cfg, 4, 32, seed=1)
+    out = {}
+    for where, model in (("card", card_model), ("cpu", cpu_model)):
+        step = make_train_step(cfg, AdamWConfig(lr=1e-3), lambda s: 1.0)
+        m = step(model, init_train_state(model),
+                 {k: v.to(model.device) for k, v in batch.items()})
+        out[where] = (float(m["loss"]), float(m["grad_norm"]),
+                      float(m["skipped"]), [p.detach().float().cpu()
+                                            for p in trainable_params(model)])
+    (lc, nc, sc, pc), (lp, np_, sp, pp) = out["card"], out["cpu"]
+    assert sc == sp == 0.0
+    assert abs(lc - lp) / abs(lp) < GRAD_REL
+    assert abs(nc - np_) / np_ < GRAD_REL
+    assert max(float((a - b).abs().max()) for a, b in zip(pc, pp)) < 5e-2
+
+
+def test_train_serving_unchanged_and_head_refreshed(card):
+    """Under no_grad the served call's routes and launches are as before
+    training (no log-sum-exp, no backward product), and after a step the
+    float32 head holds the trained embedding at the same address."""
+    cfg = get_config("qwen3-4b", smoke=True, quant="pim_w4")
+    model = init_params(cfg, 4)
+    prompt = {"tokens": torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 24)), dtype=torch.int32, device=card)}
+
+    def serve_counts():
+        pm.reset_launches()
+        fa.reset_launches()
+        greedy_generate(cfg, model, prompt, max_new_tokens=5)
+        torch.cuda.synchronize()
+        return (dict(pm.ROUTES), dict(fa.ROUTES), dict(fa.LSE_ROUTES))
+
+    greedy_generate(cfg, model, prompt, max_new_tokens=5)     # capture
+    before = serve_counts()
+    head = model.head_f32.data_ptr()
+    step = make_train_step(cfg, AdamWConfig(lr=1e-2), lambda s: 1.0)
+    step(model, init_train_state(model),
+         {k: v.to(card) for k, v in _train_batch(cfg, 2, 24).items()})
+    assert model.head_f32.data_ptr() == head
+    assert torch.equal(model.head_f32, model.embed.detach().float())
+    after = serve_counts()
+    assert before == after and not any(after[2].values())

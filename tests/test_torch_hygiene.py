@@ -30,7 +30,10 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.kernels.flash_attn.ops, repro_torch.serve.engine, "
             "repro_torch.serve.pim_front, repro_torch.core.pim.lint, "
             "repro_torch.core.pim.sem, repro_torch.core.pim.variation, "
-            "repro_torch.launch.serve\n"
+            "repro_torch.launch.serve, repro_torch.models.flash, "
+            "repro_torch.optim, repro_torch.optim.adamw, "
+            "repro_torch.optim.schedule, repro_torch.optim.grad_compress, "
+            "repro_torch.train, repro_torch.train.step\n"
             "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
             "or m.startswith(('jax.', 'repro.'))]\n"
             "assert not bad, bad\n")

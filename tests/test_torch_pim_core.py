@@ -458,6 +458,36 @@ def test_program_helpers_match():
     assert f32_bits(er) == f32_bits(ep.numpy())
 
 
+@pytest.mark.parametrize("n_banks", [16, 32, 64])
+def test_bank_parallel_on_wide_banks(n_banks):
+    """``bank_parallel`` over 16, 32 and 64 banks that start from meters
+    of their own: states, wall and the energy total (the reference's eager
+    ``jnp.sum``, in XLA's order) bit for bit."""
+    rng = np.random.default_rng(n_banks)
+    arrays = convert.to_numpy(port.make_bank(n_banks, ROWS, WORDS,
+                                             device="cpu"))
+    arrays["bits"] = rng.integers(0, 2**32, arrays["bits"].shape,
+                                  dtype=np.uint32)
+    for f in FLOAT_FIELDS:
+        arrays[f] = np.exp2(rng.uniform(-4, 12, n_banks)).astype(np.float32)
+    rows = ("bits", "mig_top", "mig_bot", "dcc")
+    bank_p = convert.subarray_from_numpy(
+        *(arrays[k] for k in rows),
+        meter={k: arrays[k] for k in FLOAT_FIELDS + INT_FIELDS},
+        device="cpu")
+    bank_r = ref.make_bank(n_banks, ROWS, WORDS)
+    bank_r = dataclasses.replace(
+        bank_r, bits=jnp.asarray(arrays["bits"]),
+        meter=dataclasses.replace(bank_r.meter, **{
+            k: jnp.asarray(arrays[k]) for k in FLOAT_FIELDS}))
+    prog = build_program(rng, 12)
+    sr, wr, er = ref.bank_parallel(prog, n_banks)(bank_r)
+    sp, wp, ep = port.bank_parallel(to_port_program(prog), n_banks)(bank_p)
+    assert_state_equal(sr, sp, "bank_parallel")
+    assert f32_bits(wr) == f32_bits(wp.numpy())
+    assert f32_bits(er) == f32_bits(ep.numpy())
+
+
 def test_convert_round_trip():
     rng = np.random.default_rng(13)
     r, _ = states(rng)

@@ -7,7 +7,10 @@ the reference VM's.
 
 The reference's own ``schedule_pipeline`` is not the yardstick: its XLA
 compile has crashed under load (ROADMAP §C); its per-step loop is what the
-reference defines the pipeline to equal. At most 8 slots and 6 steps.
+reference defines the pipeline to equal. 8 slots and up to 40 steps, and
+16, 32 and 64 slots (``paper_device(n, 32, 8, subarrays=2)``) for the
+energy sums, whose order is XLA's (``compile.xla_sum``); the workload plan
+(``PipelinePlan``) and its signature against the reference's.
 Tolerance: exact — rows, reads and integer meters equal; float32 meters,
 per-step ``wall_ns``/``energy_nj`` and hidden host time equal as float32
 bit patterns.
@@ -17,15 +20,18 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax.numpy as jnp  # noqa: E402
+
 from repro.core import pim as ref  # noqa: E402
 from repro.core.bitplane import PimVM as RefVM  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import pim as port  # noqa: E402
 from repro_torch.core.bitplane import PimVM as PortVM  # noqa: E402
 from test_torch_pim_schedule import (FLOAT_FIELDS, INT_FIELDS, ROWS,  # noqa: E402,E501
-                                     WORDS, assert_device_equal, configs,
-                                     f32_bits,
-                                     to_port_layout)
+                                     WIDE_BANKS, WORDS, assert_device_equal,
+                                     configs, f32_bits, stream_pool,
+                                     to_port_layout, wide_configs,
+                                     wide_layout)
 
 
 def rand_row(rng, words=WORDS):
@@ -333,6 +339,109 @@ def test_recurring_layout_errors():
         got = fn(dev, arg, verify=True)
         want = fn(dev, arg)
         assert torch.equal(got.state.banks.bits, want.state.banks.bits)
+
+
+# ---------------------------------------------------------------------------
+# Wide devices (16, 32 and 64 slots) and the workload plan
+# ---------------------------------------------------------------------------
+
+def fresh_layout(layout, seed):
+    """The same streams with new HOSTW data (a recurring layout's next
+    step)."""
+    return [p if p is None or not p.payloads else
+            with_fresh_payloads(p, seed + s) for s, p in enumerate(layout)]
+
+
+@pytest.mark.parametrize("n_banks", WIDE_BANKS)
+def test_pipeline_and_workload_match_on_wide_devices(n_banks):
+    """``schedule_pipeline`` (async) and a two-phase ``schedule_workload``
+    (the pipeline's layout, then a sync phase of another layout) at 16, 32
+    and 64 slots against the reference's per-step ``schedule()``: states,
+    reads and per-step wall, energy and hidden host time bit for bit, and
+    the totals against the reference's eager ``jnp.sum``."""
+    cfg_r, cfg_p = wide_configs(n_banks)
+    rng = np.random.default_rng(40 + n_banks)
+    pool = stream_pool(rng)
+    base = wide_layout(cfg_r, rng, pool)
+    steps = [fresh_layout(base, 100 * k) for k in range(3)]
+    other = wide_layout(cfg_r, rng, pool, copies=False)
+    flags = [{"async_host": True}] * 3
+    r_dev, r_res = ref_step_loop(ref.make_device(cfg_r), steps, flags)
+    res = port.schedule_pipeline(
+        port.make_device(cfg_p, device="cpu"),
+        [to_port_layout(cfg_r, lay) for lay in steps], async_host=True)
+    assert_device_equal(r_dev, res.state, f"{cfg_r.n_slots} slots")
+    for k, r in enumerate(r_res):
+        assert_step(r, res.wall_ns[k], res.energy_nj[k], res.reads[k],
+                    f"step {k}")
+        assert f32_bits(r.host_overlap_ns) == f32_bits(
+            res.host_overlap_ns_lazy[k])
+    walls = jnp.asarray([r.wall_ns for r in r_res])
+    assert f32_bits(res.total_wall_ns) == f32_bits(jnp.sum(walls))
+
+    r_dev2, r_res2 = ref_step_loop(r_dev, [other] * 2, [{}] * 2)
+    wl = port.schedule_workload(
+        port.make_device(cfg_p, device="cpu"),
+        [port.Phase(steps=tuple(to_port_layout(cfg_r, lay)
+                                for lay in steps)),
+         port.Phase.repeat(to_port_layout(cfg_r, other), 2,
+                           async_host=False)], async_host=True)
+    assert_device_equal(r_dev2, wl.state, "workload")
+    for pr, rs in zip(wl.phases, (r_res, r_res2)):
+        for k, r in enumerate(rs):
+            assert_step(r, pr.wall_ns[k], pr.energy_nj[k], pr.reads[k], k)
+    energies = [jnp.asarray([r.energy_nj for r in rs])
+                for rs in (r_res, r_res2)]
+    assert f32_bits(wl.total_energy_nj) == f32_bits(
+        np.float32(sum(float(jnp.sum(e)) for e in energies)))
+
+
+def test_pipeline_totals_past_one_window():
+    """40 replayed steps: ``total_wall_ns`` and ``host_overlap_ns`` sum
+    past XLA's 32-wide reduce window, as the reference's eager
+    ``jnp.sum`` does."""
+    cfg_r, cfg_p = configs()
+    layout = pipeline_layout(cfg_r, 3, 0)
+    r_dev, r_res = ref_step_loop(ref.make_device(cfg_r), [layout] * 40,
+                                 [{"async_host": True}] * 40)
+    res = port.schedule_pipeline(port.make_device(cfg_p, device="cpu"),
+                                 to_port_layout(cfg_r, layout), n_steps=40,
+                                 async_host=True)
+    assert_device_equal(r_dev, res.state, "40 steps")
+    walls = jnp.asarray([r.wall_ns for r in r_res])
+    hidden = jnp.asarray([r.host_overlap_ns for r in r_res])
+    assert f32_bits(res.total_wall_ns) == f32_bits(jnp.sum(walls))
+    assert f32_bits(res.host_overlap_ns) == f32_bits(jnp.sum(hidden))
+
+
+def test_workload_plan_identity_and_signature():
+    """Counterpart of the reference's
+    ``test_workload_plan_identity_is_stable_across_warm_calls``: warm
+    ``schedule_workload`` calls with fresh payload data return the SAME
+    ``PipelinePlan``, whose 16-byte signature equals the reference's for
+    the same phases (both hash the repr of the same plan keys)."""
+    import importlib
+    ref_sched = importlib.import_module("repro.core.pim.schedule")
+    port_sched = importlib.import_module("repro_torch.core.pim.schedule")
+    cfg_r, cfg_p = configs()
+    phases = workload_phases(cfg_r)
+
+    def port_phases(k):
+        return [[to_port_layout(cfg_r, fresh_layout(lay, 1000 * k))
+                 for lay in ph] for ph in phases]
+
+    port.schedule_workload(port.make_device(cfg_p, device="cpu"),
+                           port_phases(0))
+    plan = list(port_sched._workload_plan_cache.values())[-1]
+    port.schedule_workload(port.make_device(cfg_p, device="cpu"),
+                           port_phases(1))
+    assert list(port_sched._workload_plan_cache.values())[-1] is plan
+    assert isinstance(plan, port.PipelinePlan)
+    assert plan.n_steps == (3, 2, 2) and plan.async_host == (False,) * 3
+    assert isinstance(plan.signature, bytes) and len(plan.signature) == 16
+    ref.schedule_workload(ref.make_device(cfg_r), phases)
+    ref_plan = list(ref_sched._workload_plan_cache.values())[-1]
+    assert ref_plan.signature == plan.signature
 
 
 # ---------------------------------------------------------------------------

@@ -6,20 +6,27 @@ words=8, subarrays=2)``: 4 banks x 2 subarrays = 8 slots) runs the same
 heterogeneous per-slot programs in both packages — shared streams with
 different payloads, fused shift chains, Ambit XOR, host writes and reads,
 idle slots, and cross-slot COPY drains — over several steps with
-``async_host`` and ``refresh``. Programs cross as pim-trace v3 text.
-Tolerance: exact equality for rows, reads, integer meter fields and the
-copy-drain statistics; float32 meters, ``wall_ns`` and ``energy_nj`` are
-compared as float32 bit patterns.
+``async_host`` and ``refresh``; the wide devices ``paper_device(n, 32, 8,
+subarrays=2)`` with 16, 32 and 64 slots run random layouts, where the
+step's energy sum follows XLA's reduction order (``compile.xla_sum``,
+itself held against ``jnp.sum`` at every length from 1 to 256). Programs
+cross as pim-trace v3 text. Tolerance: exact equality for rows, reads,
+integer meter fields and the copy-drain statistics; float32 meters,
+``wall_ns`` and ``energy_nj`` are compared as float32 bit patterns.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
 from repro.core import pim as ref  # noqa: E402
 from repro.core.pim import ir as ref_ir  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import pim as port  # noqa: E402
+from repro_torch.core.pim.compile import xla_sum  # noqa: E402
 
 ROWS, WORDS = 32, 8
 FLOAT_FIELDS = ("time_ns", "e_act", "e_pre", "e_refresh", "e_burst",
@@ -241,3 +248,86 @@ def test_schedule_refuses_unported_verify_and_bad_layouts():
     assert torch.equal(res.state.banks.bits, dev.banks.bits)
     with pytest.raises(ValueError):
         port.schedule(dev, [None] * 3)
+
+
+# ---------------------------------------------------------------------------
+# Wide devices: the step's sums in XLA's order
+# ---------------------------------------------------------------------------
+
+WIDE_BANKS = (8, 16, 32)   # paper_device(n, subarrays=2): 16, 32, 64 slots
+
+
+def wide_configs(n_banks):
+    return (ref.paper_device(n_banks, ROWS, WORDS, subarrays=2),
+            port.paper_device(n_banks, ROWS, WORDS, subarrays=2))
+
+
+def stream_pool(rng, n=6):
+    return [random_program(rng, int(rng.integers(3, 12))) for _ in range(n)]
+
+
+def wide_layout(cfg, rng, pool, copies=True):
+    """Every slot one of ``pool``'s streams with payloads of its own (about
+    a tenth idle), plus three independent cross-bank COPYs."""
+    flat = []
+    for _ in range(cfg.n_slots):
+        if rng.random() < 0.1:
+            flat.append(None)
+            continue
+        p = pool[int(rng.integers(len(pool)))]
+        flat.append(p.with_payloads([rng.integers(0, 2**32, q.shape,
+                                                  dtype=np.uint32)
+                                     for q in p.payloads]))
+    moves = [((int(rng.integers(cfg.n_banks)), int(rng.integers(2)), j),
+              (int(rng.integers(cfg.n_banks)), int(rng.integers(2)), 20 + j))
+             for j in range(3)] if copies else []
+    return ref.gather_rows(cfg, moves, flat)
+
+
+@pytest.mark.parametrize("seed", range(2))
+@pytest.mark.parametrize("n_banks", WIDE_BANKS)
+def test_schedule_matches_on_wide_devices(n_banks, seed):
+    """16, 32 and 64 slots: a sync step with COPY drains, then an async
+    refreshed one; ``energy_nj`` bit-equal to the reference's jitted
+    ``jnp.sum`` (left to right it is off by an ulp in most seeds)."""
+    cfg_r, cfg_p = wide_configs(n_banks)
+    rng = np.random.default_rng(100 + seed)
+    pool = stream_pool(rng)
+    dev_r = ref.make_device(cfg_r)
+    dev_p = port.make_device(cfg_p, device="cpu")
+    for k, flags in enumerate(({}, {"async_host": True, "refresh": True})):
+        flat = wide_layout(cfg_r, rng, pool, copies=k == 0)
+        r = ref.schedule(dev_r, flat, **flags)
+        p = port.schedule(dev_p, to_port_layout(cfg_r, flat), **flags)
+        assert_result_equal(r, p, f"{cfg_r.n_slots} slots, step {k}")
+        dev_r, dev_p = r.state, p.state
+
+
+def _fused_energy_sum(n):
+    """The reference step's reduce: Σ over slots of the five-field energy
+    after less before, one jitted computation (XLA fuses the adds into the
+    reduce)."""
+    def total(m):
+        return m[0] + m[1] + m[2] + m[3] + m[4]
+    return jax.jit(lambda a, b: jnp.sum(total(a) - total(b)))
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["eager", "fused"])
+@pytest.mark.parametrize("first", range(1, 257, 32))
+def test_xla_sum_is_jnp_sum_at_every_length(first, fused):
+    """``xla_sum`` against ``jnp.sum`` at every length from 1 to 256, as a
+    standalone eager sum and fused into the step's energy expression; wide
+    exponents and both signs, so that another order shows."""
+    rng = np.random.default_rng(first + 1000 * fused)
+    for n in range(first, first + 32):
+        fn = _fused_energy_sum(n) if fused else None
+        for _ in range(6):
+            a = [(rng.choice([-1, 1], n) * np.exp2(rng.uniform(-8, 10, n)))
+                 .astype(np.float32) for _ in range(5)]
+            b = [np.exp2(rng.uniform(-8, 10, n)).astype(np.float32)
+                 for _ in range(5)]
+            d = ((a[0] + a[1] + a[2] + a[3] + a[4])
+                 - (b[0] + b[1] + b[2] + b[3] + b[4])).astype(np.float32)
+            exp = fn(a, b) if fused else jnp.sum(jnp.asarray(d))
+            got = xla_sum(torch.from_numpy(d), fused=fused)
+            assert f32_bits(got) == f32_bits(exp), (n, fused)
