@@ -232,7 +232,25 @@ each, every mismatch fatal:
                params giving the same logits bit for bit;
 21. train parity — full width, 2 layers, 2 x 64 tokens: one training
                pass's loss and every gradient leaf on the card against the
-               port on the CPU, within 2e-2 of max |CPU|.
+               port on the CPU, within 2e-2 of max |CPU|;
+22. train-loop — the training CLI (``repro_torch.launch.train.main``)
+               in-process at full width and depth (Qwen3-4B pim_w4, 36
+               layers, batch 8 x 256 of the synthetic stream, 4 steps, no
+               checkpoints): its lines, each step's ms from the loop's
+               history, the losses, and the launches per step held to
+               phase 20's (another count fails the run); then the loop's
+               resume at full width with 2 layers: 4 uninterrupted steps
+               against 2 steps and a resume to 4, in temporary
+               directories, every trainable leaf, moment and the step
+               counter bit for bit (else the run fails), with the
+               checkpoint's bytes and its save and restore ms;
+23. examples — each ``examples/*_torch.py`` example's ``main`` on the
+               card, the launch counts reset just before it and read just
+               after it: the PIM examples' lines equal to their CPU run's
+               (a row kernel of their path not launched fails the run),
+               ``serve_lm_torch``'s two calls equal, ``train_lm_torch`` at
+               its defaults (200 steps, checkpoints every 50) to its "loss
+               decreased".
 
 Phase 6 also holds the training shapes: pim_matmul w4 shift_add at (2048,
 2560) @ (2560, 9728) and (2048, 9728) @ (9728, 2560), and flash_attn at
@@ -323,6 +341,18 @@ TRAIN_MB_LOSS, TRAIN_MB_PARAMS = 5e-3, 5e-2
 # gradient leaf within 2e-2 of max |CPU|, the bf16 model's bound
 TRAIN_CHECK_LAYERS, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 2, 2, 64
 GRAD_REL = 2e-2
+# Phase 22: the loop's resume at full width with this many layers (a
+# checkpoint is mostly the 389 M-parameter embedding and the float32
+# moments: about 4.4 GB at 2 layers, 13.3 GB at 36), this many steps
+# uninterrupted against half of them and a resume
+RESUME_LAYERS, RESUME_STEPS = 2, 4
+# Phase 23: the row kernels each PIM example's path launches on the card
+# (the quickstart's recorded programs run fused shift segments; the
+# crypto case study's VM routines every row entry)
+EXAMPLE_KERNELS = {
+    "quickstart_torch": ("shift_rows", "meter_fold"),
+    "pim_crypto_torch": ("shift_rows", "bitwise_rows[maj]",
+                         "bitwise_rows[not]", "meter_fold")}
 LM_ARCH = ("qwen3-4b", {"quant": "pim_w4", "quant_mode": "shift_add"})
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 128, 16
 # (M, K, N) of the serving path's FFN linears at decode (M = batch) and at
@@ -2842,6 +2872,287 @@ def flash_lse_row(torch, device, gen, shape):
 
 
 # ---------------------------------------------------------------------------
+# Phases 22-23: training's loop, checkpoints and CLI; the examples
+# ---------------------------------------------------------------------------
+
+def captured(fn):
+    """``fn()`` with its standard output captured: (result, lines)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    return out, buf.getvalue().splitlines()
+
+
+class CkptTimes:
+    """Times each ``checkpoint.save`` and ``checkpoint.restore`` the loop
+    makes (ms on the host clock, the card synchronized on both sides) and
+    the bytes each save wrote, while in the ``with`` block."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.saves, self.restores = [], []
+
+    def __enter__(self):
+        from repro_torch.ckpt import checkpoint
+        self.ckpt = checkpoint
+        self.orig = (checkpoint.save, checkpoint.restore)
+        save, restore = self.orig
+
+        def timed_call(fn, out, *args, **kwargs):
+            self.torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = fn(*args, **kwargs)
+            self.torch.cuda.synchronize()
+            out.append((time.perf_counter() - t) * 1e3)
+            return got
+
+        def save_timed(*args, **kwargs):
+            path = timed_call(save, self.saves, *args, **kwargs)
+            self.saves[-1] = (self.saves[-1], sum(
+                f.stat().st_size for f in Path(path).iterdir()))
+            return path
+
+        checkpoint.save = save_timed
+        checkpoint.restore = lambda *a, **k: timed_call(restore,
+                                                        self.restores, *a,
+                                                        **k)
+        return self
+
+    def __exit__(self, *exc):
+        self.ckpt.save, self.ckpt.restore = self.orig
+        return False
+
+
+def ckpt_arrays(d, step):
+    import numpy as np
+    with np.load(Path(d) / f"step_{step:08d}" / "host0.npz") as z:
+        return {k: z[k] for k in z.files}
+
+
+def as_float(a):
+    """A checkpoint array as float64 values (bf16 from its uint16 bits)."""
+    import numpy as np
+    if a.dtype == np.uint16:
+        a = (a.astype(np.uint32) << 16).view(np.float32)
+    return a.astype(np.float64)
+
+
+def run_train_loop(torch, device):
+    """Phase 22: the training CLI (``repro_torch.launch.train.main``)
+    in-process at full width and depth (Qwen3-4B pim_w4, TRAIN_BATCH x
+    TRAIN_SEQ, TRAIN_STEPS steps, no checkpoints), its launches held to
+    phase 20's per step; then the loop's resume at full width with
+    RESUME_LAYERS layers: RESUME_STEPS uninterrupted steps against half of
+    them, then a resume to all, every trainable leaf, moment and the step
+    counter bit for bit, with the checkpoint's bytes and its save and
+    restore times. Returns the record."""
+    import dataclasses
+    import gc
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_cli
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.schedule import warmup_cosine
+    from repro_torch.train import train_loop, trainable_params
+
+    cfg = lm_config()
+    argv = ["--arch", LM_ARCH[0], "--quant", LM_ARCH[1]["quant"],
+            "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--steps", str(TRAIN_STEPS)]
+    if cfg != dataclasses.replace(get_config(LM_ARCH[0]),
+                                  quant=LM_ARCH[1]["quant"]):
+        raise AssertionError("the CLI's config is not phase 20's")
+    (hist, lines), host_ms, counts = counted(
+        torch, lambda: captured(lambda: train_cli.main(argv)))
+    per_step = add_counts(*[train_expected(cfg)[k]
+                            for k in ("forward", "backward")])
+    exp = {"pim_matmul": per_step["pim_matmul"] * TRAIN_STEPS,
+           "flash_lse": per_step["flash_lse"] * TRAIN_STEPS,
+           "shapes": {k: v * TRAIN_STEPS
+                      for k, v in per_step["shapes"].items()}}
+    check_train_counts("train-loop cli", counts, exp)
+    done = [line for line in lines if line.startswith("done: ")]
+    if len(done) != 1 or len(hist["loss"]) != TRAIN_STEPS \
+            or hist["skipped"] or not all(map(math.isfinite, hist["loss"])):
+        raise AssertionError(f"train-loop cli: {lines}, {hist}")
+    for line in lines:
+        say(f"train-loop cli: {line}")
+    step_ms = [t * 1e3 for t in hist["step_time"]]
+    per = train_counts(counts)
+    per = {"pim_matmul": per["pim_matmul"] // TRAIN_STEPS,
+           "flash_lse": per["flash_lse"] // TRAIN_STEPS,
+           "shapes": {k: v // TRAIN_STEPS for k, v in per["shapes"].items()}}
+    rec = {"argv": argv, "step_ms": step_ms, "loss": hist["loss"],
+           "skipped": hist["skipped"], "stragglers": hist["stragglers"],
+           "host_ms": host_ms, "launches_per_step": per, "done": done[0]}
+    say(f"train-loop cli {cfg_name(cfg)} ({cfg.n_layers} layers, "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens of the synthetic stream): "
+        "steps " + ", ".join(f"{t:.1f}" for t in step_ms) + " ms "
+        "(history['step_time'], host clock around each step and its "
+        f"metrics' read), losses " + ", ".join(
+            f"{v:.4f}" for v in hist["loss"]) + f", skipped "
+        f"{hist['skipped']}; {host_ms / 1e3:.1f} s in all; launches per "
+        "step " + json.dumps(per) + " (phase 20's, held)")
+    del hist
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the resume check, at full width with RESUME_LAYERS layers
+    rcfg = dataclasses.replace(cfg, n_layers=RESUME_LAYERS)
+    sched = functools.partial(warmup_cosine, **TRAIN_SCHEDULE)
+    kw = dict(batch=TRAIN_BATCH, seq=TRAIN_SEQ, ckpt_every=10**6,
+              opt_cfg=AdamWConfig(lr=TRAIN_LR), schedule_fn=sched,
+              log=lambda *a: None, device=device)
+    half = RESUME_STEPS // 2
+    with tempfile.TemporaryDirectory() as d1, \
+            tempfile.TemporaryDirectory() as d2, CkptTimes(torch) as ct:
+        m1, h1 = train_loop(rcfg, steps=RESUME_STEPS, ckpt_dir=d1, **kw)
+        _, h2a = train_loop(rcfg, steps=half, ckpt_dir=d2, **kw)
+        gc.collect()
+        m2, h2 = train_loop(rcfg, steps=RESUME_STEPS, ckpt_dir=d2, **kw)
+        same_params = all(torch.equal(a.detach(), b.detach()) for a, b in
+                          zip(trainable_params(m1), trainable_params(m2)))
+        del m1, m2
+        gc.collect()
+        a, b = ckpt_arrays(d1, RESUME_STEPS), ckpt_arrays(d2, RESUME_STEPS)
+        worst, worst_key = 0.0, None
+        equal = sorted(a) == sorted(b)
+        for k in a:
+            if not (k in b and a[k].dtype == b[k].dtype
+                    and a[k].shape == b[k].shape):
+                equal = False
+                continue
+            if not np.array_equal(a[k], b[k]):
+                equal = False
+                diff = float(np.abs(as_float(a[k]) - as_float(b[k])).max())
+                if diff > worst:
+                    worst, worst_key = diff, k
+        n_keys = len(a)
+        del a, b
+    losses_equal = h1["loss"][half:] == h2["loss"]
+    (save_ms, nbytes), restore_ms = ct.saves[1], ct.restores[0]
+    rrec = {"layers": RESUME_LAYERS, "steps": RESUME_STEPS, "resume_at": half,
+            "ckpt_bytes": nbytes, "save_ms": [s for s, _ in ct.saves],
+            "restore_ms": ct.restores, "keys": n_keys,
+            "worst_abs_diff": worst, "worst_key": worst_key,
+            "bit_equal": equal and same_params, "losses_equal": losses_equal,
+            "losses": h1["loss"], "resumed_losses": h2a["loss"] + h2["loss"]}
+    rec["resume"] = rrec
+    say(f"train-loop resume {cfg_name(rcfg)} at full width, "
+        f"{RESUME_LAYERS} layers, {TRAIN_BATCH} x {TRAIN_SEQ} tokens: "
+        f"{RESUME_STEPS} steps against {half}, then a resume to "
+        f"{RESUME_STEPS}: checkpoint {nbytes} bytes as written ({n_keys} "
+        f"arrays: trainable leaves, float32 moments, step), save "
+        + " / ".join(f"{s:.0f}" for s in rrec["save_ms"]) + " ms, restore "
+        f"{restore_ms:.0f} ms (host clock, the card synchronized); every "
+        f"array bit for bit: {rrec['bit_equal']} (worst |diff| {worst:.3e}"
+        + (f" at {worst_key}" if worst_key else "") + "), losses equal: "
+        f"{losses_equal} ({', '.join(f'{v:.4f}' for v in h1['loss'])})")
+    if not (rrec["bit_equal"] and losses_equal and len(ct.restores) == 1):
+        raise AssertionError(f"train-loop resume: {rrec}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def row_launches(torch):
+    """The row kernels' counts as the kernels lines name them."""
+    from repro_torch.kernels.rowops import ops
+    torch.cuda.synchronize()
+    return {**ops.LAUNCHES,
+            **{f"bitwise_rows[{k}]": v for k, v in ops.ROWS_BY_OP.items()},
+            **{f"shift_rows[{k}]": v for k, v in ops.SHIFT_ROUTES.items()}}
+
+
+def run_examples(torch):
+    """Phase 23: each ``examples/*_torch.py`` example's ``main`` on the
+    card (its default device), the launch counts reset just before it and
+    read just after it; the PIM examples' lines against their CPU run's,
+    line for line."""
+    import importlib.util
+    import tempfile
+
+    from repro_torch.kernels.flash_attn import ops as fa
+    from repro_torch.kernels.pim_matmul import ops as pm
+    from repro_torch.kernels.rowops import ops
+
+    def load(name):
+        spec = importlib.util.spec_from_file_location(
+            f"example_{name}", ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    def run(name, argv):
+        mod = load(name)
+        for reset in (ops.reset_launches, pm.reset_launches,
+                      fa.reset_launches):
+            reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out, lines = captured(lambda: mod.main(argv))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        launches = {**{k: v for k, v in row_launches(torch).items() if v},
+                    "pim_matmul": pm.LAUNCHES["pim_matmul"],
+                    "flash_attn": fa.LAUNCHES["flash_attn"]}
+        return out, lines, ms, launches
+
+    rec = {}
+    for name in ("quickstart_torch", "pim_crypto_torch"):
+        _, card_lines, card_ms, launches = run(name, [])
+        _, cpu_lines, cpu_ms, _ = run(name, ["--device", "cpu"])
+        for line in card_lines:
+            if line:
+                say(f"examples {name}: {line}")
+        equal = card_lines == cpu_lines
+        rec[name] = {"lines": card_lines, "ms": card_ms, "cpu_ms": cpu_ms,
+                     "equal_to_cpu": equal, "launches": launches}
+        say(f"examples {name}: {len(card_lines)} lines, card == CPU line "
+            f"for line: {equal}; {card_ms:.0f} ms on the card, {cpu_ms:.0f}"
+            f" ms on the CPU; launches " + json.dumps(launches))
+        if not equal:
+            raise AssertionError(f"{name}: card {card_lines}, CPU "
+                                 f"{cpu_lines}")
+        idle = [k for k in EXAMPLE_KERNELS[name] if not launches.get(k)]
+        if idle:
+            raise AssertionError(f"{name}: kernels never launched: {idle}")
+
+    (out, out2, out_q), lines, ms, launches = run("serve_lm_torch", [])
+    for line in lines:
+        say(f"examples serve_lm_torch: {line}")
+    rec["serve_lm_torch"] = {"lines": lines, "ms": ms, "launches": launches}
+    say(f"examples serve_lm_torch: two calls equal: "
+        f"{bool(torch.equal(out, out2))}; {ms:.0f} ms; launches "
+        + json.dumps(launches))
+    if not (torch.equal(out, out2) and out.is_cuda and out_q.is_cuda
+            and launches["pim_matmul"] and launches["flash_attn"]):
+        raise AssertionError(f"serve_lm_torch: {launches}")
+
+    with tempfile.TemporaryDirectory() as d:
+        hist, lines, ms, launches = run("train_lm_torch", ["--ckpt-dir", d])
+        kept = sorted(p.name for p in Path(d).iterdir())
+    for line in lines:
+        if line and not line.startswith("checkpoints in "):
+            say(f"examples train_lm_torch: {line}")
+    rec["train_lm_torch"] = {"lines": lines, "ms": ms, "launches": launches,
+                             "step_ms": [t * 1e3 for t in hist["step_time"]],
+                             "checkpoints": kept}
+    say(f"examples train_lm_torch: {len(hist['loss'])} steps in "
+        f"{ms / 1e3:.1f} s, checkpoints kept {kept}; launches "
+        + json.dumps(launches))
+    if lines[-1] != "OK: loss decreased" or hist["skipped"] \
+            or not launches["flash_attn"]:
+        raise AssertionError(f"train_lm_torch: {lines[-3:]}, {launches}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # Phase 9: ripple_add against its plain version; fused against composed
 # ---------------------------------------------------------------------------
 
@@ -4093,6 +4404,15 @@ def main() -> int:
     # 21. one training pass's loss and gradients, card against CPU, at
     # full width with 2 layers
     record["train_parity"] = run_train_parity(torch, device)
+
+    # 22. training's CLI at full width and depth, the launch counts reset
+    # just before it and read just after it; the loop's resume, bit for
+    # bit, at full width with RESUME_LAYERS layers
+    record["train_loop"] = run_train_loop(torch, device)
+
+    # 23. the examples on the card, the launch counts reset just
+    # before each and read just after it
+    record["examples"] = run_examples(torch)
 
     # the row entries at the full device's 64 slots, in place (as most of
     # the main path's segments run); every shape is in chip_smoke.json

@@ -13,7 +13,10 @@ schedule on a 64-slot device, card against CPU bit for bit, and
 ``xla_sum`` at every length to 256; and training (``-k train``): the
 flash forward's log-sum-exp on every route, one pass's gradients card
 against CPU at the smoke size and at Qwen3-4B's full width with 1 layer, a
-training step card against CPU, serving unchanged after training.
+training step card against CPU, serving unchanged after training; and
+training's loop (``-k train_loop``): a resumed run bit for bit against an
+uninterrupted one, checkpoints of CUDA bf16 and int8 tensors, a restore
+under a captured ``greedy_generate`` graph.
 
 Needs a CUDA card and ``nvcc`` (the kernels build at first use); every test
 here skips elsewhere. It imports nothing of JAX, so on the card machine it
@@ -1763,3 +1766,105 @@ def test_train_serving_unchanged_and_head_refreshed(card):
     assert torch.equal(model.head_f32, model.embed.detach().float())
     after = serve_counts()
     assert before == after and not any(after[2].values())
+
+
+# ---------------------------------------------------------------------------
+# Training's loop and checkpoints on the card (``-k train_loop``)
+# ---------------------------------------------------------------------------
+
+import os  # noqa: E402
+
+from repro_torch.ckpt import checkpoint  # noqa: E402
+from repro_torch.models.transformer import param_tree  # noqa: E402
+from repro_torch.train import train_loop  # noqa: E402
+
+
+def _ckpt_arrays(d, step):
+    with np.load(os.path.join(d, f"step_{step:08d}", "host0.npz")) as z:
+        return {k: z[k] for k in z.files}
+
+
+@pytest.mark.parametrize("overrides", [{"quant": "pim_w4"}, {}],
+                         ids=["pim_w4", "bf16"])
+def test_train_loop_resume_on_the_card(card, overrides, tmp_path):
+    """As chip_smoke.py's phase 22 at the smoke size: 4 uninterrupted steps
+    against 2 steps, then a resume to 4, every trainable leaf, moment and
+    the step counter bit for bit (the port's kernels and the step sum in a
+    fixed order; no atomics)."""
+    cfg = get_config("qwen3-4b", smoke=True, **overrides)
+    kw = dict(batch=4, seq=32, log=lambda *a: None)
+    d1, d2 = str(tmp_path / "once"), str(tmp_path / "resumed")
+    m1, h1 = train_loop(cfg, steps=4, ckpt_dir=d1, **kw)
+    train_loop(cfg, steps=2, ckpt_dir=d2, **kw)
+    m2, h2 = train_loop(cfg, steps=4, ckpt_dir=d2, **kw)
+    assert m1.device.type == "cuda" and len(h2["loss"]) == 2
+    assert h1["loss"][2:] == h2["loss"]
+    a, b = _ckpt_arrays(d1, 4), _ckpt_arrays(d2, 4)
+    assert sorted(a) == sorted(b)
+    for k in a:
+        assert np.array_equal(a[k], b[k]), k
+    for x, y in zip(trainable_params(m1), trainable_params(m2)):
+        assert torch.equal(x.detach(), y.detach())
+
+
+def test_train_loop_checkpoint_of_cuda_tensors(card, tmp_path):
+    """CUDA bf16 (NaN, inf, -0, subnormals among them) and int8 tensors
+    saved and restored into CUDA tensors, and into CPU ones, bit for
+    bit."""
+    d = str(tmp_path)
+    bits = torch.as_tensor(np.random.default_rng(0).integers(
+        -2**15, 2**15, (64, 33)), dtype=torch.int16)
+    bits[0, :6] = torch.tensor([0x7FC0, 0x7F80, -128, 0, -32768, 1],
+                               dtype=torch.int16)
+    bf = bits.view(torch.bfloat16).to(card)
+    codes = torch.randint(-128, 128, (3, 17, 5), dtype=torch.int8,
+                          device=card)
+    tree = {"bf": bf, "layers": checkpoint.Stacked([bf, bf * 2]),
+            "codes": codes, "step": torch.tensor(9, dtype=torch.int32,
+                                                 device=card)}
+    checkpoint.save(d, 1, tree)
+    for where in (card, torch.device("cpu")):
+        dst = {"bf": torch.zeros_like(bf, device=where),
+               "layers": checkpoint.Stacked([torch.zeros_like(bf,
+                                                               device=where)
+                                             for _ in range(2)]),
+               "codes": torch.zeros_like(codes, device=where),
+               "step": torch.zeros((), dtype=torch.int32, device=where)}
+        checkpoint.restore(d, 1, dst)
+        assert torch.equal(dst["bf"].view(torch.int16).cpu(), bits)
+        for got, want in zip(dst["layers"].tensors, (bf, bf * 2)):
+            assert torch.equal(got.view(torch.int16).cpu(),
+                               want.view(torch.int16).cpu())
+        assert torch.equal(dst["codes"].cpu(), codes.cpu())
+        assert int(dst["step"]) == 9 and dst["bf"].device.type == where.type
+
+
+def test_train_loop_restore_keeps_the_captured_graph(card, tmp_path):
+    """``restore`` copies into the model in place: a ``greedy_generate``
+    graph captured before it replays (no new capture) with the restored
+    weights, and gives the tokens of a model built with them."""
+    cfg = get_config("qwen3-4b", smoke=True)
+    donor = init_params(cfg, 11)
+    checkpoint.save(str(tmp_path), 1, checkpoint.train_state(
+        donor, init_train_state(donor)))
+    model = init_params(cfg, 12)
+    prompt = {"tokens": torch.as_tensor(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (2, 16)), dtype=torch.int32, device=card)}
+    before = greedy_generate(cfg, model, prompt, max_new_tokens=6)
+    (graph,) = model.generate_graphs.values()
+    ptrs = [t.data_ptr() for t in trainable_params(model)]
+    checkpoint.restore(str(tmp_path), 1, checkpoint.train_state(
+        model, init_train_state(model)), model=model)
+    engine.DECODE_STATS["dispatches"] = 0
+    after = greedy_generate(cfg, model, prompt, max_new_tokens=6)
+    assert engine.DECODE_STATS["dispatches"] == 1
+    assert list(model.generate_graphs.values()) == [graph]
+    assert [t.data_ptr() for t in trainable_params(model)] == ptrs
+    assert torch.equal(model.head_f32, model.embed.detach().float())
+    want = greedy_generate(cfg, donor, prompt, max_new_tokens=6)
+    assert torch.equal(after, want) and not torch.equal(before, after)
+    for (_, a), (_, b) in zip(tree_leaves(param_tree(model)),
+                              tree_leaves(param_tree(donor))):
+        for x, y in zip(*((v if isinstance(v, list) else [v])
+                          for v in (a, b))):
+            assert torch.equal(x.detach(), y.detach())

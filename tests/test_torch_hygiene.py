@@ -1,6 +1,7 @@
 """Import hygiene and device rules of the PyTorch port.
 
-The port imports neither JAX nor the reference package, runs on the CUDA
+The port imports neither JAX, the reference package nor ``ml_dtypes``
+(its checkpoints carry bf16 as uint16 bits), runs on the CUDA
 card unless the caller asks for the CPU, and never sends a CUDA tensor to a
 plain version.
 """
@@ -17,7 +18,7 @@ ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 PORT = os.path.join(ROOT, "src", "repro_torch")
 FORBIDDEN = re.compile(
     r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|$)|"
-    r"from\s+repro(\.|\s))", re.M)
+    r"from\s+repro(\.|\s)|import\s+ml_dtypes\b|from\s+ml_dtypes\b)", re.M)
 
 
 def test_port_imports_neither_jax_nor_the_reference():
@@ -33,9 +34,13 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.launch.serve, repro_torch.models.flash, "
             "repro_torch.optim, repro_torch.optim.adamw, "
             "repro_torch.optim.schedule, repro_torch.optim.grad_compress, "
-            "repro_torch.train, repro_torch.train.step\n"
-            "bad = [m for m in sys.modules if m == 'jax' or m == 'repro' "
-            "or m.startswith(('jax.', 'repro.'))]\n"
+            "repro_torch.train, repro_torch.train.step, "
+            "repro_torch.data, repro_torch.data.pipeline, "
+            "repro_torch.data.synthetic, repro_torch.ckpt, "
+            "repro_torch.ckpt.checkpoint, repro_torch.train.loop, "
+            "repro_torch.train.fault, repro_torch.launch.train\n"
+            "bad = [m for m in sys.modules if m in ('jax', 'repro', "
+            "'ml_dtypes') or m.startswith(('jax.', 'repro.', 'ml_dtypes.'))]\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
@@ -47,6 +52,9 @@ def test_no_source_file_imports_jax_or_the_reference():
     files = [os.path.join(d, f) for d, _, fs in os.walk(PORT) for f in fs
              if f.endswith(".py")]
     files.append(os.path.join(ROOT, "chip_smoke.py"))
+    examples = os.path.join(ROOT, "examples")
+    files.extend(os.path.join(examples, f) for f in os.listdir(examples)
+                 if f.endswith("_torch.py"))
     assert len(files) > 10
     for path in files:
         with open(path) as f:

@@ -53,7 +53,7 @@ from repro_torch.models.attention import chunked_attention  # noqa: E402
 from repro_torch.optim import adamw, grad_compress  # noqa: E402
 from repro_torch.optim.schedule import constant, warmup_cosine  # noqa: E402
 from repro_torch.train import (init_train_state, make_train_step,  # noqa: E402,E501
-                               trainable_params)
+                               train_loop, trainable_params)
 
 from util import make_inputs  # noqa: E402
 
@@ -392,18 +392,15 @@ def test_train_step_matches_reference():
 
 
 def test_loss_decreases():
-    """Counterpart of the reference's ``test_loss_decreases`` (20 steps,
-    batch 8, 64 tokens, lr 1e-3), the port's step in a plain loop over
-    four seeded batches (the loop, ``train_loop``, is not ported yet)."""
-    _, pcfg, _, model = fresh(0)
-    step = make_train_step(pcfg, adamw.AdamWConfig(lr=1e-3),
-                           lambda s: constant(s))
-    opt = init_train_state(model)
-    batches = [np_batch(make_inputs(pcfg, 8, 64, seed=s)) for s in range(4)]
-    hist = [step(model, opt, batches[i % 4]) for i in range(20)]
-    losses = [float(m["loss"]) for m in hist]
-    assert np.mean(losses[-5:]) < np.mean(losses[:5])
-    assert sum(float(m["skipped"]) for m in hist) == 0
+    """Counterpart of the reference's ``test_loss_decreases``: 20 steps of
+    ``train_loop`` (batch 8, 64 tokens of the synthetic stream, lr 1e-3)
+    on the CPU."""
+    pcfg = pconfigs.get_config(CFG_ARCH, smoke=True)
+    _, hist = train_loop(pcfg, steps=20, batch=8, seq=64,
+                         opt_cfg=adamw.AdamWConfig(lr=1e-3),
+                         log=lambda *a: None, device=CPU)
+    assert np.mean(hist["loss"][-5:]) < np.mean(hist["loss"][:5])
+    assert hist["skipped"] == 0
 
 
 def test_nan_guard_skips_poisoned_step():
