@@ -250,7 +250,20 @@ each, every mismatch fatal:
                (a row kernel of their path not launched fails the run),
                ``serve_lm_torch``'s two calls equal, ``train_lm_torch`` at
                its defaults (200 steps, checkpoints every 50) to its "loss
-               decreased".
+               decreased";
+24. sharded  — the sharded path, every process group in processes of its
+               own: ``psum_compressed`` over NCCL (a rank per card) and
+               over gloo (4 ranks, on the card's tensors where gloo takes
+               them), each rank's total and residual bit for bit against
+               numpy's computation of the reference's formula, µs per
+               call; phase 22's checkpoint restored onto
+               ``make_host_mesh()`` with ``param_shardings``' placements,
+               every array gathered bit for bit; the dry-run's production
+               cells (qwen3-4b train_4k, prefill_32k, decode_32k,
+               deepseek-v2-lite-16b train_4k on the (16, 16) mesh of a
+               fake process group), each ``status ok``, and phase 20's
+               cell on a 1 x 1 mesh, its roofline terms beside phase 20's
+               measured step (reported, not held).
 
 Phase 6 also holds the training shapes: pim_matmul w4 shift_add at (2048,
 2560) @ (2560, 9728) and (2048, 9728) @ (9728, 2560), and flash_attn at
@@ -346,6 +359,17 @@ GRAD_REL = 2e-2
 # moments: about 4.4 GB at 2 layers, 13.3 GB at 36), this many steps
 # uninterrupted against half of them and a resume
 RESUME_LAYERS, RESUME_STEPS = 2, 4
+# Phase 24: the sharded path. psum_compressed on one Qwen3-4B FFN
+# gradient (w1's, d_model x d_ff) per rank, over NCCL with a rank per card
+# and over gloo with this many ranks; the dry-run's production cells (the
+# reference's shapes on its (16, 16) mesh), then Qwen3-4B pim_w4 at phase
+# 20's batch on a 1 x 1 mesh beside phase 20's measured step
+PSUM_SHAPE, PSUM_GLOO_RANKS, PSUM_REPS = (2560, 9728), 4, 20
+DRYRUN_CELLS = (("qwen3-4b", "train_4k"), ("qwen3-4b", "prefill_32k"),
+                ("qwen3-4b", "decode_32k"),
+                ("deepseek-v2-lite-16b", "train_4k"))
+SHARDED_TIMEOUT_S = 300
+
 # Phase 23: the row kernels each PIM example's path launches on the card
 # (the quickstart's recorded programs run fused shift segments; the
 # crypto case study's VM routines every row entry)
@@ -2939,7 +2963,7 @@ def as_float(a):
     return a.astype(np.float64)
 
 
-def run_train_loop(torch, device):
+def run_train_loop(torch, device, keep: str):
     """Phase 22: the training CLI (``repro_torch.launch.train.main``)
     in-process at full width and depth (Qwen3-4B pim_w4, TRAIN_BATCH x
     TRAIN_SEQ, TRAIN_STEPS steps, no checkpoints), its launches held to
@@ -2947,7 +2971,8 @@ def run_train_loop(torch, device):
     RESUME_LAYERS layers: RESUME_STEPS uninterrupted steps against half of
     them, then a resume to all, every trainable leaf, moment and the step
     counter bit for bit, with the checkpoint's bytes and its save and
-    restore times. Returns the record."""
+    restore times; the uninterrupted run's checkpoints stay in ``keep``
+    (phase 24 restores them). Returns the record."""
     import dataclasses
     import gc
     import tempfile
@@ -3009,8 +3034,8 @@ def run_train_loop(torch, device):
               opt_cfg=AdamWConfig(lr=TRAIN_LR), schedule_fn=sched,
               log=lambda *a: None, device=device)
     half = RESUME_STEPS // 2
-    with tempfile.TemporaryDirectory() as d1, \
-            tempfile.TemporaryDirectory() as d2, CkptTimes(torch) as ct:
+    d1 = keep
+    with tempfile.TemporaryDirectory() as d2, CkptTimes(torch) as ct:
         m1, h1 = train_loop(rcfg, steps=RESUME_STEPS, ckpt_dir=d1, **kw)
         _, h2a = train_loop(rcfg, steps=half, ckpt_dir=d2, **kw)
         gc.collect()
@@ -4014,6 +4039,361 @@ def phase_tables(torch, device) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Phase 24: the sharded path, each process group in a process of its own
+# ---------------------------------------------------------------------------
+
+_PSUM_WORKER = r"""
+import json, os, re, sys, time
+import numpy as np, torch, torch.distributed as dist
+backend, rank, world, port, out, dev = sys.argv[1:7]
+rank, world = int(rank), int(world)
+shape, reps, go = json.loads(sys.argv[7]), int(sys.argv[8]), sys.argv[9]
+if torch.cuda.is_available():
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                        rank=rank, world_size=world)
+from repro_torch.optim.grad_compress import psum_compressed
+
+f32 = np.float32
+gs = [np.random.default_rng(1000 + r).standard_normal(shape, dtype=f32)
+      * f32(1.0 + r) for r in range(world)]
+rs = [np.random.default_rng(2000 + r).standard_normal(shape, dtype=f32)
+      * f32(0.01) for r in range(world)]
+
+
+def formula(residual):
+    # the reference's arithmetic in numpy: (total, this rank's residual)
+    scales, codes, res = [], [], None
+    for r in range(world):
+        gf = gs[r] + rs[r] if residual else gs[r]
+        sc = np.maximum(np.abs(gf).max(), f32(1e-12)) / f32(127.0)
+        # int8 codes, as the reference's: a code of -0.0 is 0
+        c = np.clip(np.round(gf / sc), -127, 127).astype(np.int8).astype(f32)
+        if r == rank:
+            res = gf - c * sc
+        scales.append(sc)
+        codes.append(c)
+    smax = max(scales)
+    total = sum(np.round(c * (sc / smax)).astype(np.int32)
+                for c, sc in zip(codes, scales))
+    return total.astype(f32) * smax, res
+
+
+def run(device):
+    rec = {"device": device}
+    for case in ("none", "residual"):
+        g = torch.from_numpy(gs[rank]).to(device)
+        r = torch.from_numpy(rs[rank]).to(device) if case == "residual" \
+            else None
+        total, new_r = psum_compressed(g, None, r)
+        want_t, want_r = formula(case == "residual")
+        got_t, got_r = total.cpu().numpy(), new_r.cpu().numpy()
+        rec[case] = bool(np.array_equal(got_t.view(np.int32),
+                                        want_t.view(np.int32))
+                         and np.array_equal(got_r.view(np.int32),
+                                            want_r.view(np.int32)))
+    g = torch.from_numpy(gs[rank]).to(device)
+    while not os.path.exists(go):       # timed alone: the parent says when
+        time.sleep(0.05)
+    times = []
+    for i in range(reps + 3):
+        dist.barrier()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        psum_compressed(g)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e6)
+    rec["us"] = sorted(times[3:])[len(times[3:]) // 2]
+    return rec
+
+
+# gloo's refusals of CUDA tensors (a build without CUDA, or no CUDA
+# backend on the group); any other error is the port's and is raised
+REFUSAL = re.compile(r"No backend type associated with device type cuda"
+                     r"|unsupported (gloo )?device|hasCUDA\(\)")
+try:
+    rec = run(dev)
+except RuntimeError as e:
+    if dev != "cuda" or backend != "gloo" or not REFUSAL.search(str(e)):
+        raise
+    rec = run("cpu")
+    rec["refused"] = str(e).splitlines()[0][:200]
+with open(out, "w") as f:
+    json.dump(rec, f)
+dist.destroy_process_group()
+"""
+
+_RESTORE_WORKER = r"""
+import json, os, sys, time
+import numpy as np, torch
+from repro_torch import configs
+from repro_torch.ckpt import checkpoint
+from repro_torch.ckpt.checkpoint import train_state
+from repro_torch.launch import sharding
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import init_params
+from repro_torch.train.step import opt_layout, trainable_params
+d, step, out, go = sys.argv[1], int(sys.argv[2]), sys.argv[3], sys.argv[6]
+cfg = configs.get_config(sys.argv[4], **json.loads(sys.argv[5]))
+mesh = make_host_mesh()
+model = init_params(cfg, 11, device="cuda")
+p_shard, _ = sharding.param_shardings(cfg, mesh, model)
+sharding.distribute_model(model, mesh, p_shard)
+layout = opt_layout(model)
+o_shard = sharding.opt_shardings(mesh, layout, p_shard)
+ps = trainable_params(model)
+skeleton = train_state(model, {"mu": ps, "nu": ps, "step": 0})
+zero = lambda tree: {k: zero(v) if isinstance(v, dict) else 0
+                     for k, v in tree.items()}
+skeleton["opt"] = {"mu": zero(layout["mu"]), "nu": zero(layout["nu"]),
+                   "step": 0}
+while not os.path.exists(go):           # timed alone: the parent says when
+    time.sleep(0.05)
+torch.cuda.synchronize()
+t = time.perf_counter()
+tree, manifest = checkpoint.restore(d, step, skeleton,
+                                    shardings={"opt": o_shard})
+torch.cuda.synchronize()
+ms = (time.perf_counter() - t) * 1e3
+with np.load(f"{d}/step_{step:08d}/host0.npz") as z:
+    stored = {k.replace("__", "/"): z[k] for k in z.files}
+equal, dtensors = 0, 0
+for k, v in checkpoint._flatten(tree).items():
+    ts = v.tensors if isinstance(v, checkpoint.Stacked) else [v]
+    dtensors += sum(hasattr(t, "full_tensor") for t in ts)
+    full = [t.full_tensor() if hasattr(t, "full_tensor") else t for t in ts]
+    got = torch.stack(full) if isinstance(v, checkpoint.Stacked) else full[0]
+    got = got.detach().cpu()
+    if got.dtype == torch.bfloat16:
+        got = got.view(torch.int16).numpy().view(np.uint16)
+    else:
+        got = got.numpy()
+    equal += int(got.dtype == stored[k].dtype
+                 and np.array_equal(got, stored[k]))
+with open(out, "w") as f:
+    json.dump({"ms": ms, "arrays": len(stored), "equal": equal,
+               "dtensors": dtensors, "mesh": list(mesh.shape),
+               "layers": cfg.n_layers}, f)
+"""
+
+_DRYRUN_WORKER = r"""
+import dataclasses, json, sys
+from repro_torch.configs import SHAPES
+from repro_torch.launch import dryrun
+arch, shape_name, mesh, over, out = sys.argv[1:6]
+batch, seq = json.loads(sys.argv[6])
+shape = dataclasses.replace(SHAPES[shape_name], seq_len=seq,
+                            global_batch=batch)
+rec = dryrun.run_cell(arch, shape_name, mesh, json.loads(over), tag="chip",
+                      out_dir=out, shape=shape)
+print(rec["status"])
+"""
+
+
+def _spawn(argv, env_extra=None, log: Path | None = None):
+    """A process of the repository's ``src``; its output to ``log`` (for
+    one that runs beside the whole script), else to pipes."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **(env_extra or {}))
+    if log is not None:
+        with open(log, "w") as f:
+            p = subprocess.Popen(argv, cwd=str(ROOT), env=env, stdout=f,
+                                 stderr=subprocess.STDOUT, text=True)
+        p.log = log
+        return p
+    return subprocess.Popen(argv, cwd=str(ROOT), env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def _wait(procs, what: str):
+    """Wait for every process; one that fails or outlives
+    SHARDED_TIMEOUT_S fails the run, the others killed."""
+    deadline = time.perf_counter() + SHARDED_TIMEOUT_S
+    try:
+        for p in procs:
+            _, err = p.communicate(
+                timeout=max(1.0, deadline - time.perf_counter()))
+            if p.returncode != 0:
+                if err is None:
+                    err = Path(p.log).read_text()
+                raise AssertionError(f"{what}: a process failed: "
+                                     f"{err[-2000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _psum(backend: str, world: int, device: str, out: Path):
+    """psum_compressed's ranks started: (processes, their result files,
+    the file whose creation starts their timed calls)."""
+    port = _free_port()
+    files = [out / f"psum_{backend}_{r}.json" for r in range(world)]
+    go = out / f"go_psum_{backend}"
+    return [_spawn([sys.executable, "-c", _PSUM_WORKER, backend, str(r),
+                    str(world), str(port), str(f), device,
+                    json.dumps(PSUM_SHAPE), str(PSUM_REPS), str(go)],
+                   {"OMP_NUM_THREADS": "1"})
+            for r, f in enumerate(files)], files, go
+
+
+def start_dryrun() -> list:
+    """Phase 24's dry-run cells, started at the beginning of the run (fake
+    process groups on the host's CPU, beside the kernels' build; they need
+    nothing of the card): the production cells and phase 20's cell on a
+    1 x 1 mesh, a process each, stopped at exit if still running."""
+    import atexit
+    out = ROOT / "chiprun_out" / "dryrun_torch"
+    out.mkdir(parents=True, exist_ok=True)
+    for stale in out.glob("*"):
+        stale.unlink()
+    env = {"OMP_NUM_THREADS": "1"}
+    dry = [_spawn([sys.executable, "-m", "repro_torch.launch.dryrun",
+                   "--arch", arch, "--shape", shape, "--mesh", "single",
+                   "--tag", "chip", "--out", str(out)], env,
+                  out / f"{arch}__{shape}.log")
+           for arch, shape in DRYRUN_CELLS]
+    train = {"quant": LM_ARCH[1]["quant"],
+             "quant_mode": LM_ARCH[1]["quant_mode"]}
+    dry.append(_spawn([sys.executable, "-c", _DRYRUN_WORKER, LM_ARCH[0],
+                       "train_4k", "1x1", json.dumps(train), str(out),
+                       json.dumps([TRAIN_BATCH, TRAIN_SEQ])], env,
+                      out / f"{LM_ARCH[0]}__train_4k__1x1.log"))
+
+    def stop():
+        for p in dry:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    atexit.register(stop)
+    return dry
+
+
+def run_sharded(torch, card: str, ckpt_dir: str, train_step_ms: float,
+                dry: list):
+    """Phase 24: the sharded path, every process group in processes of its
+    own (this process never holds one): the dry-run's cells (``dry``,
+    started by ``start_dryrun``), read here; psum_compressed over NCCL
+    with one rank per card and over gloo with PSUM_GLOO_RANKS ranks on the
+    card's tensors, each rank's result and residual bit for bit against
+    numpy's computation of the reference's formula; phase 22's checkpoint
+    (RESUME_LAYERS layers) restored onto ``make_host_mesh()`` with
+    ``param_shardings``' placements and gathered bit for bit. Their
+    processes start together; the timed parts wait for the dry-run and
+    then run one after the other (a go file each). Returns the record."""
+    from repro_torch.launch import roofline
+    out = ROOT / "chiprun_out" / "dryrun_torch"
+    rec = {"card": card}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rcfg = {"quant": LM_ARCH[1]["quant"],
+            "quant_mode": LM_ARCH[1]["quant_mode"],
+            "n_layers": RESUME_LAYERS}
+    rfile, rgo = out / "restore.json", out / "go_restore"
+    n = torch.cuda.device_count()
+    psums = {backend: _psum(backend, world, "cuda", out)
+             for backend, world in (("nccl", n),
+                                    ("gloo", PSUM_GLOO_RANKS))}
+    restore = [_spawn([sys.executable, "-c", _RESTORE_WORKER, ckpt_dir,
+                       str(RESUME_STEPS), str(rfile), LM_ARCH[0],
+                       json.dumps(rcfg), str(rgo)])]
+    procs = restore + [p for ps, _, _ in psums.values() for p in ps]
+    try:
+        _wait(dry, "dryrun")
+        rec["dryrun_wait_s"] = time.perf_counter() - t0
+        for backend, (ps, files, go) in psums.items():
+            world = len(ps)
+            go.touch()
+            _wait(ps, f"sharded psum_compressed {backend}")
+            ranks = [json.loads(f.read_text()) for f in files]
+            ok = all(r["none"] and r["residual"] for r in ranks)
+            where = ranks[0]["device"]
+            us = statistics.median(r["us"] for r in ranks)
+            rec[f"psum_{backend}"] = {"ranks": ranks, "bit_equal": ok,
+                                      "us": us}
+            say(f"sharded psum_compressed {backend}: {world} rank(s) on "
+                f"{where} tensors"
+                + (f" (gloo refused CUDA tensors: {ranks[0]['refused']})"
+                   if "refused" in ranks[0] else "")
+                + f", one {PSUM_SHAPE} float32 gradient each (Qwen3-4B's "
+                "w1, from seeds): every rank's total and residual == "
+                "numpy's reference formula bit for bit, with and without "
+                f"a residual: {ok}; {us:.1f} us per call (host clock, "
+                f"median of {PSUM_REPS} per rank) on {card}")
+            if not ok:
+                raise AssertionError(f"psum_compressed {backend}: {ranks}")
+
+        rgo.touch()
+        _wait(restore, "sharded restore")
+        r = rec["restore"] = json.loads(rfile.read_text())
+        ok = r["equal"] == r["arrays"] and r["dtensors"] > 0
+        say(f"sharded restore {LM_ARCH[0]} pim_w4 ({r['layers']} layers, "
+            f"phase 22's checkpoint) onto make_host_mesh() {r['mesh']} with "
+            f"param_shardings' placements: {r['equal']} of {r['arrays']} "
+            f"arrays gathered bit for bit ({r['dtensors']} DTensors); "
+            f"restore {r['ms']:.0f} ms (host clock, the card synchronized) "
+            f"on {card}")
+        if not ok:
+            raise AssertionError(f"sharded restore: {r}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    rec["wall_s"] = time.perf_counter() - t0
+    consts = (f"constants {roofline.PEAK_FLOPS:.4g} FLOP/s bf16, "
+              f"{roofline.HBM_BW:.4g} B/s HBM, {roofline.LINK_BW:.4g} B/s "
+              f"link, for {card}")
+    cells = rec["dryrun"] = {}
+    for arch, shape, mesh in [(a, s, "single") for a, s in DRYRUN_CELLS] \
+            + [(LM_ARCH[0], "train_4k", "1x1")]:
+        c = json.loads((out / f"{arch}__{shape}__{mesh}__chip.json")
+                       .read_text())
+        cells[f"{arch}/{shape}/{mesh}"] = c
+        if c["status"] != "ok":
+            raise AssertionError(f"dryrun {arch} {shape} {mesh}: "
+                                 f"{c.get('error')}")
+        views = [v for v in c["redistributed_views"]
+                 if not v["path"].startswith("adamw/")]
+        adamw = [v for v in c["redistributed_views"] if v not in views]
+        kinds = ", ".join([f"{v['path']} {v['op']} x{v['count']}"
+                           for v in views] + ([
+            f"adamw grads reduce x{sum(v['count'] for v in adamw)} "
+            f"({len(adamw)} leaves)"] if adamw else []))
+        say(f"dryrun {arch} {shape} --mesh {mesh} ({c['devices']} ranks of "
+            f"a fake process group): status ok, trace {c['trace_s']} s; "
+            f"per device {c['flops_per_device']:.4g} flops, "
+            f"{c['hbm_bytes_per_device']:.4g} HBM bytes (unfused), "
+            f"{c['link_bytes_per_device']:.4g} link bytes; t_compute "
+            f"{c['t_compute'] * 1e3:.2f} ms, t_memory "
+            f"{c['t_memory'] * 1e3:.2f} ms, t_collective "
+            f"{c['t_collective'] * 1e3:.2f} ms, bottleneck "
+            f"{c['bottleneck']}; peak live "
+            f"{c['memory_analysis']['peak_live_bytes'] / 1e9:.2f} GB; "
+            f"explicit redistributions: {kinds or 'none'}; {consts}")
+    c = cells[f"{LM_ARCH[0]}/train_4k/1x1"]
+    say(f"dryrun {cfg_name(lm_config())} train {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"on a 1 x 1 mesh: t_compute {c['t_compute'] * 1e3:.1f} ms, "
+        f"t_memory {c['t_memory'] * 1e3:.1f} ms (reported, not held) beside "
+        f"phase 20's measured step {train_step_ms:.1f} ms (median, CUDA "
+        f"events) on {card}; {consts}")
+    say(f"sharded: {rec['wall_s']:.1f} s for the phase")
+    return rec
+
+
 def card_line() -> str:
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4037,6 +4417,10 @@ def main() -> int:
     card = card_line()
     record = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda}
+
+    # phase 24's dry-run cells need only the host's CPU: they run beside
+    # the build
+    dry = start_dryrun()
 
     # 1. build: one nvcc per source, all started together
     from concurrent.futures import ThreadPoolExecutor
@@ -4408,11 +4792,24 @@ def main() -> int:
     # 22. training's CLI at full width and depth, the launch counts reset
     # just before it and read just after it; the loop's resume, bit for
     # bit, at full width with RESUME_LAYERS layers
-    record["train_loop"] = run_train_loop(torch, device)
+    import shutil
+    import tempfile
+    keep = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        record["train_loop"] = run_train_loop(torch, device, keep)
 
-    # 23. the examples on the card, the launch counts reset just
-    # before each and read just after it
-    record["examples"] = run_examples(torch)
+        # 23. the examples on the card, the launch counts reset just
+        # before each and read just after it
+        record["examples"] = run_examples(torch)
+
+        # 24. the sharded path, each process group in processes of its
+        # own: psum_compressed, the elastic restore of phase 22's
+        # checkpoint, the dry-run's production cells
+        step_ms = statistics.median(h["ms"]
+                                    for h in record["train"]["steps"][1:])
+        record["sharded"] = run_sharded(torch, card, keep, step_ms, dry)
+    finally:
+        shutil.rmtree(keep, ignore_errors=True)
 
     # the row entries at the full device's 64 slots, in place (as most of
     # the main path's segments run); every shape is in chip_smoke.json

@@ -15,11 +15,14 @@ Properties:
                 optimizer state, ``greedy_generate``'s captured graphs)
                 stays valid.
 
-The port runs one process, so the process index is 0 and ``host0.npz``
-holds every array. Keys are the reference's: dict keys sorted, list
-indices, joined by "/" (``_flatten``); a :class:`Stacked` leaf, one tensor
-per layer, is saved as one array stacked along a leading axis, as the
-reference stacks its layers. The checkpoints of the two packages read
+``save`` writes one process's whole arrays, so ``host0.npz`` holds every
+array, as the reference's single host writes it. ``restore`` re-shards:
+a leaf on a mesh takes only its own shard of the stored array, whatever
+mesh the checkpoint was saved from (elastic restore). Keys are the
+reference's: dict keys sorted, list indices, joined by "/"
+(``_flatten``); a :class:`Stacked` leaf, one tensor per layer, is saved
+as one array stacked along a leading axis, as the reference stacks its
+layers. The checkpoints of the two packages read
 each other bit for bit: a bfloat16 array is written as its ``uint16``
 bits with manifest dtype ``"bfloat16"`` (the reference views those bits
 as ``ml_dtypes.bfloat16``), and the raw two-byte void array the
@@ -141,41 +144,86 @@ def _copy_into(key: str, dst: torch.Tensor, src: torch.Tensor) -> None:
         dst.copy_(src)
 
 
-def _load_into(skeleton, flat: dict, prefix=""):
+def _local(src: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """This rank's shard of a whole array under ``placements``."""
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    shape, offset = compute_local_shape_and_global_offset(
+        tuple(src.shape), mesh, placements)
+    return src[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+
+
+def _restore_leaf(key: str, dst, src: torch.Tensor, sh) -> None:
+    """Copy the stored array into ``dst`` in place: a DTensor takes its own
+    shard (``to_local().copy_``), a plain tensor with a sharding ``sh``
+    (``launch.sharding.NamedSharding``) the shard of ``sh``'s placements,
+    any other tensor the whole array."""
+    from ..models.common import is_dtensor
+    if is_dtensor(dst):
+        _copy_into(key, dst.to_local(),
+                   _local(src, dst.device_mesh, dst.placements))
+    elif sh is not None:
+        _copy_into(key, dst, _local(src, sh.mesh, sh.placements))
+    else:
+        _copy_into(key, dst, src)
+
+
+def _layer(sh):
+    """A stacked leaf's sharding for its layers (the spec without its
+    leading entry)."""
+    if sh is None:
+        return None
+    from ..launch.sharding import NamedSharding
+    return NamedSharding(sh.mesh, tuple(sh.spec[1:]))
+
+
+def _load_into(skeleton, flat: dict, shardings: dict, prefix=""):
     """The skeleton with each leaf restored from ``flat``: tensors and
-    stacked layers copied in place, other leaves replaced by the stored
-    tensor."""
+    stacked layers copied in place (on a mesh, their shards), other
+    leaves replaced by the stored tensor (with a sharding, a DTensor of
+    this rank's shard)."""
     if isinstance(skeleton, dict):
-        return {k: _load_into(v, flat, f"{prefix}{k}{SEP}")
+        return {k: _load_into(v, flat, shardings, f"{prefix}{k}{SEP}")
                 for k, v in skeleton.items()}
     if isinstance(skeleton, (tuple, list)):
-        return type(skeleton)(_load_into(v, flat, f"{prefix}{i}{SEP}")
+        return type(skeleton)(_load_into(v, flat, shardings,
+                                         f"{prefix}{i}{SEP}")
                               for i, v in enumerate(skeleton))
     if skeleton is None:
         return None
     key = prefix.rstrip(SEP)
-    src = flat[key]
+    src, sh = flat[key], shardings.get(key)
     if isinstance(skeleton, Stacked):
         if src.shape[0] != len(skeleton.tensors):
             raise ValueError(f"checkpoint key {key}: {src.shape[0]} "
                              f"layers, the model has "
                              f"{len(skeleton.tensors)}")
         for t, s in zip(skeleton.tensors, src):
-            _copy_into(key, t, s)
+            _restore_leaf(key, t, s, _layer(sh))
         return skeleton
     if isinstance(skeleton, torch.Tensor):
-        _copy_into(key, skeleton, src)
+        _restore_leaf(key, skeleton, src, sh)
         return skeleton
+    if sh is not None:
+        from torch.distributed.tensor import DTensor
+        local = _local(src, sh.mesh, sh.placements).to(sh.mesh.device_type)
+        return DTensor.from_local(local, sh.mesh, sh.placements,
+                                  run_check=False)
     return src
 
 
-def restore(ckpt_dir: str, step: int, skeleton, *, model=None):
+def restore(ckpt_dir: str, step: int, skeleton, *, model=None,
+            shardings=None):
     """Load into ``skeleton``'s structure, in place: each tensor leaf (and
     each layer of a :class:`Stacked` leaf) takes the stored values by
     ``copy_``, on its own device, in its own dtype and shape (another
-    raises ``ValueError``). With ``model``, its float32 serving heads are
-    refreshed from the restored weights (``models.refresh_heads``).
-    Returns (tree, manifest)."""
+    raises ``ValueError``). A DTensor leaf, or a leaf with an entry in
+    ``shardings`` (a tree matching the skeleton's, of
+    ``launch.sharding.NamedSharding``; a stacked leaf's spec is the
+    stacked one), takes only its own shard of the stored array: the mesh
+    may differ from the one the checkpoint was saved on. With ``model``,
+    its float32 serving heads are refreshed from the restored weights
+    (``models.refresh_heads``). Returns (tree, manifest)."""
     path = os.path.join(ckpt_dir, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -190,7 +238,8 @@ def restore(ckpt_dir: str, step: int, skeleton, *, model=None):
         raise FileNotFoundError(f"checkpoint incomplete, missing {missing}")
     flat = {k: _from_numpy(arr, manifest["keys"][k]["dtype"])
             for k, arr in data.items()}
-    tree = _load_into(skeleton, flat)
+    tree = _load_into(skeleton, flat,
+                      _flatten(shardings) if shardings is not None else {})
     if model is not None:
         from ..models import refresh_heads
         refresh_heads(model)

@@ -14,7 +14,10 @@ Port of ``repro.models.attention``. Every softmax goes through
 - ``impl="naive"`` is a torch port of the reference's online-softmax scan
   over query and key chunks.
 
-The reference's ``sp_attn`` sharding constraints are no-ops on one card.
+On the sharded path (DTensor parameters, ``launch.sharding``) the
+reference's ``sp_attn`` sharding constraints apply (``common.constrain``;
+no-ops on plain tensors), and a head split that DTensor cannot carry over
+an unevenly sharded projection gathers it first (``common.reshape``).
 Decode caches are updated in place: ``gqa_decode`` and ``mla_decode``
 write the new token's entries into the cache they are given and return
 that cache.
@@ -36,7 +39,9 @@ from torch import nn
 from ..kernels.flash_attn import ops as _flash
 from . import flash as flash_mod
 from .flash import _chunk
-from .common import apply_rope, dense_init, dtype_of, frozen, rmsnorm
+from .common import (apply_rope, constrain, dense_init, dtype_of, frozen,
+                     gather_dims, is_dtensor, redistribute, reshape,
+                     rmsnorm)
 from .ssm import records_grad
 
 NEG_INF = -1e30
@@ -60,6 +65,9 @@ def chunked_attention(q, k, v, pos_q, pos_k, *, window=None,
     """
     B, Sq, KV, G, dh = q.shape
     scale = (1.0 / math.sqrt(dh)) if scale is None else scale
+    if is_dtensor(q):
+        return _sharded_attention(q, k, v, pos_q, pos_k, window=window,
+                                  scale=scale, impl=impl)
     if impl == "flash":
         if records_grad(q, k, v):
             return flash_mod.flash_attention(q, k, v, pos_q, pos_k,
@@ -101,6 +109,67 @@ def chunked_attention(q, k, v, pos_q, pos_k, *, window=None,
         out = acc / torch.clamp(l[..., None], min=1e-30)     # (B,KV,G,qc,dv)
         outs.append(out.permute(0, 3, 1, 2, 4))              # (B,qc,KV,G,dv)
     return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def _sharded_attention(q, k, v, pos_q, pos_k, *, window, scale, impl):
+    """Attention on DTensors: each device attends over its own shards, the
+    batch over the mesh dims that shard it in q, k and v alike, the kv
+    heads likewise (no communication, as XLA partitions attention); a mesh
+    dim that shards anything else (a sequence, a head's width, q and k
+    apart) is gathered first and recorded. Locally it is this module's
+    ``chunked_attention`` in one tile (``local_map``)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    target = []
+    for i in range(mesh.ndim):
+        ps = {t.placements[i] for t in (q, k, v)}
+        target.append(ps.pop() if len(ps) == 1 and ps <= {Shard(0), Shard(2)}
+                      else Replicate())
+    q, k, v = (redistribute(t, target, f"attn/{n}", "gather")
+               for t, n in ((q, "q"), (k, "k"), (v, "v")))
+
+    def rep(t, batch_dim):
+        pl = [p if batch_dim and p == Shard(0) else Replicate()
+              for p in target]
+        if not is_dtensor(t):
+            return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                      run_check=False).redistribute(mesh, pl)
+        return redistribute(t, pl, "attn/positions", "gather")
+
+    pos_q, pos_k = rep(pos_q, False), rep(pos_k, pos_k.dim() == 2)
+    Sq, Sk = q.shape[1], k.shape[1]
+
+    def local(ql, kl, vl, pq, pk):
+        return chunked_attention(ql, kl, vl, pq, pk, window=window,
+                                 q_chunk=Sq, k_chunk=Sk, scale=scale,
+                                 impl=impl)
+
+    return local_map(local, out_placements=(tuple(target),),
+                     in_placements=(tuple(target),) * 3
+                     + (pos_q.placements, pos_k.placements),
+                     device_mesh=mesh)(q, k, v, pos_q, pos_k)
+
+
+def _write_slot(cache: dict, slot: int, entries: dict, pos: int) -> None:
+    """Write one token's entries (each (B, ...)) and its position at
+    ``slot`` of a cache's (B, Sc, ...) tensors, in place. A DTensor cache
+    (its slots sharded) takes an elementwise select against the slot, which
+    keeps its sharding; a plain one an indexed write."""
+    if not is_dtensor(cache["kpos"]):
+        for name, e in entries.items():
+            cache[name][:, slot] = e
+        cache["kpos"][:, slot] = pos
+        return
+    Sc = cache["kpos"].shape[1]
+    hit = torch.arange(Sc, device=entries[next(iter(entries))].device) == slot
+    for name, e in entries.items():
+        t = cache[name]
+        h = hit.reshape((1, Sc) + (1,) * (t.dim() - 2))
+        t.copy_(torch.where(h, e[:, None].to(t.dtype), t))
+    kp = cache["kpos"]
+    kp.copy_(torch.where(hit[None, :], torch.full((), pos, dtype=kp.dtype),
+                         kp))
 
 
 # ---------------------------------------------------------------------------
@@ -146,9 +215,9 @@ def _proj(x, w, b):
 def _gqa_qkv(cfg, p: GQA, x, positions):
     B, S, D = x.shape
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = _proj(x, p.wq, p.bq).reshape(B, S, H, dh)
-    k = _proj(x, p.wk, p.bk).reshape(B, S, KV, dh)
-    v = _proj(x, p.wv, p.bv).reshape(B, S, KV, dh)
+    q = reshape(_proj(x, p.wq, p.bq), (B, S, H, dh), "attn/q heads")
+    k = reshape(_proj(x, p.wk, p.bk), (B, S, KV, dh), "attn/k heads")
+    v = reshape(_proj(x, p.wv, p.bv), (B, S, KV, dh), "attn/v heads")
     if cfg.qk_norm:
         q = rmsnorm(q, p.q_norm)
         k = rmsnorm(k, p.k_norm)
@@ -158,17 +227,63 @@ def _gqa_qkv(cfg, p: GQA, x, positions):
     return q, k, v
 
 
+def _split_kv_heads(q, k, v, H: int, KV: int):
+    """(k, v, kv heads) for attention. On the sharded path, where the query
+    heads split evenly over the mesh dims that shard them and the kv heads
+    do not, each kv head is repeated ``r`` times, the least ``r`` whose
+    ``KV·r`` heads split evenly and still group the query heads, and the
+    copies take the query heads' sharding: every device then attends with
+    its own query heads against its own copy of their kv head, where XLA
+    pads the heads and gathering them would replicate attention. The
+    gather and the repeat are recorded. Plain tensors, and heads that
+    split evenly, are returned as they are."""
+    if not is_dtensor(q):
+        return k, v, KV
+    from torch.distributed.tensor import Shard
+    mesh = q.device_mesh
+    ways = math.prod(mesh.size(i) for i, pl in enumerate(q.placements)
+                     if pl == Shard(2))
+    if ways == 1 or KV % ways == 0 or H % ways:
+        return k, v, KV
+    r = next((r for r in range(2, ways + 1)
+              if (KV * r) % ways == 0 and H % (KV * r) == 0), None)
+    if r is None:
+        return k, v, KV
+    B, S, _, dh = k.shape
+
+    def repeat(t, name):
+        t = gather_dims(t, (2, 3), f"attn/{name} repeat", "gather")
+        t = reshape(t[:, :, :, None].expand(B, S, KV, r, dh),
+                    (B, S, KV * r, dh), f"attn/{name} repeat")
+        return redistribute(t, [Shard(2) if q.placements[i] == Shard(2)
+                                else pl for i, pl in enumerate(t.placements)],
+                            f"attn/{name} repeat", "shard")
+
+    return repeat(k, "k"), repeat(v, "v"), KV * r
+
+
 def gqa_train(cfg, p: GQA, x, positions, window=None):
     """Full causal attention; returns (out, (k, v) for cache building)."""
     B, S, D = x.shape
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = _gqa_qkv(cfg, p, x, positions)
-    qg = q.reshape(B, S, KV, H // KV, dh)
+    if cfg.sp_attn and S > 1:
+        # Sequence-parallel attention: queries sharded on S over "model",
+        # (small GQA) k/v gathered — avoids per-layer head resharding when
+        # n_heads is not divisible by the model axis.
+        q = constrain(q, (None, "model", None, None))
+        k = constrain(k, (None, None, None, None))
+        v = constrain(v, (None, None, None, None))
+    kv = (k, v)
+    k, v, KV = _split_kv_heads(q, k, v, H, KV)
+    qg = reshape(q, (B, S, KV, H // KV, dh), "attn/q groups")
     out = chunked_attention(qg, k, v, positions, positions, window=window,
                             q_chunk=cfg.attn_q_chunk,
                             k_chunk=cfg.attn_k_chunk, impl=cfg.attn_impl)
-    out = out.reshape(B, S, H * dh)
-    return out @ p.wo, (k, v)
+    out = reshape(out, (B, S, H * dh), "attn/out heads")
+    if cfg.sp_attn and S > 1:
+        out = constrain(out, (None, "model", None))
+    return out @ p.wo, kv
 
 
 def gqa_decode(cfg, p: GQA, x, pos: int, cache, window=None):
@@ -183,15 +298,13 @@ def gqa_decode(cfg, p: GQA, x, pos: int, cache, window=None):
     pos = int(pos)
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     q, k, v = _gqa_qkv(cfg, p, x, positions)
-    slot = pos % cache["k"].shape[1]
-    cache["k"][:, slot] = k[:, 0]
-    cache["v"][:, slot] = v[:, 0]
-    cache["kpos"][:, slot] = pos
-    qg = q.reshape(B, 1, KV, H // KV, dh)
+    _write_slot(cache, pos % cache["k"].shape[1],
+                {"k": k[:, 0], "v": v[:, 0]}, pos)
+    qg = reshape(q, (B, 1, KV, H // KV, dh), "attn/q groups")
     out = chunked_attention(qg, cache["k"], cache["v"], positions,
                             cache["kpos"], window=window, q_chunk=1,
                             k_chunk=cfg.attn_k_chunk, impl=cfg.attn_impl)
-    out = out.reshape(B, 1, H * dh)
+    out = reshape(out, (B, 1, H * dh), "attn/out heads")
     return out @ p.wo, cache
 
 
@@ -240,8 +353,9 @@ def init_mla(gen: torch.Generator, cfg) -> MLA:
 def _mla_q(cfg, p: MLA, x, positions):
     m = cfg.mla
     B, S, _ = x.shape
-    q = (x @ p.w_q).reshape(B, S, cfg.n_heads,
-                            m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q = reshape(x @ p.w_q, (B, S, cfg.n_heads,
+                            m.qk_nope_head_dim + m.qk_rope_head_dim),
+                "attn/q heads")
     q_nope, q_rope = torch.split(
         q, [m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
     return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
@@ -269,15 +383,17 @@ def mla_train(cfg, p: MLA, x, positions):
     H, r = cfg.n_heads, m.kv_lora_rank
     q_nope, q_rope = _mla_q(cfg, p, x, positions)
     c_kv, k_rope = _mla_ckv(cfg, p, x, positions)
-    k_nope = (c_kv @ p.w_uk.reshape(r, -1)).reshape(B, S, H, -1)
-    v = (c_kv @ p.w_uv.reshape(r, -1)).reshape(B, S, H, m.v_head_dim)
+    k_nope = reshape(c_kv @ reshape(p.w_uk, (r, -1), "attn/w_uk"),
+                     (B, S, H, -1), "attn/k heads")
+    v = reshape(c_kv @ reshape(p.w_uv, (r, -1), "attn/w_uv"),
+                (B, S, H, m.v_head_dim), "attn/v heads")
     qc = torch.cat([q_nope, q_rope], dim=-1)[:, :, :, None, :]  # (B,S,H,1,.)
     kc = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         B, S, H, m.qk_rope_head_dim)], dim=-1)
     out = chunked_attention(qc, kc, v, positions, positions,
                             scale=_mla_scale(m), q_chunk=cfg.attn_q_chunk,
                             k_chunk=cfg.attn_k_chunk, impl=cfg.attn_impl)
-    out = out.reshape(B, S, H * m.v_head_dim)
+    out = reshape(out, (B, S, H * m.v_head_dim), "attn/out heads")
     return out @ p.w_o, (c_kv, k_rope)
 
 
@@ -298,18 +414,17 @@ def mla_decode(cfg, p: MLA, x, pos: int, cache):
     q_nope, q_rope = _mla_q(cfg, p, x, positions)
     c_kv, k_rope = _mla_ckv(cfg, p, x, positions)
     ck, cr, kpos = cache["ckv"], cache["krope"], cache["kpos"]
-    slot = min(max(pos, 0), ck.shape[1] - 1)
-    ck[:, slot] = c_kv[:, 0]
-    cr[:, slot] = k_rope[:, 0]
-    kpos[:, slot] = pos
+    _write_slot(cache, min(max(pos, 0), ck.shape[1] - 1),
+                {"ckv": c_kv[:, 0], "krope": k_rope[:, 0]}, pos)
     q_abs = torch.einsum("bthd,rhd->bthr", q_nope, p.w_uk)
     qc = torch.cat([q_abs, q_rope], dim=-1)[:, :, None, :, :]   # (B,1,1,H,.)
     kc = torch.cat([ck, cr], dim=-1)[:, :, None, :]             # (B,Sc,1,.)
     ctx = chunked_attention(qc, kc, ck[:, :, None, :], positions, kpos,
                             q_chunk=1, k_chunk=cfg.attn_k_chunk,
                             scale=_mla_scale(m), impl=cfg.attn_impl)
-    v_ctx = torch.einsum("bthr,rhd->bthd", ctx.reshape(B, 1, H, r), p.w_uv)
-    out = v_ctx.reshape(B, 1, H * m.v_head_dim)
+    v_ctx = torch.einsum("bthr,rhd->bthd",
+                         reshape(ctx, (B, 1, H, r), "attn/ctx heads"), p.w_uv)
+    out = reshape(v_ctx, (B, 1, H * m.v_head_dim), "attn/out heads")
     return out @ p.w_o, cache
 
 

@@ -12,6 +12,7 @@ as ``x @ w``.
 from __future__ import annotations
 
 import math
+import sys
 
 import torch
 from torch import nn
@@ -193,3 +194,174 @@ def linear(cfg, p: Linear, x):
     if p.b is not None:
         y = y + p.b
     return y
+
+
+# ---------------------------------------------------------------------------
+# The sharded path: sharding constraints and explicit redistributions
+# ---------------------------------------------------------------------------
+
+# Every explicit redistribution of the sharded path, by (where, op, shape,
+# placements before, after): its count. XLA's partitioner makes these
+# silently; DTensor refuses, so the port makes them and the dry-run
+# reports them (``redistributed_views``). Plain tensors never reach it.
+REDISTRIBUTED: dict = {}
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor (False, at no import, where
+    ``torch.distributed.tensor`` was never loaded)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def constrain(x, spec):
+    """The reference's ``with_sharding_constraint``: a plain tensor is
+    returned unchanged; a DTensor is redistributed to ``spec``'s placements
+    (``launch.sharding.placements``) on its own mesh."""
+    if not is_dtensor(x):
+        return x
+    from ..launch.sharding import placements
+    return x.redistribute(x.device_mesh, placements(spec, x.device_mesh))
+
+
+def redistribute(x, after, where: str, op: str):
+    """A DTensor redistributed to the placements ``after``; a change of
+    placements is recorded in ``REDISTRIBUTED``."""
+    before = tuple(x.placements)
+    if tuple(after) != before:
+        key = (where, op, tuple(x.shape), str(before), str(tuple(after)))
+        REDISTRIBUTED[key] = REDISTRIBUTED.get(key, 0) + 1
+    return x.redistribute(x.device_mesh, tuple(after))
+
+
+def hold(x, where: str):
+    """A DTensor's pending sums (``Partial``: a row-parallel product's
+    output) reduced to ``Replicate``; its gradient the same way in the
+    backward, so that the sums of a column-parallel product's input grads
+    are reduced where they arise (Megatron's f and g). A plain tensor is
+    returned unchanged."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    return redistribute(x, [Replicate() if p.is_partial() else p
+                       for p in x.placements], where, "reduce")
+
+
+def hold_batch(x, where: str):
+    """The residual stream at a layer boundary: its batch dim sharded over
+    the mesh's ("pod", "data") dims, the rest replicated, forward and
+    backward (what XLA's propagation keeps from the batch's sharding and
+    DTensor's per-op choices do not). A plain tensor is returned
+    unchanged."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = x.device_mesh
+    dp = [i for i, n in enumerate(mesh.mesh_dim_names) if n in ("pod", "data")]
+    ways = math.prod(mesh.size(i) for i in dp)
+    after = [Shard(0) if i in dp and x.shape[0] % ways == 0 else Replicate()
+             for i in range(mesh.ndim)]
+    return redistribute(x, after, where, "hold")
+
+
+def elementwise(fn, x):
+    """``fn(x)`` for an elementwise ``fn``; on a DTensor it runs on each
+    device's shard (``local_map``: DTensor has no rule for some
+    elementwise ops, such as ``log_sigmoid_forward``)."""
+    if not is_dtensor(x):
+        return fn(x)
+    from torch.distributed.tensor.experimental import local_map
+    x = hold(x, "elementwise")
+    return local_map(fn, out_placements=(x.placements,),
+                     in_placements=(x.placements,),
+                     device_mesh=x.device_mesh)(x)
+
+
+def pad(x, pads, value: float = 0.0):
+    """``F.pad(x, pads, value=value)`` (constant). On a DTensor the pads
+    are concatenated blocks of ``value`` (DTensor's rule for the pad fails
+    in some versions)."""
+    if not is_dtensor(x):
+        return torch.nn.functional.pad(x, pads, value=value)
+    for i in range(len(pads) // 2):
+        dim = x.dim() - 1 - i
+        parts = []
+        for n in pads[2 * i:2 * i + 2]:
+            shape = list(x.shape)
+            shape[dim] = n
+            parts.append(torch.full(shape, value, dtype=x.dtype) if n
+                         else None)
+        blocks = [b for b in (parts[0], x, parts[1]) if b is not None]
+        if len(blocks) > 1:
+            x = torch.cat(blocks, dim=dim)
+    return x
+
+
+def gather_dims(x, dims, where: str, op: str):
+    """A DTensor with its shards along tensor ``dims`` gathered (those mesh
+    dims replicated), recorded in ``REDISTRIBUTED``; a plain tensor as it
+    is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    dims = {d % x.dim() for d in dims}
+    after = [Replicate() if p.is_shard() and p.dim in dims else p
+             for p in x.placements]
+    if tuple(after) == tuple(x.placements):
+        return x
+    return redistribute(x, after, where, op)
+
+
+def _reshape_dt(x, shape, where: str):
+    shape = tuple(shape)
+    keep = 0
+    while keep < min(x.dim(), len(shape)) and x.shape[keep] == shape[keep]:
+        keep += 1
+    tail = 0
+    while tail < min(x.dim(), len(shape)) - keep \
+            and x.shape[-1 - tail] == shape[-1 - tail]:
+        tail += 1
+    ways: dict = {}
+    for mesh_dim, p in enumerate(x.placements):
+        if p.is_shard():
+            ways[p.dim] = ways.get(p.dim, 1) * x.device_mesh.size(mesh_dim)
+    # a sharded dim the view changes stays sharded only as the first dim
+    # of a merge, or of a split whose first factor divides evenly
+    bad = [d for d, n in ways.items() if keep <= d < x.dim() - tail and not (
+        d == keep and keep < len(shape)
+        and (shape[keep] >= x.shape[d] or shape[keep] % n == 0))]
+    x = gather_dims(x, bad, where, "view")
+    try:
+        return x.reshape(shape)
+    except RuntimeError as e:
+        if "shard" not in str(e).lower():
+            raise
+    return gather_dims(x, range(keep, x.dim()), where, "view").reshape(shape)
+
+
+class _Reshape(torch.autograd.Function):
+    """A DTensor view, its gradient's view back to the input's shape made
+    the same way."""
+
+    @staticmethod
+    def forward(ctx, x, shape, where):
+        ctx.in_shape, ctx.where = tuple(x.shape), where
+        return _reshape_dt(x, shape, where)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reshape_dt(g, ctx.in_shape, ctx.where + " grad"), None, None
+
+
+def reshape(x, shape, where: str):
+    """``x.reshape(shape)``. A DTensor whose sharding the view cannot carry
+    (a dim split unevenly across its mesh dims, which XLA pads and DTensor
+    refuses) has the dims the view changes gathered first, forward and
+    backward."""
+    if not is_dtensor(x):
+        return x.reshape(shape)
+    shape = tuple(shape)
+    if -1 in shape:
+        rest = math.prod(s for s in shape if s != -1)
+        shape = tuple(x.numel() // rest if s == -1 else s for s in shape)
+    return _Reshape.apply(x, shape, where)

@@ -25,7 +25,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import dtype_of, frozen, linear, make_linear_params
+from .common import (dtype_of, frozen, gather_dims, hold, is_dtensor,
+                     linear, make_linear_params, reshape)
 
 
 class DenseFFN(nn.Module):
@@ -137,15 +138,23 @@ def _einsum_chunk(cfg, p: MoEFFN, xc, C: int):
     """The reference's ``one_chunk``: per slot in priority order, one-hot
     positions within each expert's capacity; dispatch in bf16, combine in
     float32."""
-    m = cfg.moe
-    E, K = m.n_experts, m.top_k
-    c = xc.shape[0]
     gates, idx, aux = _router(cfg, p, xc)
+    yc = _einsum_dispatch(cfg, p, xc, gates, idx, C)
+    return yc.to(xc.dtype), aux
+
+
+def _einsum_dispatch(cfg, p, xc, gates, idx, C: int, lo: int = 0):
+    """The einsum form's dispatch, experts and combine for the experts
+    ``p.w1`` holds, the global experts ``lo`` on (all of them, but on the
+    sharded path a device's own): their float32 share of the output."""
+    E, K = p.w1.shape[0], cfg.moe.top_k
+    c = xc.shape[0]
     counts = torch.zeros((E,), dtype=torch.float32, device=xc.device)
     dispatch = torch.zeros((c, E, C), dtype=torch.bfloat16, device=xc.device)
     combine = torch.zeros((c, E, C), dtype=torch.float32, device=xc.device)
     for slot in range(K):                                        # priority
-        oh = _one_hot(idx[:, slot], E, torch.float32)            # (c, E)
+        e = idx[:, slot] if lo == 0 else idx[:, slot] - lo
+        oh = _one_hot(e, E, torch.float32)                       # (c, E)
         pos = torch.cumsum(oh, dim=0) - 1.0 + counts[None, :]
         counts = counts + oh.sum(0)
         keep = (pos < C).to(torch.float32) * oh
@@ -155,8 +164,7 @@ def _einsum_chunk(cfg, p: MoEFFN, xc, C: int):
         combine = combine + oh_c * gates[:, slot, None, None]
     xe = torch.einsum("td,tec->ecd", xc.to(torch.bfloat16), dispatch)
     ye = _expert_ffn(p, xe)                                      # (E, C, D)
-    yc = torch.einsum("ecd,tec->td", ye.to(torch.float32), combine)
-    return yc.to(xc.dtype), aux
+    return torch.einsum("ecd,tec->td", ye.to(torch.float32), combine)
 
 
 def _gather_chunk(cfg, p: MoEFFN, xc, C: int):
@@ -201,13 +209,96 @@ def _gather_chunk(cfg, p: MoEFFN, xc, C: int):
     return y.to(xc.dtype), aux
 
 
+def _sharded_moe(cfg, p: MoEFFN, x, chunk: int, C: int):
+    """``moe_ffn`` on DTensors: each device runs the chunks of its own
+    tokens (the batch's data dims) against its own experts (the experts'
+    dim sharded over "model": expert parallelism), the einsum form's
+    dispatch restricted to those experts, so that the outputs are partial
+    sums over the expert-parallel dims (reduced after); the router and its
+    load-balance term run on every device, the term weighted so that it
+    sums to the reference's mean over chunks. The gather form gathers the
+    experts first (recorded) and runs whole on every device."""
+    from types import SimpleNamespace
+
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    m = cfg.moe
+    B, S, D = x.shape
+    xf = reshape(x, (B * S, D), "moe/tokens")
+    mesh = xf.device_mesh
+    dp = math.prod(mesh.size(i) for i, pl in enumerate(xf.placements)
+                   if pl == Shard(0))
+    if (xf.shape[0] // dp) % chunk:
+        # a chunk spans devices (decode's few tokens): every device takes
+        # all of them
+        xf = gather_dims(xf, (0,), "moe/tokens", "gather")
+    ws = [p.w1, p.w3, p.w2]
+    if m.impl == "gather":
+        ws = [gather_dims(w, (0,), "moe/experts", "gather") for w in ws]
+    tok = [pl == Shard(0) for pl in xf.placements]
+    ep = [pl == Shard(0) for pl in ws[0].placements]
+    if any(pl.is_shard() and pl.dim != 0 for pl in xf.placements) or any(
+            t and e for t, e in zip(tok, ep)):
+        raise ValueError(f"moe_ffn: tokens {xf.placements}, experts "
+                         f"{ws[0].placements}")
+    n_local = xf.shape[0] // math.prod(
+        mesh.size(i) for i, t in enumerate(tok) if t)
+    if n_local % chunk:
+        raise ValueError(f"moe_ffn: {n_local} tokens per device are not a "
+                         f"multiple of the dispatch chunk {chunk}")
+    E_l = ws[0].shape[0] // math.prod(
+        mesh.size(i) for i, e in enumerate(ep) if e)
+    lo = 0
+    for i, e in enumerate(ep):
+        if e:
+            lo = lo * mesh.size(i) + mesh.get_local_rank(i)
+    lo *= E_l
+    split = math.prod(mesh.size(i) for i in range(mesh.ndim)
+                      if tok[i] or ep[i])
+    R = Replicate()
+    y_pl = tuple(Shard(0) if t else Partial() if e else R
+                 for t, e in zip(tok, ep))
+    x_grad = tuple(Shard(0) if t else Partial() if e else R
+                   for t, e in zip(tok, ep))
+    sum_pl = tuple(Partial() if t or e else R for t, e in zip(tok, ep))
+    w_grad = tuple(Shard(0) if e else Partial() if t else R
+                   for t, e in zip(tok, ep))
+
+    def local(xl, router, w1, w3, w2):
+        q = SimpleNamespace(router=router, w1=w1, w3=w3, w2=w2)
+
+        def one_chunk(xc):
+            if m.impl == "gather":
+                y, aux = _gather_chunk(cfg, q, xc, C)
+                return y.to(torch.float32), aux
+            gates, idx, aux = _router(cfg, q, xc)
+            return _einsum_dispatch(cfg, q, xc, gates, idx, C, lo), aux
+
+        # the chunks side by side (the reference's scan body once)
+        ys, auxs = torch.vmap(one_chunk)(xl.reshape(-1, chunk, D))
+        return ys.reshape(-1, D), auxs.mean() / split
+
+    y, aux = local_map(
+        local, out_placements=(y_pl, sum_pl),
+        in_placements=(xf.placements, p.router.placements)
+        + tuple(w.placements for w in ws),
+        in_grad_placements=(x_grad, sum_pl) + (w_grad,) * 3,
+        device_mesh=mesh)(xf, p.router, *ws)
+    y = reshape(hold(y, "moe out").to(x.dtype), (B, S, D), "moe/tokens")
+    if m.n_shared_experts:
+        y = y + dense_ffn(cfg, p.shared, x)
+    return y, m.router_aux_weight * aux
+
+
 def moe_ffn(cfg, p: MoEFFN, x):
     """x: (B, S, D) → (y, aux_loss)."""
     m = cfg.moe
     B, S, D = x.shape
     T = B * S
-    xf = x.reshape(T, D)
     chunk = min(m.dispatch_chunk, T)
+    if is_dtensor(x):
+        return _sharded_moe(cfg, p, x, chunk, _capacity(chunk, cfg))
+    xf = x.reshape(T, D)
     if T % chunk:
         raise ValueError(f"moe_ffn: {T} tokens are not a multiple of the "
                          f"dispatch chunk {chunk}")

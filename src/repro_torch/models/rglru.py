@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import dense_init, dtype_of, frozen
+from .common import dense_init, dtype_of, elementwise, frozen, pad
 from .ssm import (chunks, conv_causal, conv_window, records_grad,
                   scan_inplace)
 
@@ -68,7 +68,7 @@ def _gates(cfg, p: RGLRU, u):
     uf = u.to(torch.float32)
     rg = torch.sigmoid(uf @ p.w_a.to(torch.float32) + p.b_a)
     ig = torch.sigmoid(uf @ p.w_x.to(torch.float32) + p.b_x)
-    log_a0 = F.logsigmoid(p.lam)                          # (W,) <= 0
+    log_a0 = elementwise(F.logsigmoid, p.lam)             # (W,) <= 0
     a = torch.exp(cfg.rglru.c_exponent * log_a0 * rg)
     beta = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12))
     return a, beta * ig * uf
@@ -86,8 +86,8 @@ def rglru_train(cfg, p: RGLRU, x):
 
     chunk, Sp = chunks(S, r.scan_chunk)
     # identity steps past the end (a = 1, b = 0): an exact final state
-    a = F.pad(a, (0, 0, 0, Sp - S), value=1.0)
-    bx = F.pad(bx, (0, 0, 0, Sp - S))
+    a = pad(a, (0, 0, 0, Sp - S), value=1.0)
+    bx = pad(bx, (0, 0, 0, Sp - S))
     h = torch.zeros((B, r.lru_width), dtype=torch.float32, device=x.device)
     states = []
     for c0 in range(0, Sp, chunk):

@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import dense_init, dtype_of, frozen, rmsnorm
+from .common import dense_init, dtype_of, frozen, pad, rmsnorm
 
 
 class Mamba(nn.Module):
@@ -75,8 +75,8 @@ def conv_causal(conv_w, conv_b, x, d_conv: int):
     """Causal depthwise conv over (B, S, C) in x's dtype: the taps added
     in order, then the bias, as the reference's ``sum`` does."""
     S = x.shape[1]
-    pad = F.pad(x, (0, 0, d_conv - 1, 0))
-    out = sum(pad[:, i:i + S] * conv_w[i] for i in range(d_conv))
+    xp = pad(x, (0, 0, d_conv - 1, 0))
+    out = sum(xp[:, i:i + S] * conv_w[i] for i in range(d_conv))
     return out + conv_b
 
 
@@ -154,8 +154,8 @@ def mamba_train(cfg, p: Mamba, x):
     chunk, Sp = chunks(S, s.scan_chunk)
     # identity steps past the end (dt = 0: a = 1, b = 0) keep the final
     # state exact; their outputs are sliced off below
-    pad = (0, 0, 0, Sp - S)
-    dt, Bm, Cm, uf_s = (F.pad(t, pad) for t in (dt, Bm, Cm, uf))
+    dt, Bm, Cm, uf_s = (pad(t, (0, 0, 0, Sp - S))
+                        for t in (dt, Bm, Cm, uf))
     h = torch.zeros((B, A.shape[0], A.shape[1]), dtype=torch.float32,
                     device=x.device)
     ys = []

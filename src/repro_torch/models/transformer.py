@@ -56,8 +56,9 @@ from . import attention as attn
 from . import ffn as ffn_mod
 from . import rglru as rg
 from . import ssm as ssm_mod
-from .common import (Norm, apply_norm, dtype_of, embed_init, frozen,
-                     make_norm_params, sinusoidal_pos_emb)
+from .common import (Norm, apply_norm, constrain, dtype_of, embed_init,
+                     frozen, hold, hold_batch, is_dtensor, make_norm_params,
+                     sinusoidal_pos_emb)
 
 
 # ---------------------------------------------------------------------------
@@ -290,56 +291,66 @@ def _ffn(cfg, p: TFLayer, h):
     return ffn_mod.dense_ffn(cfg, p.ffn, h), 0.0
 
 
+def _sp_constraint(cfg, x):
+    if cfg.sp_attn and x.dim() == 3 and x.shape[1] > 1:
+        return constrain(x, (None, "model", None))
+    return x
+
+
 def tf_layer_train(cfg, p: TFLayer, x, positions):
     """Full-sequence layer; returns (x, aux, attention entries for the
     cache: (k, v) or MLA's (c_kv, k_rope))."""
-    a, kv = _attn_train(cfg, p.attn, apply_norm(cfg, p.ln1, x), positions)
-    x = x + a
-    f, aux = _ffn(cfg, p, apply_norm(cfg, p.ln2, x))
-    return x + f, aux, kv
+    x = _sp_constraint(cfg, x)
+    a, kv = _attn_train(cfg, p.attn, hold(apply_norm(cfg, p.ln1, x), "ln1"),
+                        positions)
+    x = x + hold(a, "attn out")
+    f, aux = _ffn(cfg, p, hold(apply_norm(cfg, p.ln2, x), "ln2"))
+    return x + hold(f, "ffn out"), aux, kv
 
 
 def tf_layer_decode(cfg, p: TFLayer, x, pos: int, cache):
-    a, cache = _attn_decode(cfg, p.attn, apply_norm(cfg, p.ln1, x), pos,
-                            cache)
-    x = x + a
-    f, _ = _ffn(cfg, p, apply_norm(cfg, p.ln2, x))
-    return x + f, cache
+    a, cache = _attn_decode(cfg, p.attn, hold(apply_norm(cfg, p.ln1, x),
+                                              "ln1"), pos, cache)
+    x = x + hold(a, "attn out")
+    f, _ = _ffn(cfg, p, hold(apply_norm(cfg, p.ln2, x), "ln2"))
+    return x + hold(f, "ffn out"), cache
 
 
 def mamba_layer_train(cfg, p: MambaLayer, x):
     """Returns (x, the layer's recurrent state)."""
-    y, state = ssm_mod.mamba_train(cfg, p.mix, apply_norm(cfg, p.ln, x))
-    return x + y, state
+    y, state = ssm_mod.mamba_train(cfg, p.mix,
+                                   hold(apply_norm(cfg, p.ln, x), "ln"))
+    return x + hold(y, "mix out"), state
 
 
 def mamba_layer_decode(cfg, p: MambaLayer, x, state):
-    y, state = ssm_mod.mamba_decode(cfg, p.mix, apply_norm(cfg, p.ln, x),
+    y, state = ssm_mod.mamba_decode(cfg, p.mix,
+                                    hold(apply_norm(cfg, p.ln, x), "ln"),
                                     state)
-    return x + y, state
+    return x + hold(y, "mix out"), state
 
 
 def hybrid_sub_train(cfg, p: HybridSub, x, positions):
     """Returns (x, RG-LRU state or the attention's (k, v))."""
-    h = apply_norm(cfg, p.ln1, x)
+    h = hold(apply_norm(cfg, p.ln1, x), "ln1")
     if isinstance(p.mix, rg.RGLRU):
         y, entry = rg.rglru_train(cfg, p.mix, h)
     else:
         y, entry = _attn_train(cfg, p.mix, h, positions)
-    x = x + y
-    return x + ffn_mod.dense_ffn(cfg, p.mlp, apply_norm(cfg, p.ln2, x)), \
-        entry
+    x = x + hold(y, "mix out")
+    f = ffn_mod.dense_ffn(cfg, p.mlp, hold(apply_norm(cfg, p.ln2, x), "ln2"))
+    return x + hold(f, "mlp out"), entry
 
 
 def hybrid_sub_decode(cfg, p: HybridSub, x, pos: int, cache):
-    h = apply_norm(cfg, p.ln1, x)
+    h = hold(apply_norm(cfg, p.ln1, x), "ln1")
     if isinstance(p.mix, rg.RGLRU):
         y, cache = rg.rglru_decode(cfg, p.mix, h, cache)
     else:
         y, cache = _attn_decode(cfg, p.mix, h, pos, cache)
-    x = x + y
-    return x + ffn_mod.dense_ffn(cfg, p.mlp, apply_norm(cfg, p.ln2, x)), \
-        cache
+    x = x + hold(y, "mix out")
+    f = ffn_mod.dense_ffn(cfg, p.mlp, hold(apply_norm(cfg, p.ln2, x), "ln2"))
+    return x + hold(f, "mlp out"), cache
 
 
 def layer_train(cfg, layer, x, positions):
@@ -380,6 +391,13 @@ def _embeds(batch, key: str, cfg, device) -> torch.Tensor:
     return e.to(device=device, dtype=dtype_of(cfg))
 
 
+def _lookup(model: LM, tokens):
+    """The token embeddings: ``F.embedding``, whose vocab-parallel rule (and
+    backward) DTensor has on the sharded path, its masked partial sums
+    reduced at once (``hold``, a no-op on plain tensors)."""
+    return hold(torch.nn.functional.embedding(tokens, model.embed), "embed")
+
+
 def _add_sinusoidal(cfg, x, positions):
     return x + sinusoidal_pos_emb(positions, cfg.d_model).to(x.dtype)
 
@@ -392,7 +410,7 @@ def embed_inputs(cfg, model: LM, batch):
         x = _embeds(batch, "frame_embeds", cfg, dev)
         pos = torch.arange(x.shape[1], dtype=torch.int32, device=dev)
         return _add_sinusoidal(cfg, x, pos), pos, 0
-    x = model.embed[_tokens(batch, dev)]
+    x = _lookup(model, _tokens(batch, dev))
     n_prefix = 0
     if cfg.frontend == "vision_patches":
         patches = _embeds(batch, "patch_embeds", cfg, dev)
@@ -409,7 +427,8 @@ def backbone_train(cfg, model: LM, x, positions):
     or None): the per-layer cache entries, in stack order})."""
     entries, aux = {}, 0.0
     for name, sub, _, layer in model.walk():
-        x, aux_i, entry = layer_train(cfg, layer, x, positions)
+        x, aux_i, entry = layer_train(cfg, layer,
+                                      hold_batch(x, "layer input"), positions)
         aux = aux + aux_i
         entries.setdefault((name, sub), []).append(entry)
     return apply_norm(cfg, model.final_norm, x), aux, entries
@@ -419,6 +438,11 @@ def _logits_chunk(cfg, model: LM, h):
     """float32 logits (B, S, V), or (B, S, n_codebooks, V) for the audio
     frontend's heads."""
     if cfg.frontend == "audio_frames":
+        if is_dtensor(h):
+            # one product per codebook (DTensor cannot merge the codebook
+            # dim with the vocab-sharded dim in a batched product)
+            return torch.stack([h.to(torch.float32) @ w
+                                for w in model.heads_f32.unbind(0)], dim=2)
         return torch.einsum("bsd,cdv->bscv", h.to(torch.float32),
                             model.heads_f32)
     logits = h.to(torch.float32) @ model.head_f32.T
@@ -522,6 +546,7 @@ def backbone_loss(cfg, model: LM, x, positions):
     for _, _, _, layer in model.walk():
         def run(h, layer=layer):
             return layer_train(cfg, layer, h, positions)[:2]
+        x = hold_batch(x, "layer input")
         x, aux_i = (checkpoint(run, x, use_reentrant=False) if cfg.remat
                     else run(x))
         aux = aux + aux_i
@@ -539,8 +564,17 @@ def _train_head(cfg, model: LM, h, w):
 
 
 def _nll(logits, labels):
-    """(lse − gold) per position, float32."""
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    """(lse − gold) per position, float32. On the sharded path (DTensor
+    logits, the vocab dim sharded) the gold logit is a masked sum over the
+    vocab, which stays sharded and is exact (one term, the rest zeros):
+    what XLA's partitioner makes of a gather over a sharded dim, and what
+    DTensor's own gather rule fails at."""
+    if is_dtensor(logits):
+        vocab = torch.arange(logits.shape[-1], device=labels.device)
+        gold = torch.where(labels[..., None] == vocab, logits,
+                           torch.zeros((), dtype=logits.dtype)).sum(-1)
+    else:
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
     return torch.logsumexp(logits, dim=-1) - gold
 
 
@@ -640,8 +674,38 @@ def init_caches(cfg, batch: int, max_len: int, device):
                               ("stack", "layers")) if n[key]}
 
 
+def _ring(x, fill, n: int):
+    """The sharded path's cache slots, built without an indexed write: a
+    (B, S, ...) entry at slots pos % n of n, the rest ``fill``."""
+    S = x.shape[1]
+    if S >= n:
+        # slot (S - n + j) % n holds x[S - n + j]: a roll by (S - n) % n,
+        # made of slices (DTensor has no rule for roll in every version)
+        y, shift = x[:, S - n:], (S - n) % n
+        return torch.cat([y[:, n - shift:], y[:, :n - shift]], dim=1) \
+            if shift else y
+    pad = torch.full((x.shape[0], n - S) + tuple(x.shape[2:]), fill,
+                     dtype=x.dtype)
+    return torch.cat([x, pad], dim=1)
+
+
+def _sharded_cache_from_prefill(cfg, kv, max_len: int) -> dict:
+    """``_attn_cache_from_prefill`` on DTensor entries: the same slots,
+    built by roll and concatenation, which keep the entries' sharding."""
+    a, b = kv
+    B, S = a.shape[:2]
+    n = max_len if cfg.attn_type == "mla" else min(
+        max_len, cfg.sliding_window or max_len)
+    pos = torch.arange(S, dtype=torch.int32).expand(B, S)
+    names = ("ckv", "krope") if cfg.attn_type == "mla" else ("k", "v")
+    return {names[0]: _ring(a, 0, n), names[1]: _ring(b, 0, n),
+            "kpos": _ring(pos, -1, n)}
+
+
 def _attn_cache_from_prefill(cfg, kv, max_len: int):
     """Build one layer's decode cache from prefill-produced entries."""
+    if is_dtensor(kv[0]):
+        return _sharded_cache_from_prefill(cfg, kv, max_len)
     if cfg.attn_type == "mla":
         c_kv, k_rope = kv
         B, S = c_kv.shape[:2]
@@ -716,12 +780,12 @@ def decode_step(cfg, model: LM, token_inputs, pos: int, caches, *,
         x = _add_sinusoidal(cfg, _embeds(token_inputs, "frame_embeds", cfg,
                                          dev), at)
     else:
-        x = model.embed[_tokens(token_inputs, dev)]
+        x = _lookup(model, _tokens(token_inputs, dev))
         if cfg.pos_emb == "sinusoidal":
             x = _add_sinusoidal(cfg, x, at)
     for name, sub, i, layer in model.walk():
         stack = caches[name] if sub is None else caches[name][sub]
-        x = layer_decode(cfg, layer, x, pos,
+        x = layer_decode(cfg, layer, hold_batch(x, "layer input"), pos,
                          {k: v[i] for k, v in stack.items()})
     x = apply_norm(cfg, model.final_norm, x)
     return _logits_chunk(cfg, model, x), caches

@@ -1868,3 +1868,140 @@ def test_train_loop_restore_keeps_the_captured_graph(card, tmp_path):
         for x, y in zip(*((v if isinstance(v, list) else [v])
                           for v in (a, b))):
             assert torch.equal(x.detach(), y.detach())
+
+
+# ---------------------------------------------------------------------------
+# The sharded path (-k sharded): each process group in processes of its own
+# ---------------------------------------------------------------------------
+
+_SHARDED_PSUM = r"""
+import json, sys
+import numpy as np, torch, torch.distributed as dist
+rank, world, port, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], \
+    sys.argv[4]
+torch.cuda.set_device(rank % torch.cuda.device_count())
+dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                        rank=rank, world_size=world)
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.optim.grad_compress import psum_compressed
+f32 = np.float32
+gs = [(np.random.default_rng(r).standard_normal((96, 160)) * (1 + r))
+      .astype(f32) for r in range(world)]
+rs = [(np.random.default_rng(50 + r).standard_normal((96, 160)) * 0.01)
+      .astype(f32) for r in range(world)]
+mesh = make_host_mesh()
+ok = []
+for case in ("none", "residual"):
+    gf = [g + r for g, r in zip(gs, rs)] if case == "residual" else gs
+    sc = [np.maximum(np.abs(g).max(), f32(1e-12)) / f32(127.0) for g in gf]
+    codes = [np.clip(np.round(g / s), -127, 127).astype(np.int8)
+             .astype(f32) for g, s in zip(gf, sc)]
+    smax = max(sc)
+    total = sum(np.round(c * (s / smax)).astype(np.int32)
+                for c, s in zip(codes, sc)).astype(f32) * smax
+    res = gf[rank] - codes[rank] * sc[rank]
+    for group in (None, (mesh, "model")):
+        t, r = psum_compressed(
+            torch.from_numpy(gs[rank]).cuda(), group,
+            torch.from_numpy(rs[rank]).cuda() if case == "residual"
+            else None)
+        ok.append(bool(np.array_equal(t.cpu().numpy(), total)
+                       and np.array_equal(r.cpu().numpy(), res)))
+json.dump(ok, open(out, "w"))
+dist.destroy_process_group()
+"""
+
+_SHARDED_RESTORE = r"""
+import json, sys
+import numpy as np, torch
+from repro_torch.configs import get_config
+from repro_torch.ckpt import checkpoint
+from repro_torch.launch import sharding
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import init_params
+from repro_torch.train.step import opt_layout, trainable_params
+d, out = sys.argv[1], sys.argv[2]
+cfg = get_config("qwen3-4b", smoke=True, quant="pim_w4")
+mesh = make_host_mesh()
+model = init_params(cfg, 3)
+p_shard, _ = sharding.param_shardings(cfg, mesh, model)
+sharding.distribute_model(model, mesh, p_shard)
+ps = trainable_params(model)
+layout = opt_layout(model)
+skeleton = checkpoint.train_state(model, {"mu": ps, "nu": ps, "step": 0})
+zero = lambda t: {k: zero(v) if isinstance(v, dict) else 0
+                  for k, v in t.items()}
+skeleton["opt"] = {"mu": zero(layout["mu"]), "nu": zero(layout["nu"]),
+                   "step": 0}
+tree, _ = checkpoint.restore(d, 1, skeleton, shardings={
+    "opt": sharding.opt_shardings(mesh, layout, p_shard)})
+got = {}
+for k, v in checkpoint._flatten(tree).items():
+    ts = v.tensors if isinstance(v, checkpoint.Stacked) else [v]
+    assert all(t.device.type == "cuda" and hasattr(t, "full_tensor")
+               for t in ts), k
+    full = torch.stack([t.full_tensor() for t in ts])
+    full = full if isinstance(v, checkpoint.Stacked) else full[0]
+    if full.dtype == torch.bfloat16:
+        full = full.view(torch.int16)
+    got[k] = full.detach().cpu().numpy()
+np.savez(out, **{k.replace("/", "__"): v for k, v in got.items()})
+"""
+
+
+def _sharded_run(code, *args):
+    import os
+    import subprocess
+    import sys
+    env = dict(os.environ, PYTHONPATH=os.path.join(
+        os.path.dirname(__file__), "..", "src"))
+    return subprocess.Popen([sys.executable, "-c", code, *map(str, args)],
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def test_sharded_psum_compressed_over_nccl(card, tmp_path):
+    """``psum_compressed`` over NCCL, a rank per card, with the default
+    group and with a host mesh's "model" dim: each rank's total and
+    residual equal numpy's computation of the reference's formula bit for
+    bit, with and without a residual."""
+    import json
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    n = torch.cuda.device_count()
+    outs = [tmp_path / f"rank{r}.json" for r in range(n)]
+    procs = [_sharded_run(_SHARDED_PSUM, r, n, port, o)
+             for r, o in enumerate(outs)]
+    for p in procs:
+        _, err = p.communicate(timeout=300)
+        assert p.returncode == 0, err[-3000:]
+    for o in outs:
+        assert json.loads(o.read_text()) == [True] * 4
+
+
+def test_sharded_restore_on_the_card(card, tmp_path):
+    """A checkpoint of the smoke-size pim_w4 model's training state
+    restored onto ``make_host_mesh()`` (one NCCL rank) with
+    ``param_shardings``' and ``opt_shardings``' placements: every leaf a
+    DTensor on the card, gathered bit for bit."""
+    cfg = get_config("qwen3-4b", smoke=True, quant="pim_w4")
+    donor = init_params(cfg, 4, device="cpu")
+    opt = init_train_state(donor)
+    gen = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for t in opt["mu"] + opt["nu"]:
+            t.copy_(torch.randn(t.shape, generator=gen))
+    opt["step"] = torch.tensor(3, dtype=torch.int32)
+    d = str(tmp_path / "ckpt")
+    checkpoint.save(d, 1, checkpoint.train_state(donor, opt))
+    out = tmp_path / "got.npz"
+    p = _sharded_run(_SHARDED_RESTORE, d, out)
+    _, err = p.communicate(timeout=300)
+    assert p.returncode == 0, err[-3000:]
+    got = dict(np.load(out).items())
+    want = _ckpt_arrays(d, 1)
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        assert np.array_equal(got[k].view(w.dtype), w), k

@@ -38,7 +38,9 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.data, repro_torch.data.pipeline, "
             "repro_torch.data.synthetic, repro_torch.ckpt, "
             "repro_torch.ckpt.checkpoint, repro_torch.train.loop, "
-            "repro_torch.train.fault, repro_torch.launch.train\n"
+            "repro_torch.train.fault, repro_torch.launch.train, "
+            "repro_torch.launch.mesh, repro_torch.launch.sharding, "
+            "repro_torch.launch.roofline, repro_torch.launch.dryrun\n"
             "bad = [m for m in sys.modules if m in ('jax', 'repro', "
             "'ml_dtypes') or m.startswith(('jax.', 'repro.', 'ml_dtypes.'))]\n"
             "assert not bad, bad\n")
@@ -60,6 +62,9 @@ def test_no_source_file_imports_jax_or_the_reference():
         with open(path) as f:
             text = f.read()
         assert not FORBIDDEN.search(text), path
+        # the dry-run traces on a fake process group, not on XLA's forced
+        # host devices
+        assert "XLA_FLAGS" not in text, path
 
 
 def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
