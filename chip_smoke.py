@@ -501,6 +501,12 @@ OPS = ("not", "and", "or", "xor", "maj")
 # paper's Tables 4 and 5.
 LINT_FIXTURE = ROOT / "tests" / "fixtures" / "lint" / "pim104.trace"
 LINT_100K = 100_000
+# Phases 3-4's graphs: the pipeline's steps, the workload's steps per phase
+# (phase 4's three layouts) and its interleaved order, warm calls timed
+GRAPH_PIPE_STEPS = 16
+GRAPH_WORKLOAD_STEPS = (2, 2, 2)
+GRAPH_ORDER = (0, 1, 2, 0, 1, 2)
+GRAPH_REPLAYS = 5
 FRONT_TENANTS = 8            # six on the serving bench's stream, two on XOR
 FRONT_STREAM_TENANTS = 6
 FRONT_BANKS = 4              # banks per tenant: 8 x 4 = the device's 32
@@ -905,55 +911,108 @@ class RowTally:
         return False
 
 
+def row_records(top) -> dict:
+    """The row entries' and the meter fold's kernel records in a profiler
+    window (``device_share``'s ``top``), by kernel."""
+    out: dict = {}
+    for k in top:
+        for kernel in ("shift_rows_kernel", "bitwise_rows_kernel",
+                       "meter_fold_kernel"):
+            if kernel in k["name"]:
+                out[kernel] = out.get(kernel, 0) + k["count"]
+    return out
+
+
+def captured_rows(replayed) -> int:
+    """The row-entry launches that the replayed graphs' captures recorded:
+    their nodes' label, not a launch count."""
+    return sum(n for g in replayed for (counter, key), n in g.kernels.items()
+               if counter == "launches" and key in ("bitwise_rows",
+                                                    "shift_rows"))
+
+
 def launch_count(torch, name, fn) -> dict:
-    """``fn`` once, warm, under the profiler, the segments it runs tallied:
-    the card's operations (kernels, copies and fills) in the window, those
-    of the row entries' kernels, and the segments and rows that took them.
-    Fails unless the row entries launched once per segment and row (their
-    counts), if the profiler saw more row kernels than that, or if an old
-    out-of-place entry ran. The profiler has been seen to miss one kernel
-    record of a few dozen on the card; a row kernel it misses must then
-    show as a runtime launch call without a kernel record."""
+    """``fn`` three times with the PIM graphs dropped first: the first call
+    runs eagerly, the second captures its graph (a one-off program, such as
+    a VM flush, runs eagerly again), the third replays it under the
+    profiler. The segments and rows are tallied at the second call (at
+    capture the segment walk runs once, as it does eagerly); the third's
+    window holds the card's operations (kernels, copies and fills), the
+    row entries' kernel records and its graph and kernel launches. Fails
+    unless the row entries ran once per segment and row: launched by the
+    wrappers in the window (their counts, which a replay does not move) or
+    recorded into the replayed graph at its capture; if the profiler saw
+    more row kernels than that, or another number inside a replayed graph;
+    or if an old out-of-place entry ran. The profiler has been seen to miss
+    one kernel record of a few dozen on the card; a row kernel it misses
+    outside a graph must then show as a runtime launch call without a
+    kernel record."""
+    from repro_torch.core.pim import graphs
     from repro_torch.kernels.rowops import ops
+    graphs._entries.clear()
+    graphs._seen.clear()
     fn()
     torch.cuda.synchronize()
-    ops.reset_launches()
     with RowTally() as tally:
+        fn()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    graphs._replay_log = []
+    try:
         sh = device_share(torch, fn)
-    row_kernels = sum(k["count"] for k in sh["top"]
-                      if "shift_rows_kernel" in k["name"]
-                      or "bitwise_rows_kernel" in k["name"])
-    scratch = ops.SHIFT_ROUTES["scratch"]
+        replayed = graphs._replay_log
+    finally:
+        graphs._replay_log = None
+    records = row_records(sh["top"])
+    row_kernels = (records.get("shift_rows_kernel", 0)
+                   + records.get("bitwise_rows_kernel", 0))
+    scratch = ops.SHIFT_ROUTES["scratch"] + sum(
+        g.kernels.get(("routes", "scratch"), 0) for g in replayed)
     kernels = sum(k["count"] for k in sh["top"]
                   if not k["name"].startswith(("Memcpy", "Memset")))
     rec = dict(device_ops=sum(k["count"] for k in sh["top"]),
                launch_calls=sh["launch_calls"], kernel_records=kernels,
+               graph_launches=sh["graph_launches"],
+               graph_nodes=[g.nodes for g in replayed],
                top=sh["top"],
                row_kernels=row_kernels, rows=tally.rows,
                wrapper_launches=ops.LAUNCHES["bitwise_rows"]
-               + ops.LAUNCHES["shift_rows"], scratch_copies=scratch,
+               + ops.LAUNCHES["shift_rows"],
+               captured_rows=captured_rows(replayed), scratch_copies=scratch,
                old_entries=(ops.LAUNCHES["bitwise"]
-                            + ops.LAUNCHES["shift_cols"]),
+                            + ops.LAUNCHES["shift_cols"]
+                            + sum(g.kernels.get(("launches", k), 0)
+                                  for g in replayed
+                                  for k in ("bitwise", "shift_cols"))),
                before=BEFORE_OPS.get(name), wall_ms=sh["wall_ms"],
                device_ms=sh["device_ms"])
-    unrecorded = rec["launch_calls"] - kernels
-    if not (rec["wrapper_launches"] == rec["rows"] >= rec["row_kernels"]
+    unrecorded = max(rec["launch_calls"] - kernels, 0)
+    if not (rec["wrapper_launches"] + rec["captured_rows"] == rec["rows"]
+            >= rec["row_kernels"]
             and rec["rows"] - rec["row_kernels"] <= unrecorded
-            and rec["old_entries"] == 0):
+            and (not replayed or rec["row_kernels"] == rec["captured_rows"])
+            and rec["old_entries"] == 0
+            and rec["graph_launches"] == len(replayed)):
         raise AssertionError(f"launches {name}: {rec}")
     return rec
 
 
 def say_launches(counts: dict) -> None:
-    say("launches per run (device operations in the profiler window; row "
-        "kernels = fused segments + residual SHIFT/TRA/NOT rows, one launch "
-        "each; before: torch ops the executor dispatched before the row "
-        "entries, at commit edcfc58, counted on the CPU): " + "; ".join(
-            f"{k} {v['device_ops']} ({v['wrapper_launches']} row-entry "
-            f"launches for {v['rows']} segments and rows, "
+    say("launches per run (device operations in the profiler window of a "
+        "warm call; row kernels = fused segments + residual SHIFT/TRA/NOT "
+        "rows, one kernel each, tallied at capture; before: torch ops the "
+        "executor dispatched before the row entries, at commit edcfc58, "
+        "counted on the CPU): " + "; ".join(
+            f"{k} {v['device_ops']} ({v['graph_launches']} graph launches"
+            + (f" of {'/'.join(map(str, v['graph_nodes']))} nodes"
+               if v["graph_nodes"] else "")
+            + f", {v['launch_calls']} kernel launches outside graphs, "
+            f"{v['wrapper_launches']} row-entry launches by the wrappers "
+            f"and {v['captured_rows']} recorded in the replayed graph for "
+            f"{v['rows']} segments and rows, "
             f"{v['row_kernels']} row kernels in the profiler, "
-            f"{v['launch_calls'] - v['kernel_records']} launch calls "
-            "without a kernel record"
+            f"{max(v['launch_calls'] - v['kernel_records'], 0)} launch "
+            "calls without a kernel record"
             + (f", {v['scratch_copies']} scratch copies"
                if v["scratch_copies"] else "")
             + (f"; before {v['before']}" if v["before"] else "") + ")"
@@ -1210,6 +1269,246 @@ def check_device(torch, gpu_results, cpu_results):
         if not (torch.isfinite(g.wall_ns) and float(g.wall_ns) > 0
                 and float(g.energy_nj) > 0):
             raise AssertionError(f"device step {k}: bad wall/energy")
+
+
+# ---------------------------------------------------------------------------
+# Phases 3-4, graphs: each PIM entry's warm call one CUDA-graph replay
+# ---------------------------------------------------------------------------
+
+def _rows_equal(torch, a, b) -> bool:
+    """Two nested tuples of row or float32 tensors (or plain numbers)
+    equal, float32 as bit patterns."""
+    if isinstance(a, (tuple, list)):
+        return (isinstance(b, (tuple, list)) and len(a) == len(b)
+                and all(_rows_equal(torch, x, y) for x, y in zip(a, b)))
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        x = torch.as_tensor(a).cpu()
+        y = torch.as_tensor(b).cpu()
+        if x.dtype == torch.float32:
+            x = x.view(torch.int32)
+        if y.dtype == torch.float32:
+            y = y.view(torch.int32)
+        return x.shape == y.shape and torch.equal(x, y)
+    return a == b
+
+
+def results_equal(torch, a, b) -> bool:
+    """Two results of one PIM entry bit for bit: states (rows, migration
+    and DCC rows, every meter field, the async credit), reads, and per
+    step ``wall_ns``, ``energy_nj``, hidden host time and (workloads) the
+    boundary credit."""
+    import numpy as np
+    from repro_torch.core import pim
+    if isinstance(a, VMRun):
+        return (states_equal(torch, a.state, b.state)
+                and len(a.values) == len(b.values)
+                and all(np.array_equal(x, y)
+                        for x, y in zip(a.values, b.values)))
+    if isinstance(a, pim.ExecResult):
+        return (states_equal(torch, a.state, b.state)
+                and reads_equal(torch, a.reads, b.reads))
+    if not (states_equal(torch, a.state.banks, b.state.banks)
+            and _rows_equal(torch, a.state.host_credit_ns,
+                            b.state.host_credit_ns)):
+        return False
+    pa = a.phases if hasattr(a, "phases") else (a,)
+    pb = b.phases if hasattr(b, "phases") else (b,)
+    return len(pa) == len(pb) and all(
+        _rows_equal(torch, x._group_reads, y._group_reads)
+        and _rows_equal(torch, (x.wall_ns, x.energy_nj,
+                                x.host_overlap_ns_lazy,
+                                getattr(x, "_boundary_credit_ns", 0.0)),
+                        (y.wall_ns, y.energy_nj, y.host_overlap_ns_lazy,
+                         getattr(y, "_boundary_credit_ns", 0.0)))
+        for x, y in zip(pa, pb))
+
+
+class VMRun(tuple):
+    """A single-bank VM's state and the values its run returned, flat."""
+
+    state = property(lambda self: self[0])
+    values = property(lambda self: self[1])
+
+
+def vm_one_bank(device):
+    """A single-bank VM at phase 10's row size (``VM_ROWS`` x
+    ``VM_WORDS``): its recorded runs go through ``exec``'s pipeline and
+    workload runners."""
+    from repro_torch.core.bitplane import PimVM
+    return PimVM(width=8, num_rows=VM_ROWS, words=VM_WORDS, device=device)
+
+
+def vm_graph_runs(seed: int = 31):
+    """``(run_pipeline, run_workload)`` calls on a single-bank VM: four
+    ripple-add steps, then those and three xtime steps as two phases. Each
+    returns a ``VMRun``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lanes = VM_WORDS * 32 // 8
+    xs = [(rng.integers(0, 256, lanes), rng.integers(0, 256, lanes))
+          for _ in range(4)]
+    ys = [rng.integers(0, 256, lanes) for _ in range(3)]
+
+    def flat(outs):
+        return [np.asarray(v) for seq in outs for v in
+                (seq if isinstance(seq, (list, tuple)) else [seq])]
+
+    def pipe(vm):
+        return VMRun((vm.state, flat(vm.run_pipeline(_add_step, xs))))
+
+    def workload(vm):
+        return VMRun((vm.state, flat(vm.run_workload(
+            [(_add_step, xs), (_xtime_step, ys)]))))
+
+    return pipe, workload
+
+
+def graph_entries(cfg, steps) -> dict:
+    """name -> (input kind, call, graph launches of a warm call): the PIM
+    entries at full geometry whose warm call is one CUDA-graph replay,
+    ``schedule_workload`` with ``order=`` one replay per step. The
+    workload's three phases are phase 4's three steps' layouts with their
+    async flags, two steps each. The VM's runs take a fresh single-bank VM
+    (kind ``vm``), made outside the timed window."""
+    from repro_torch.core import pim
+    prog = pim.shift_workload_program(1000)
+    (l0, f0), (l1, _), _ = steps
+    phases = [pim.Phase.repeat(lay, n, async_host=bool(f.get("async_host")))
+              for (lay, f), n in zip(steps, GRAPH_WORKLOAD_STEPS)]
+    vm_pipe, vm_workload = vm_graph_runs()
+    return {
+        "execute(shift_workload(1000))": (
+            "subarray", lambda st: pim.execute(prog, st), 1),
+        "VM run_pipeline (1 bank)": ("vm", vm_pipe, 1),
+        "VM run_workload (1 bank)": ("vm", vm_workload, 1),
+        "schedule() step 1": (
+            "device", lambda dev: pim.schedule(dev, l0, **f0), 1),
+        f"schedule_pipeline {GRAPH_PIPE_STEPS} steps": (
+            "device", lambda dev: pim.schedule_pipeline(
+                dev, l1, n_steps=GRAPH_PIPE_STEPS, async_host=True), 1),
+        "schedule_workload 3 phases": (
+            "device", lambda dev: pim.schedule_workload(dev, phases,
+                                                        refresh=True), 1),
+        "schedule_workload order=": (
+            "device", lambda dev: pim.schedule_workload(
+                dev, phases, order=GRAPH_ORDER, refresh=True),
+            len(GRAPH_ORDER)),
+    }
+
+
+def graph_kernels(sh, replayed) -> dict:
+    """The row kernels of a warm call's profiler window, by kernel, beside
+    those its replayed graphs' captures recorded (their label). Fails
+    unless the two agree: the window's row and fold kernels are the
+    graphs'."""
+    got = row_records(sh["top"])
+    label: dict = {}
+    for g in replayed:
+        for (counter, key), n in g.kernels.items():
+            if counter == "launches" and key in ("shift_rows",
+                                                 "bitwise_rows",
+                                                 "meter_fold"):
+                label[f"{key}_kernel"] = label.get(f"{key}_kernel", 0) + n
+    if got != label:
+        raise AssertionError(f"graph kernels: the profiler saw {got}, the "
+                             f"replayed graphs hold {label}")
+    return got
+
+
+def phase_graphs(torch, device, cfg, steps) -> dict:
+    """Each PIM entry's first call (eager), second (capture, then one
+    replay) and warm calls (replays, median of GRAPH_REPLAYS) on the host
+    clock, with the graphs dropped before the first; the three card calls
+    and the CPU's bit for bit; a warm call under the profiler: its kernel
+    ms, graph and kernel launches (exactly the entry's replays and none
+    outside a graph, else the run fails), its graphs' nodes, the capture
+    ms and the pool bytes the captures reserved."""
+    import importlib
+    from repro_torch.core.pim import graphs
+    sched = importlib.import_module("repro_torch.core.pim.schedule")
+    inputs = {"subarray": {w: subarray_state(torch, w)
+                           for w in (device, "cpu")},
+              "device": {w: device_start(torch, w, cfg)
+                         for w in (device, "cpu")}}
+
+    def arg_for(kind, where):
+        return vm_one_bank(where) if kind == "vm" else inputs[kind][where]
+
+    out = {}
+    for name, (kind, call, n_replays) in graph_entries(cfg, steps).items():
+        times = []
+        graphs._entries.clear()
+        graphs._seen.clear()
+        results = []
+        for k in range(2 + GRAPH_REPLAYS):
+            arg = arg_for(kind, device)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            results.append(call(arg))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            if k == 0 and graphs._entries:
+                raise AssertionError(f"graphs {name}: the first call "
+                                     "captured a graph")
+        held = [e for e in graphs._entries.values()
+                if isinstance(e, graphs._Graph)]
+        cpu = call(arg_for(kind, "cpu"))
+        for k, r in enumerate(results):
+            if not results_equal(torch, r, cpu):
+                raise AssertionError(f"graphs {name}: call {k + 1} on the "
+                                     "card differs from the CPU")
+        if not results_equal(torch, results[0], call(arg_for(kind, device))):
+            raise AssertionError(f"graphs {name}: a later call changed the "
+                                 "first call's result")
+        arg = arg_for(kind, device)
+        d0 = sched.SCHED_STATS["dispatches"]
+        graphs._replay_log = []
+        try:
+            sh = device_share(torch, lambda: call(arg))
+            replayed = graphs._replay_log
+        finally:
+            graphs._replay_log = None
+        rec = dict(first_ms=times[0], second_ms=times[1],
+                   capture_ms=sum(g.capture_ms for g in held),
+                   replayed_ms=statistics.median(times[2:]),
+                   replayed_ms_all=times[2:], kernel_ms=sh["device_ms"],
+                   graph_launches=sh["graph_launches"],
+                   kernel_launches=sh["launch_calls"],
+                   dispatches=sched.SCHED_STATS["dispatches"] - d0,
+                   graphs=len(held), nodes=[g.nodes for g in held],
+                   replayed_nodes=[g.nodes for g in replayed],
+                   graph_kernels=graph_kernels(sh, replayed),
+                   pool_bytes=sum(g.pool_bytes for g in held),
+                   pinned_bytes=sum(g.nbytes for g in held),
+                   profile_wall_ms=sh["wall_ms"])
+        if (rec["graph_launches"], rec["kernel_launches"],
+                len(replayed)) != (n_replays, 0, n_replays):
+            raise AssertionError(f"graphs {name}: {rec['graph_launches']} "
+                                 f"graph launches ({len(replayed)} replays) "
+                                 f"and {rec['kernel_launches']} kernel "
+                                 f"launches per warm call, not "
+                                 f"{n_replays} and 0")
+        out[name] = rec
+        say(f"graphs {name}: first call {rec['first_ms']:.2f} ms (eager), "
+            f"second {rec['second_ms']:.2f} ms (capture "
+            f"{rec['capture_ms']:.2f} ms of it, then one replay), replayed "
+            f"{rec['replayed_ms']:.3f} "
+            f"ms (median of {GRAPH_REPLAYS}; "
+            + ", ".join(f"{t:.3f}" for t in times[2:])
+            + f") beside {rec['kernel_ms']:.3f} ms of kernels; "
+            f"{rec['graph_launches']} cudaGraphLaunch and "
+            f"{rec['kernel_launches']} kernel launches per warm call, "
+            f"dispatches {rec['dispatches']}; {rec['graphs']} graph(s) of "
+            + "/".join(map(str, rec["nodes"])) + " nodes (replayed: "
+            + "/".join(map(str, rec["replayed_nodes"])) + ", their kernel "
+            "records in the profiler " + json.dumps(rec["graph_kernels"])
+            + "); pool "
+            f"{rec['pool_bytes']} bytes reserved at capture, "
+            f"{rec['pinned_bytes']} bytes of static inputs and outputs; "
+            "== eager first call == CPU, bit for bit")
+    graphs._entries.clear()
+    graphs._seen.clear()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3491,7 +3790,8 @@ def run_bitplane(torch, device, seed=21, check_oracles=False):
     xs = [(rng.integers(0, 256, VM_WORDS * 4),
            rng.integers(0, 256, VM_WORDS * 4)) for _ in range(4)]
     ys = [rng.integers(0, 256, VM_WORDS * 4) for _ in range(3)]
-    runs = {}
+    runs, dispatches = {}, {}
+    sched = importlib.import_module("repro_torch.core.pim.schedule")
     for mode in ("run", "stepwise"):
         vm = PimVM(width=8, num_rows=VM_ROWS, words=VM_WORDS, n_banks=8,
                    async_host=True, device=device)
@@ -3499,6 +3799,7 @@ def run_bitplane(torch, device, seed=21, check_oracles=False):
         # pipeline step a new mask would be host-written at every step
         for pattern in (0xFE, 0xFC, 0xF0, 0x7F, 0x3F, 0x0F, 0x80, 0x1B):
             vm.mask(pattern)
+        d0 = sched.SCHED_STATS["dispatches"]
         if mode == "run":
             out, host_ms = _timed(torch, device, lambda: (
                 vm.run_pipeline(_add_step, xs),
@@ -3518,6 +3819,7 @@ def run_bitplane(torch, device, seed=21, check_oracles=False):
 
             out, host_ms = _timed(torch, device, stepwise)
         runs[mode] = (vm, out, host_ms)
+        dispatches[mode] = sched.SCHED_STATS["dispatches"] - d0
     (vr, (p, w), ms_r), (vw, (p2, w2), ms_w) = runs["run"], runs["stepwise"]
     flat = lambda o: [v for seq in o for v in seq]
     if not (all(np.array_equal(x, y) for x, y in zip(p + flat(w),
@@ -3528,7 +3830,10 @@ def run_bitplane(torch, device, seed=21, check_oracles=False):
                              "same steps flushed one by one")
     values["run_pipeline+run_workload"] = (p + flat(w), _meters(vr))
     record["runs"] = dict(run_host_ms=ms_r, stepwise_host_ms=ms_w,
-                          run_ns=vr.time_ns, stepwise_ns=vw.time_ns)
+                          run_ns=vr.time_ns, stepwise_ns=vw.time_ns,
+                          run_dispatches=dispatches["run"],
+                          stepwise_dispatches=dispatches["stepwise"],
+                          steps=len(xs) + 2 + len(ys))
     return values, record
 
 
@@ -3568,13 +3873,13 @@ def profile_vm(torch, device):
 
 def vm_runs(torch, device, name):
     """``fn`` for launch_count: each call runs routine ``name`` on the next
-    of two VMs built (8 KB rows, operands loaded) ahead of the window, and
-    reads its result: one flush."""
+    of three VMs built (8 KB rows, operands loaded) ahead of the window,
+    and reads its result: one flush."""
     import numpy as np
     from repro_torch.core.bitplane import PimVM
     rng = np.random.default_rng(23)
     vms = []
-    for _ in range(2):
+    for _ in range(3):
         vm = PimVM(width=8, num_rows=VM_ROWS, words=VM_WORDS, device=device)
         vms.append((vm, vm.load(rng.integers(0, 256, vm.lanes)),
                     vm.load(rng.integers(0, 256, vm.lanes))))
@@ -3612,7 +3917,12 @@ def say_bitplane(record):
     rr = record["runs"]
     say(f"bitplane run_pipeline + run_workload (8 banks, async) == the same "
         f"steps flushed one by one; host ms {rr['run_host_ms']:.1f} vs "
-        f"{rr['stepwise_host_ms']:.1f}; DDR3 wall {rr['run_ns']:.1f} ns vs "
+        f"{rr['stepwise_host_ms']:.1f} ({rr['steps']} steps: "
+        f"{rr['run_host_ms'] / rr['steps']:.2f} vs "
+        f"{rr['stepwise_host_ms'] / rr['steps']:.2f} ms per step; "
+        f"dispatches per step {rr['run_dispatches'] / rr['steps']:.3f} vs "
+        f"{rr['stepwise_dispatches'] / rr['steps']:.3f}, each call a first "
+        f"call, run eagerly); DDR3 wall {rr['run_ns']:.1f} ns vs "
         f"{rr['stepwise_ns']:.1f} ns")
 
 
@@ -3855,7 +4165,7 @@ def phase_front(torch, device, cfg) -> tuple[dict, dict]:
     Returns (record, launches of the measured run)."""
     import numpy as np
     from repro_torch.core import pim
-    from repro_torch.core.pim import lint
+    from repro_torch.core.pim import graphs, lint
     from repro_torch.kernels.rowops import ops
     from repro_torch.serve import pim_front
     sched = importlib.import_module("repro_torch.core.pim.schedule")
@@ -3901,15 +4211,37 @@ def phase_front(torch, device, cfg) -> tuple[dict, dict]:
             or "over-subscribed" not in refused["greedy"][0]:
         raise AssertionError(f"front refusals: {refused}")
 
-    # warm: the same tenants again, plans cached
+    # warm: the same tenants again, plans cached (the window's graph
+    # captured), then a third time (replayed)
     torch.cuda.synchronize()
     t = time.perf_counter()
     warm, warm_results = run_front(torch, device, cfg, workloads)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t
     front_equal(torch, front, results, warm, warm_results)
-    share = device_share(torch, lambda: run_front(torch, device, cfg,
-                                                  workloads))
+    d0 = sched.SCHED_STATS["dispatches"]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rep, rep_results = run_front(torch, device, cfg, workloads)
+    torch.cuda.synchronize()
+    replayed_s = time.perf_counter() - t
+    replayed_dispatches = sched.SCHED_STATS["dispatches"] - d0
+    front_equal(torch, front, results, rep, rep_results)
+    # a fourth run, replayed, under the profiler: its kernels are read from
+    # the profiler's records, since a replay moves no wrapper's count
+    graphs._replay_log = []
+    try:
+        share = device_share(torch, lambda: run_front(torch, device, cfg,
+                                                      workloads))
+        replayed = graphs._replay_log
+    finally:
+        graphs._replay_log = None
+    replayed_launches = dict(
+        graph_kernels(share, replayed), graph_launches=share[
+            "graph_launches"], kernel_launches=share["launch_calls"])
+    if share["graph_launches"] != len(replayed) or not replayed:
+        raise AssertionError(f"front: {share['graph_launches']} graph "
+                             f"launches for {len(replayed)} replays")
 
     # the admission lint alone, cold, on each kind of tenant's layout
     lint_ms = {}
@@ -3963,8 +4295,13 @@ def phase_front(torch, device, cfg) -> tuple[dict, dict]:
            "steps": FRONT_STEPS, "cold_s": cold_s, "warm_s": warm_s,
            "steps_per_s_cold": FRONT_STEPS / cold_s,
            "steps_per_s_warm": FRONT_STEPS / warm_s,
+           "replayed_s": replayed_s,
+           "steps_per_s_replayed": FRONT_STEPS / replayed_s,
            "dispatches": dispatches, "dispatches_per_step":
                dispatches / FRONT_STEPS,
+           "replayed_dispatches": replayed_dispatches,
+           "replayed_launches": replayed_launches,
+           "replayed_dispatches_per_step": replayed_dispatches / FRONT_STEPS,
            "coalescing": [r.coalescing for r in results],
            "groups": [r.n_groups for r in results],
            "p50_wall_ns": float(np.percentile(walls, 50)),
@@ -3982,7 +4319,11 @@ def phase_front(torch, device, cfg) -> tuple[dict, dict]:
         + f" ({', '.join(map(str, rec['groups']))} stream groups for "
         f"{cfg.n_slots} slots); {rec['steps_per_s_cold']:.2f} steps/s cold "
         f"(admission, plans, {FRONT_STEPS} steps: {cold_s * 1e3:.1f} ms), "
-        f"{rec['steps_per_s_warm']:.2f} warm; step wall_ns (DDR3 model) "
+        f"{rec['steps_per_s_warm']:.2f} warm (the window's graph captured: "
+        f"{warm_s * 1e3:.1f} ms), {rec['steps_per_s_replayed']:.2f} "
+        f"replayed ({replayed_s * 1e3:.1f} ms, {replayed_dispatches} "
+        f"dispatches, {rec['replayed_dispatches_per_step']:.4f} per step); "
+        "step wall_ns (DDR3 model) "
         f"p50 {rec['p50_wall_ns']:.1f} p99 {rec['p99_wall_ns']:.1f}; host "
         "ms per admission (submit: shapes, lint once per distinct layout, "
         "placement): " + ", ".join(f"{v:.2f}" for v in admission_ms)
@@ -4463,19 +4804,19 @@ def main() -> int:
     state = subarray_state(torch, device)
     for name, prog, refresh in subarray_programs():
         times = []
-        for _ in range(3):
+        for _ in range(5):        # eager, capture, then three replays
             torch.cuda.synchronize()
             t = time.perf_counter()
             pim.execute(prog, state, refresh=refresh)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t) * 1e3)
-        t_exec[name] = statistics.median(times)
+        t_exec[name] = statistics.median(times[2:])
     record["execute_ms"] = t_exec
     say("subarray 512x2048: execute == eager ISA (card) == execute (CPU) "
         f"for {len(t_exec)} programs; shift x1 meter {float(m1.time_ns):.1f}"
         f" ns / {float(m1.total_energy_nj):.2f} nJ (DDR3 model output; "
         "paper 208.7 ns / 31.32 nJ); "
-        "ms per execute on the card: "
+        "ms per warm execute on the card (replayed, median of 3): "
         + ", ".join(f"{k} {v:.2f}" for k, v in t_exec.items()))
 
     cpu_results = run_device(torch, "cpu", cfg, steps)
@@ -4500,15 +4841,22 @@ def main() -> int:
     say(f"device paper_device(32, subarrays=2): {cfg.n_slots} slots, "
         f"{mib:.0f} MiB of rows on the card; 3 schedule() steps == CPU run "
         "(states, reads, wall_ns, energy_nj, copy and bus stats); "
-        "ms per schedule() step on the card: "
+        "ms per warm schedule() step on the card (replayed): "
         + ", ".join(f"{t:.2f}" for t in t_steps))
+
+    # each PIM entry's warm call one CUDA-graph replay
+    record["graphs"] = phase_graphs(torch, device, cfg, steps)
 
     # where the time goes: one warm execute and one warm schedule step
     start = device_start(torch, device, cfg)
+    prog1000 = pim.shift_workload_program(1000)
+    prog_xor = pim.ambit_xor_program(512, 2048)
+    for _ in range(2):                  # eager, then capture
+        pim.execute(prog1000, state)
+        pim.schedule(start, steps[0][0], **steps[0][1])
     shares = {
         "execute(shift_workload(1000))": device_share(
-            torch, lambda: pim.execute(pim.shift_workload_program(1000),
-                                       state)),
+            torch, lambda: pim.execute(prog1000, state)),
         "schedule() step 1": device_share(
             torch, lambda: pim.schedule(start, steps[0][0], **steps[0][1])),
     }
@@ -4536,10 +4884,10 @@ def main() -> int:
     counts = record["launch_counts"] = {
         "execute(shift_workload(1000))": launch_count(
             torch, "execute(shift_workload(1000))",
-            lambda: pim.execute(pim.shift_workload_program(1000), state)),
+            lambda: pim.execute(prog1000, state)),
         "execute(ambit_xor)": launch_count(
             torch, "execute(ambit_xor)",
-            lambda: pim.execute(pim.ambit_xor_program(512, 2048), state)),
+            lambda: pim.execute(prog_xor, state)),
         "schedule() step 1": launch_count(
             torch, "schedule() step 1",
             lambda: pim.schedule(start, steps[0][0], **steps[0][1])),
@@ -4700,7 +5048,9 @@ def main() -> int:
     # 14. the serving front end at full width, with the launch counts reset
     # just before its measured run and read just after it
     record["front"], front_launches = phase_front(torch, device, cfg)
-    say("kernels front " + json.dumps(front_launches))
+    say("kernels front " + json.dumps(front_launches) + "; a replayed run "
+        "(kernel records in its profiler window) " + json.dumps(
+            record["front"]["replayed_launches"]))
     missing = [k for k in ("shift_rows", "bitwise_rows[maj]",
                            "bitwise_rows[not]", "meter_fold")
                if front_launches[k] == 0]
@@ -4711,6 +5061,22 @@ def main() -> int:
         raise AssertionError("the front launched the old out-of-place "
                              "entries")
     record["front"]["launches"] = front_launches
+
+    # the PIM path's graphs dropped before the LM phases: their memory back
+    from repro_torch.core.pim import graphs as pim_graphs
+    torch.cuda.synchronize()
+    held = list(pim_graphs._entries.values())
+    before = torch.cuda.memory_allocated()
+    pinned = sum(g.nbytes for g in held)
+    del held
+    pim_graphs._entries.clear()
+    pim_graphs._seen.clear()
+    torch.cuda.synchronize()
+    record["pim_graphs_freed"] = dict(
+        pinned_bytes=pinned,
+        freed_bytes=before - torch.cuda.memory_allocated())
+    say(f"pim graphs dropped: {pinned} bytes of static inputs and outputs "
+        f"pinned, {record['pim_graphs_freed']['freed_bytes']} bytes freed")
 
     # 15. Tables 4 and 5
     record["tables"] = phase_tables(torch, device)

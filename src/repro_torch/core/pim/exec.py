@@ -26,6 +26,13 @@ kernels for a CUDA state and run their plain versions for a CPU state, so
 ``use_kernels`` (``None``: follow the device) changes nothing on the CPU,
 and ``use_kernels=False`` on a CUDA state raises. ``interpret`` is
 accepted for signature parity and ignored.
+
+On the card a warm runner call is one CUDA-graph replay, the reference's
+one jitted dispatch: per signature (the runner, the batch, the payload
+shape) the first call runs eagerly and the second captures (``graphs``).
+A pipeline runner's K steps are one graph (``lax.scan`` in the
+reference), or chunks of them past ``graphs._MAX_NODES`` nodes; a workload
+runner's phases run back to back in one graph.
 """
 from __future__ import annotations
 
@@ -34,12 +41,13 @@ import dataclasses
 import numpy as np
 import torch
 
-from . import ir
+from . import graphs, ir
 from .compile import (CompiledProgram, SegHost, SegMaj, SegNot, SegScan,
                       SegShiftRun, compile_program, fold_tables,
                       xla_sum)
 from .isa import T0 as isa_T0, T1 as isa_T1, T2 as isa_T2
-from .state import CostMeter, SubarrayState, as_rows, make_subarray
+from .state import (FLOAT_FIELDS, INT_FIELDS, CostMeter, SubarrayState,
+                    as_rows, make_subarray)
 from .timing import DDR3Timing, DEFAULT_TIMING, apply_refresh
 from ...kernels.rowops import ops as kops
 
@@ -52,16 +60,26 @@ class ExecResult:
     reads: tuple
 
 
-# How many runners (single-step, pipeline or workload) were built. The
-# reference counts jit traces here; the port traces nothing, so the count
-# is of builds, and steady-state paths must not grow it.
+# How many runners (single-step, pipeline or workload) were built and
+# CUDA graphs of the PIM path captured: the reference counts jit traces
+# here. Steady-state paths must not grow it.
 RUNNER_STATS = {"traces": 0}
 
 
 def _as_compiled(program, cfg) -> CompiledProgram:
+    """``program`` compiled, once per program object and cfg value (kept on
+    the program), so that a warm ``execute`` of the same program finds its
+    runner and, on the card, its graph."""
     if isinstance(program, CompiledProgram):
         return program
-    return compile_program(program, cfg)
+    cache = getattr(program, "_compiled_by_cfg", None)
+    if cache is None:
+        cache = {}
+        object.__setattr__(program, "_compiled_by_cfg", cache)
+    hit = cache.get(cfg)
+    if hit is None:
+        hit = cache[cfg] = compile_program(program, cfg)
+    return hit
 
 
 def _kernels_for(use_kernels, device: torch.device) -> bool:
@@ -249,17 +267,27 @@ def make_runner(program, cfg: DDR3Timing = DEFAULT_TIMING, *,
         return SubarrayState(bits=bits, mig_top=mt, mig_bot=mb, dcc=dcc,
                              meter=meter), reads
 
+    def core(carry, payloads):
+        """``raw`` on flat tensors (the graph's inputs and outputs): writes
+        ``bits`` in place; the meter comes and goes as its two stacks."""
+        bits, mt, mb, dcc, f0, i0 = carry
+        out, reads = raw(bits, mt, mb, dcc, CostMeter.from_stacked(f0, i0),
+                         payloads)
+        return ((out.bits, out.mig_top, out.mig_bot, out.dcc)
+                + out.meter.stacked(), reads)
+
     def run(state: SubarrayState, payloads=None) -> ExecResult:
-        single = state.bits.dim() == 2
-        batch = state.map(lambda t: t.unsqueeze(0)) if single else state
+        carry, single = _carry_of(state)
         if payloads is not None and single:
             payloads = payloads.unsqueeze(0)
-        out, reads = raw(batch.bits.clone(), batch.mig_top, batch.mig_bot,
-                         batch.dcc, batch.meter, payloads)
+        key = ("runner", id(run), str(state.bits.device),
+               tuple(carry[0].shape),
+               None if payloads is None else tuple(payloads.shape))
+        carry, reads = graphs.call(key, run, core, (carry, payloads),
+                                   writes=(0,))
         if single:
-            out = out.map(lambda t: t.squeeze(0))
             reads = tuple(r.squeeze(0) for r in reads)
-        return ExecResult(state=out, reads=reads)
+        return ExecResult(state=_state_of(carry, single), reads=tuple(reads))
 
     if payload_arg:
         def runner(state: SubarrayState, payloads) -> ExecResult:
@@ -268,19 +296,55 @@ def make_runner(program, cfg: DDR3Timing = DEFAULT_TIMING, *,
         def runner(state: SubarrayState) -> ExecResult:
             return run(state)
     runner.raw = raw
+    runner.core = core
     cache[key] = runner
     return runner
 
 
-def _stack_reads(steps, n_reads: int, like: torch.Tensor) -> tuple:
-    """Per-step read tuples -> one tensor per read with a leading step
-    axis (``like`` gives the row shape of a run with no steps)."""
-    if not steps:
-        return tuple(torch.zeros((0,) + like.shape[:-2] + like.shape[-1:],
-                                 dtype=like.dtype, device=like.device)
+def _steps_fn(core):
+    """``make(n)`` for ``graphs.steps``: ``n`` calls of a runner's ``core``,
+    the carry (rows written in place, meter stacks) threaded through;
+    ``xs`` is the (n, n_payloads, words) payload stack, ``ys`` one (n, B,
+    words) tensor per read."""
+    def make(n):
+        def fn(carry, xs):
+            steps = []
+            for k in range(n):
+                carry, reads = core(carry, xs[k])
+                steps.append(reads)
+            return carry, tuple(torch.stack([r[j] for r in steps])
+                                for j in range(len(steps[0])))
+        return fn
+    return make
+
+
+def _carry_of(state: SubarrayState):
+    """A (B, R, W) batch's runner carry, and whether ``state`` was one
+    subarray (no slot axis)."""
+    single = state.bits.dim() == 2
+    batch = state.map(lambda t: t.unsqueeze(0)) if single else state
+    return (batch.bits, batch.mig_top, batch.mig_bot, batch.dcc,
+            graphs.stack_fields([getattr(batch.meter, k)
+                                 for k in FLOAT_FIELDS]),
+            graphs.stack_fields([getattr(batch.meter, k)
+                                 for k in INT_FIELDS])), single
+
+
+def _state_of(carry, single: bool) -> SubarrayState:
+    bits, mt, mb, dcc, ff, fi = carry
+    out = SubarrayState(bits=bits, mig_top=mt, mig_bot=mb, dcc=dcc,
+                        meter=CostMeter.from_stacked(ff, fi))
+    return out.map(lambda t: t.squeeze(0)) if single else out
+
+
+def _reads_of(reads, single: bool, n_reads: int, state: SubarrayState):
+    """Per-read (K, [B,] W) tensors; zero-step runs give (0, [B,] W)."""
+    if reads is None:
+        return tuple(torch.zeros((0,) + state.bits.shape[:-2]
+                                 + state.bits.shape[-1:], dtype=torch.int32,
+                                 device=state.bits.device)
                      for _ in range(n_reads))
-    return tuple(torch.stack([r[j] for r in steps])
-                 for j in range(n_reads))
+    return tuple(r.squeeze(1) if single else r for r in reads)
 
 
 def make_pipeline_runner(program, cfg: DDR3Timing = DEFAULT_TIMING, *,
@@ -293,9 +357,10 @@ def make_pipeline_runner(program, cfg: DDR3Timing = DEFAULT_TIMING, *,
     ``payload_steps`` is a ``(K, n_payloads, words)`` int32 tensor, the
     HOSTW data of each step; the same command stream runs K times, the
     state threaded through, exactly as K calls of the ``payload_arg``
-    runner (the reference runs them under one ``lax.scan``). Every entry
-    of ``reads_steps`` carries a leading step axis. Cached per (program,
-    flags, cfg) like :func:`make_runner`."""
+    runner (the reference runs them under one ``lax.scan``; the card, as
+    one CUDA-graph replay per signature). Every entry of ``reads_steps``
+    carries a leading step axis. Cached per (program, flags, cfg) like
+    :func:`make_runner`."""
     compiled = _as_compiled(program, cfg)
     base = make_runner(compiled, cfg, use_kernels=use_kernels,
                        interpret=interpret, refresh=refresh,
@@ -306,15 +371,21 @@ def make_pipeline_runner(program, cfg: DDR3Timing = DEFAULT_TIMING, *,
         return cache[key]
     RUNNER_STATS["traces"] += 1
     n_reads = compiled.program.n_reads
+    make = _steps_fn(base.core)
 
     def run_pipe(state: SubarrayState, payload_steps):
-        steps = []
-        for k in range(payload_steps.shape[0]):
-            res = base(state, payload_steps[k])
-            state = res.state
-            steps.append(res.reads)
-        return state, _stack_reads(steps, n_reads, state.bits)
+        n = payload_steps.shape[0]
+        if n == 0:
+            return state, _reads_of(None, False, n_reads, state)
+        carry, single = _carry_of(state)
+        carry, reads, _ = graphs.steps(
+            ("pipe", id(run_pipe), str(state.bits.device),
+             tuple(carry[0].shape), tuple(payload_steps.shape[1:])),
+            run_pipe, make, carry, payload_steps, n)
+        return _state_of(carry, single), _reads_of(reads, single, n_reads,
+                                                   state)
 
+    run_pipe.make = make
     cache[key] = run_pipe
     return run_pipe
 
@@ -329,9 +400,10 @@ def make_workload_runner(programs, cfg: DDR3Timing = DEFAULT_TIMING, *,
     ``programs`` is one recurring program per phase; ``payload_phases`` is
     a matching tuple of ``(K_p, n_payloads_p, words)`` int32 tensors. The
     phases run back to back, each a :func:`make_pipeline_runner` loop, the
-    state threaded through; ``reads_phases`` is a tuple of per-phase read
-    tuples, each with a leading step axis. Cached on the first program's
-    compile artifact, keyed by the phase digest sequence."""
+    state threaded through (on the card one graph of every phase);
+    ``reads_phases`` is a tuple of per-phase read tuples, each with a
+    leading step axis. Cached on the first program's compile artifact,
+    keyed by the phase digest sequence."""
     compiled = [_as_compiled(p, cfg) for p in programs]
     if not compiled:
         raise ValueError("make_workload_runner needs at least one program")
@@ -345,13 +417,26 @@ def make_workload_runner(programs, cfg: DDR3Timing = DEFAULT_TIMING, *,
     if key in cache:
         return cache[key]
     RUNNER_STATS["traces"] += 1
+    n_reads = [c.program.n_reads for c in compiled]
 
     def run_workload(state: SubarrayState, payload_phases):
-        reads_phases = []
-        for pipe, payload_steps in zip(pipes, payload_phases):
-            state, reads = pipe(state, payload_steps)
-            reads_phases.append(reads)
-        return state, tuple(reads_phases)
+        payload_phases = tuple(payload_phases)
+        live = [p for p, x in enumerate(payload_phases) if x.shape[0]]
+        carry, single = _carry_of(state)
+        dev, shape = str(state.bits.device), tuple(carry[0].shape)
+        parts = [(("pipe", id(pipes[p]), dev, shape,
+                   tuple(payload_phases[p].shape[1:])), pipes[p],
+                  pipes[p].make, payload_phases[p],
+                  payload_phases[p].shape[0]) for p in live]
+        if parts:
+            carry, ys, _ = graphs.phases(
+                ("workload", id(run_workload), dev, shape)
+                + tuple((p, tuple(payload_phases[p].shape)) for p in live),
+                run_workload, parts, carry)
+            state = _state_of(carry, single)
+        out = dict(zip(live, ys if parts else ()))
+        return state, tuple(_reads_of(out.get(p), single, n_reads[p], state)
+                            for p in range(len(pipes)))
 
     cache[key] = run_workload
     return run_workload

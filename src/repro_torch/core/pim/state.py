@@ -76,12 +76,16 @@ class CostMeter:
 
     @staticmethod
     def zeros(device=None, shape=()) -> "CostMeter":
+        """A zero meter whose fields are slices of one float32 and one int32
+        stack (``from_stacked``), as every meter a run returns is: a CUDA
+        graph's copy-in then moves each stack in one memcpy."""
         device = resolve_device(device)
-        fields = {k: torch.zeros(shape, dtype=torch.float32, device=device)
-                  for k in FLOAT_FIELDS}
-        fields.update({k: torch.zeros(shape, dtype=torch.int32,
-                                      device=device) for k in INT_FIELDS})
-        return CostMeter(**fields)
+        shape = (shape,) if isinstance(shape, int) else tuple(shape)
+        return CostMeter.from_stacked(
+            torch.zeros(shape + (len(FLOAT_FIELDS),), dtype=torch.float32,
+                        device=device),
+            torch.zeros(shape + (len(INT_FIELDS),), dtype=torch.int32,
+                        device=device))
 
     @property
     def total_energy_nj(self) -> torch.Tensor:

@@ -139,21 +139,58 @@ def charge_issue(meter: CostMeter,
     return _bump(meter, dt=cfg.t_issue, cfg=cfg)
 
 
+# Re-counts of the least fixed point on the card (see refresh_events).
+_REFRESH_ROUNDS = 8
+
+
+def _recount(busy, k, cfg: DDR3Timing) -> torch.Tensor:
+    """``floor((busy + k·tRFC) / tREFI)`` in float32, as int32."""
+    return torch.floor((busy + k.to(torch.float32) * cfg.tRFC)
+                       / cfg.tREFI).to(torch.int32)
+
+
+def _refresh_events_sync_free(busy, cfg: DDR3Timing) -> torch.Tensor:
+    """The card's ``refresh_events``: no host sync (the step can be
+    captured in a CUDA graph). The count starts at ``floor(busy / (tREFI -
+    tRFC) · (1 - 2^-20)) - 3``, below which every n has ``f(n) > n`` in
+    float32 (the four rounded operations move ``f`` by less than 2^-22 of
+    it), so from there it climbs to the same least fixed point as from
+    ``floor(busy / tREFI)``; ``_REFRESH_ROUNDS`` re-counts reach it for any
+    count below 2^24 (about 130 s of DDR3 time), and a device-side assert
+    fails the run if an element still grows. The start lies below the
+    least fixed point only while ``tREFI / (tREFI - tRFC)`` stays under
+    4 (every fixed point lies within that many counts of ``busy / (tREFI -
+    tRFC)``); a timing with ``tRFC`` above ``tREFI / 2`` is refused, where
+    a larger fixed point could pass the assert unseen."""
+    if not 0.0 <= cfg.tRFC <= cfg.tREFI / 2:
+        raise ValueError(
+            f"refresh_events on the card needs 0 <= tRFC <= tREFI / 2, got "
+            f"tRFC {cfg.tRFC} and tREFI {cfg.tREFI}")
+    n = torch.floor(busy / cfg.tREFI).to(torch.int32)
+    lo = torch.floor(busy.to(torch.float64) / (cfg.tREFI - cfg.tRFC)
+                     * (1.0 - 2.0 ** -20)) - 3.0
+    n = torch.maximum(n, lo.clamp(0.0, 2.0 ** 31 - 1).to(torch.int32))
+    for _ in range(_REFRESH_ROUNDS):
+        n = _recount(busy, n, cfg)
+    torch._assert_async(torch.all(_recount(busy, n, cfg) <= n),
+                        "refresh_events: the count still grows")
+    return n
+
+
 def refresh_events(busy, cfg: DDR3Timing = DEFAULT_TIMING) -> torch.Tensor:
     """Refresh events owed for ``busy`` ns of stall-free work: the least
     fixed point of ``n = floor((busy + n·tRFC) / tREFI)``, element-wise.
 
-    The reference's ``lax.while_loop`` becomes a plain loop that re-counts
-    until no element grows (one host sync per round)."""
+    On the CPU the reference's ``lax.while_loop`` becomes a plain loop that
+    re-counts until no element grows (one host sync per round); on the card
+    ``_refresh_events_sync_free`` reaches the same fixed point without
+    waiting on the host."""
     busy = torch.as_tensor(busy, dtype=torch.float32)
-
-    def recount(k):
-        return torch.floor((busy + k.to(torch.float32) * cfg.tRFC)
-                           / cfg.tREFI).to(torch.int32)
-
+    if busy.device.type == "cuda":
+        return _refresh_events_sync_free(busy, cfg)
     n = torch.floor(busy / cfg.tREFI).to(torch.int32)
     while True:
-        nxt = recount(n)
+        nxt = _recount(busy, n, cfg)
         if not bool((nxt > n).any()):
             return n
         n = nxt

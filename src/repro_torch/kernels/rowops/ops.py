@@ -16,10 +16,13 @@ written) in one launch, in place.
 ``bitwise`` by op, ``ROWS_BY_OP`` ``bitwise_rows``, and ``SHIFT_ROUTES``
 ``shift_rows`` by route: out of place, in place, or in place through a
 scratch row, which adds one row copy); a plain-version call counts
-nothing.
+nothing. Launches recorded into a CUDA graph under capture run nothing:
+``recorded`` takes them back out of the counts, so that the counts stay
+launches that ran and a graph's replays move none of them.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -31,6 +34,8 @@ LAUNCHES = {"shift_cols": 0, "bitwise": 0, "shift_rows": 0,
 LAUNCHES_BY_OP = {op: 0 for op in _ref.OPS}
 ROWS_BY_OP = {op: 0 for op in _ref.OPS}
 SHIFT_ROUTES = {"out_of_place": 0, "in_place": 0, "scratch": 0}
+_COUNTERS = {"launches": LAUNCHES, "by_op": LAUNCHES_BY_OP,
+             "rows": ROWS_BY_OP, "routes": SHIFT_ROUTES}
 
 _N_OPERANDS = {"not": 1, "and": 2, "or": 2, "xor": 2, "maj": 3}
 
@@ -39,6 +44,25 @@ def reset_launches() -> None:
     for counts in (LAUNCHES, LAUNCHES_BY_OP, ROWS_BY_OP, SHIFT_ROUTES):
         for k in counts:
             counts[k] = 0
+
+
+@contextlib.contextmanager
+def recorded(into: dict):
+    """Within ``with``, the wrappers' launches are recorded into a CUDA
+    graph under capture, not run: on exit every count is set back, and
+    ``into`` gets what was recorded, ``(counter, key) -> count`` with
+    counter ``launches``, ``by_op``, ``rows`` or ``routes`` (the graph's
+    label, not a launch count)."""
+    before = {(name, k): v for name, counts in _COUNTERS.items()
+              for k, v in counts.items()}
+    try:
+        yield into
+    finally:
+        for (name, k), v in before.items():
+            n = _COUNTERS[name][k] - v
+            if n:
+                into[(name, k)] = n
+                _COUNTERS[name][k] = v
 
 
 def _on_card(x: torch.Tensor) -> bool:

@@ -1009,6 +1009,7 @@ def test_generate_graph_launches_per_call(served, card):
 # ---------------------------------------------------------------------------
 
 import glob  # noqa: E402
+import importlib  # noqa: E402
 import os  # noqa: E402
 
 import pim_serve_scenarios as serve_sc  # noqa: E402
@@ -1111,7 +1112,9 @@ def test_serve_front_on_the_card_matches_the_cpu(card, name):
     assert got[0] == got[1]
 
 
-def test_serve_front_runs_the_row_kernels_on_the_card(card):
+def test_serve_front_runs_the_row_kernels_on_the_card(card, fresh_graphs):
+    # the PIM graphs dropped: the scenario's first calls run eagerly, where
+    # the wrappers count their launches (a graph's replay moves no count)
     kit = serve_sc.port_kit(card)
     rops.reset_launches()
     serve_sc.SCENARIOS["run_pipelines_recurring_windows_single_dispatch"](
@@ -2005,3 +2008,373 @@ def test_sharded_restore_on_the_card(card, tmp_path):
     assert sorted(got) == sorted(want)
     for k, w in want.items():
         assert np.array_equal(got[k].view(w.dtype), w), k
+
+
+# ---------------------------------------------------------------------------
+# The PIM path's CUDA graphs (-k pim_graph): each entry's warm call one
+# replay, bit for bit against its eager first call and the CPU
+# ---------------------------------------------------------------------------
+
+from repro_torch.core.pim import graphs as tgraphs  # noqa: E402
+
+# the package re-exports schedule() the function, shadowing the module
+tsched = importlib.import_module("repro_torch.core.pim.schedule")
+
+GRAPH_CFG = dict(num_rows=32, words=64)
+
+
+def _bits32(x):
+    """float32 tensors as their bit patterns, every other leaf as is."""
+    if isinstance(x, torch.Tensor):
+        a = x.detach().cpu().numpy()
+        return (a.view(np.uint32) if a.dtype == np.float32 else a).tolist()
+    if isinstance(x, float):
+        return np.float32(x).view(np.uint32).item()
+    return x
+
+
+def _tree_bits(x):
+    if isinstance(x, (tuple, list)):
+        return [_tree_bits(y) for y in x]
+    return _bits32(x)
+
+
+def _state_bits(state):
+    return {k: _bits32(torch.from_numpy(np.asarray(v)))
+            for k, v in convert.to_numpy(state).items()}
+
+
+def _sched_obs(r):
+    """Everything a schedule()/schedule_pipeline() result carries."""
+    return (_state_bits(r.state), _bits32(r.wall_ns), _bits32(r.energy_nj),
+            serve_sc.plain(r.reads), _bits32(r.host_overlap_ns),
+            r.bus_ns, r.copy_ns)
+
+
+def _workload_obs(r):
+    return (_state_bits(r.state), r.order, [
+        (_bits32(p.wall_ns), _bits32(p.energy_nj), serve_sc.plain(p.reads),
+         _bits32(p.host_overlap_ns), _bits32(p.boundary_credit_ns))
+        for p in r.phases])
+
+
+def _exec_obs(r):
+    return (_state_bits(r.state), _tree_bits(r.reads))
+
+
+def _graph_layouts(cfg, seed):
+    """Three step layouts: partial stream groups with per-slot payloads,
+    host reads, a cross-bank COPY drain (one of them a dependent chain) and
+    an idle slot."""
+    rng = np.random.default_rng(seed)
+    R, W = cfg.num_rows, cfg.words
+    out = []
+    for k in range(3):
+        host = tpim.ProgramBuilder(R, W).issue()
+        host.write_row(20, np.zeros(W, np.uint32)).shift_k(20, 21, 40 + k)
+        host.read_row(21)
+        host.ambit_xor(0, 1, 2).read_row(2)
+        host = host.build()
+        flat = []
+        for slot in range(cfg.n_slots):
+            kind = slot % 4
+            if kind == 0:
+                flat.append(tpim.ProgramBuilder(R, W).issue()
+                            .shift_k(0, 1, -7 - k).tra(3, 4, 5).build())
+            elif kind == 1:
+                flat.append(host.with_payloads([rng.integers(
+                    0, 2**32, (W,), dtype=np.uint32)]))
+            elif kind == 2:
+                flat.append(tpim.xor_reduce_program(R, W, [0, 1, 2], 3))
+            else:
+                flat.append(None)
+        nb = cfg.n_banks
+        moves = [((b, 0, 1), ((b + 1) % nb, 1, 30)) for b in range(nb)]
+        moves += [((0, 1, 30), (1, 0, 31)), ((1, 0, 31), (2, 1, 29))]
+        out.append(tpim.gather_rows(cfg, moves, flat))
+    return out
+
+
+def _graph_device(cfg, where, seed=5):
+    dev = tpim.make_device(cfg, device=where)
+    dev.banks.bits[:, :-2] = torch.from_numpy(np.random.default_rng(
+        seed).integers(0, 2**32, (cfg.n_slots, cfg.num_rows - 2, cfg.words),
+                       dtype=np.uint32).view(np.int32)).to(where)
+    return dev
+
+
+@pytest.fixture
+def fresh_graphs(card):
+    tgraphs._entries.clear()
+    tgraphs._seen.clear()
+    yield
+    tgraphs._entries.clear()
+    tgraphs._seen.clear()
+
+
+def _three_calls(setup, call, obs, card):
+    """``call(setup(where))`` on the CPU, then three times on the card
+    (eager, capture, replay): each card call equals the CPU's; the first
+    call's result is unchanged after the others; the warm call grows no
+    trace. Returns the warm call's ``cudaGraphLaunch`` and kernel-launch
+    calls in the profiler (``setup`` runs outside its window)."""
+    want = obs(call(setup("cpu")))
+    first = call(setup(card))
+    got_first = obs(first)
+    assert got_first == want
+    assert obs(call(setup(card))) == want
+    args = setup(card)
+    torch.cuda.synchronize()
+    tpim.reset_stats()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        warm = call(args)
+        torch.cuda.synchronize()
+    assert obs(warm) == want
+    assert obs(first) == got_first
+    assert tpim_exec.RUNNER_STATS["traces"] == 0
+    launches = {e.key: e.count for e in prof.key_averages()}
+    kernels = sum(v for k, v in launches.items()
+                  if k in ("cudaLaunchKernel", "cudaLaunchKernelExC"))
+    return launches.get("cudaGraphLaunch", 0), kernels
+
+
+def _subarray(where, seed):
+    st = tpim.make_subarray(32, 64, device=where)
+    st.bits[:] = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, 2**32, (32, 64), dtype=np.uint32).view(np.int32)).to(where)
+    return st
+
+
+@pytest.mark.parametrize("refresh", [False, True])
+def test_pim_graph_execute_replays(card, fresh_graphs, refresh):
+    b = tpim.ProgramBuilder(32, 64).issue().write_row(
+        0, np.arange(64, dtype=np.uint32)).shift_k(0, 1, 300).ambit_xor(
+        1, 2, 3).ambit_not(3, 4).tra(5, 6, 7)
+    b.read_row(4)
+    prog = b.build()
+    assert _three_calls(
+        lambda where: _subarray(where, 1),
+        lambda st: tpim.execute(prog, st, refresh=refresh),
+        _exec_obs, card) == (1, 0)
+
+
+def test_pim_graph_caller_state_is_never_written(card, fresh_graphs):
+    prog = tpim.shift_workload_program(20, 32, 64)
+    st = _subarray(card, 2)
+    before = _state_bits(st)
+    outs = [tpim.execute(prog, st) for _ in range(3)]
+    assert _state_bits(st) == before
+    assert all(_exec_obs(o) == _exec_obs(outs[0]) for o in outs)
+    assert outs[1].state.bits.data_ptr() != outs[2].state.bits.data_ptr()
+
+
+@pytest.mark.parametrize("refresh", [False, True])
+def test_pim_graph_pipeline_and_workload_runners(card, fresh_graphs,
+                                                 refresh):
+    progs = [tpim.shift_workload_program(n, 32, 64) for n in (3, 9)]
+    b = tpim.ProgramBuilder(32, 64).issue().write_row(
+        4, np.zeros(64, np.uint32)).ambit_xor(4, 5, 6)
+    b.read_row(6)
+    progs.append(b.build())
+    pays = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 2**32, (5, 1, 64), dtype=np.uint32).view(np.int32))
+
+    def pipe(args):
+        st, xs = args
+        return tpim.make_pipeline_runner(progs[2], refresh=refresh)(st,
+                                                                    xs[2])
+
+    def workload(args):
+        st, xs = args
+        return tpim.make_workload_runner(progs, refresh=refresh)(st, xs)
+
+    def setup(where):
+        xs = (torch.zeros((2, 0, 64), dtype=torch.int32),
+              torch.zeros((3, 0, 64), dtype=torch.int32), pays)
+        return _subarray(where, 3), tuple(x.to(where) for x in xs)
+
+    def obs(out):
+        st, reads = out
+        return _state_bits(st), _tree_bits(reads)
+
+    assert _three_calls(setup, pipe, obs, card) == (1, 0)
+    assert _three_calls(setup, workload, obs, card) == (1, 0)
+
+
+@pytest.mark.parametrize("flags", [{}, {"async_host": True},
+                                   {"async_host": True, "refresh": True}],
+                         ids=["sync", "async", "async-refresh"])
+def test_pim_graph_schedule_replays(card, fresh_graphs, flags):
+    cfg = tpim.paper_device(4, subarrays=2, **GRAPH_CFG)
+    layouts = _graph_layouts(cfg, 7)
+
+    def call(dev):
+        out = []
+        for lay in layouts:
+            r = tpim.schedule(dev, lay, **flags)
+            dev = r.state
+            out.append(r)
+        return out
+
+    graphs, kernels = _three_calls(
+        lambda where: _graph_device(cfg, where), call,
+        lambda rs: [_sched_obs(r) for r in rs], card)
+    assert (graphs, kernels) == (3, 0)
+    assert tsched.SCHED_STATS["dispatches"] == 3
+
+
+@pytest.mark.parametrize("flags", [{}, {"async_host": True, "refresh": True}],
+                         ids=["sync", "async-refresh"])
+def test_pim_graph_schedule_pipeline_replays(card, fresh_graphs, flags):
+    cfg = tpim.paper_device(4, subarrays=2, **GRAPH_CFG)
+    lay = _graph_layouts(cfg, 8)[0]
+    rng = np.random.default_rng(9)
+    steps = [[p.with_payloads([rng.integers(0, 2**32, q.shape,
+                                            dtype=np.uint32)
+                               for q in p.payloads]) if p is not None
+              else None for p in lay] for _ in range(4)]
+
+    def setup(where):
+        # an async step first: the pipeline starts from its credit
+        return tpim.schedule(_graph_device(cfg, where), lay,
+                             async_host=True).state
+
+    assert _three_calls(
+        setup, lambda dev: tpim.schedule_pipeline(dev, steps, **flags),
+        _sched_obs, card) == (1, 0)
+    assert tsched.SCHED_STATS["dispatches"] == 1
+
+
+def _graph_phases(cfg):
+    lays = _graph_layouts(cfg, 11)
+    return [tpim.Phase.repeat(lays[0], 3, async_host=True),
+            tpim.Phase.repeat(lays[1], 2, async_host=False),
+            tpim.Phase(steps=(lays[2], lays[2]), async_host=True)]
+
+
+@pytest.mark.parametrize("order", [None, (0, 2, 1, 0, 2, 1, 0)])
+def test_pim_graph_schedule_workload_replays(card, fresh_graphs, order):
+    cfg = tpim.paper_device(4, subarrays=2, **GRAPH_CFG)
+    phases = _graph_phases(cfg)
+    graphs, kernels = _three_calls(
+        lambda where: _graph_device(cfg, where),
+        lambda dev: tpim.schedule_workload(dev, phases, order=order,
+                                           refresh=True),
+        _workload_obs, card)
+    n = 1 if order is None else len(order)
+    assert (graphs, kernels) == (n, 0)
+    assert tsched.SCHED_STATS["dispatches"] == n
+
+
+def test_pim_graph_first_order_call_captures_nothing(card, fresh_graphs):
+    """A one-off interleaved workload runs eagerly throughout, even where
+    one of its phases' plans already ran once (through ``schedule()``): it
+    captures nothing, and equals the CPU. Its second call captures."""
+    cfg = tpim.paper_device(4, subarrays=2, **GRAPH_CFG)
+    phases = _graph_phases(cfg)
+    order = (0, 2, 1, 0, 2, 1, 0)
+
+    def call(where):
+        return tpim.schedule_workload(_graph_device(cfg, where), phases,
+                                      order=order, refresh=True)
+
+    want = _workload_obs(call("cpu"))
+    tpim.schedule(_graph_device(cfg, card), phases[0].steps[0],
+                  async_host=True, refresh=True)
+    tpim.reset_stats()
+    assert _workload_obs(call(card)) == want
+    assert not tgraphs._entries
+    assert _workload_obs(call(card)) == want
+    assert sum(isinstance(e, tgraphs._Graph)
+               for e in tgraphs._entries.values()) == 3
+
+
+def test_pim_graph_two_plans_alternate(card, fresh_graphs):
+    cfg = tpim.paper_device(4, subarrays=2, **GRAPH_CFG)
+    lays = _graph_layouts(cfg, 12)[:2]
+
+    def run(where):
+        dev, out = _graph_device(cfg, where), []
+        for k in range(6):
+            r = tpim.schedule(dev, lays[k % 2], async_host=True)
+            dev = r.state
+            out.append(_sched_obs(r))
+        return out
+
+    assert run(card) == run("cpu")
+
+
+def test_pim_graph_chunks_past_the_node_limit(card, fresh_graphs,
+                                              monkeypatch):
+    cfg = tpim.paper_device(4, subarrays=2, **GRAPH_CFG)
+    lay = _graph_layouts(cfg, 13)[1]
+
+    def run(where):
+        return tpim.schedule_pipeline(_graph_device(cfg, where), lay,
+                                      n_steps=7, async_host=True)
+
+    want = _sched_obs(run("cpu"))
+    assert _sched_obs(run(card)) == want          # eager
+    monkeypatch.setattr(tgraphs, "_MAX_NODES", 1)
+    assert _sched_obs(run(card)) == want          # one-step graph captured
+    tpim.reset_stats()
+    assert _sched_obs(run(card)) == want
+    assert tsched.SCHED_STATS["dispatches"] == 7      # one step per chunk
+    assert tpim_exec.RUNNER_STATS["traces"] == 0
+
+
+def test_pim_graph_capture_failure_raises(card, fresh_graphs, monkeypatch):
+    prog = tpim.shift_workload_program(5, 32, 64)
+    st = _subarray(card, 4)
+    tpim.execute(prog, st)                        # the eager first call
+    real = tpim_exec.fold_tables
+
+    def syncing(*args):
+        out = real(*args)
+        float(out[0].sum())                       # waits on the host
+        return out
+
+    monkeypatch.setattr(tpim_exec, "fold_tables", syncing)
+    with pytest.raises(RuntimeError):
+        tpim.execute(prog, st)
+    monkeypatch.undo()
+    # the failed capture handed the pool back: the next one captures
+    cpu = _subarray("cpu", 4)
+    for _ in range(2):
+        assert _exec_obs(tpim.execute(prog, st)) == _exec_obs(
+            tpim.execute(prog, cpu))
+    assert any(isinstance(e, tgraphs._Graph)
+               for e in tgraphs._entries.values())
+
+
+def test_pim_graph_cache_is_bounded_and_freed(card, fresh_graphs,
+                                              monkeypatch):
+    import gc
+    cfg = tpim.paper_device(4, subarrays=2, num_rows=512, words=2048)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    lays = _graph_layouts(cfg, 14)
+    dev = tpim.make_device(cfg, device=card)
+    for _ in range(3):
+        for lay in lays:
+            dev = tpim.schedule(dev, lay).state
+    held = [e for e in tgraphs._entries.values()
+            if isinstance(e, tgraphs._Graph)]
+    assert len(held) == 3
+    monkeypatch.setattr(tgraphs, "_MAX_BYTES", 2 * held[0].nbytes + 1)
+    del held
+    for lay in lays:
+        dev = tpim.schedule(dev, lay).state
+    assert sum(isinstance(e, tgraphs._Graph)
+               for e in tgraphs._entries.values()) <= 2
+    del dev
+    tgraphs._entries.clear()
+    tgraphs._seen.clear()
+    tsched._workload_fast_cache.clear()
+    tsched._payload_cache_clear()
+    gc.collect()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() - base < 0.1e9
