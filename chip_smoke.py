@@ -105,9 +105,10 @@ each, every mismatch fatal:
 8. lm parity — the same model at 2 layers: greedy_generate on the card (one
                replay, its tokens the card's argmax chain), logits
                teacher-forced on the card (kernels) and on the CPU (plain
-               versions) compared step by step, and the CPU's eager
-               greedy_generate, whose tokens must equal the card's wherever
-               the card's top-2 margin exceeds twice the bound;
+               versions) compared step by step, and the CPU's greedy
+               tokens (the argmax of its teacher-forced logits), which
+               must equal the card's wherever the card's top-2 margin
+               exceeds twice the bound;
 9. ripple    — ``ripple_add`` against its plain version at (512, 2,048) for
                every width dividing 32 and at ragged shapes, bit for bit,
                with device times, the plain version's, the bound and one
@@ -263,13 +264,39 @@ each, every mismatch fatal:
                deepseek-v2-lite-16b train_4k on the (16, 16) mesh of a
                fake process group), each ``status ok``, and phase 20's
                cell on a 1 x 1 mesh, its roofline terms beside phase 20's
-               measured step (reported, not held).
+               measured step (reported, not held);
+25. dense    — the dense configurations at their published widths and
+               depths with phase 7's traffic and checks, each
+               ``greedy_generate`` call one CUDA-graph replay, one model on
+               the card at a time: yi-34b (60 layers, 56 query heads on 8
+               kv heads, G 7), qwen2.5-32b (64 layers, G 5, QKV bias, a
+               152,064-token vocabulary) and starcoder2-7b (32 layers, G 9,
+               LayerNorm, a GELU MLP with biases, its 4,096 window), all
+               pim_w4 shift_add (both pim_matmul routes and both flash
+               routes must run in each call); then Qwen3-4B in pim_w4
+               dequant, pim_w8 shift_add and pim_w8 dequant, cut to
+               QWEN3_DEPTH layers; pim_matmul's launches by route, by (K,
+               N) and by the (mode, bits) its kernel was given, each held
+               to the config; decode against prefill measured, not held;
+26. dense parity — each at full width, 2 layers, as phase 8;
+27. ring     — starcoder2-7b at full depth past its window: one request of
+               4,352 tokens, 16 new, its cache a 4,096-slot ring that every
+               decode step reads wrapped (prefill keeps the last 4,096
+               positions at slot pos % 4,096), with phase 7's checks; then
+               at 2 layers the same traffic, the card's kernels against
+               their plain versions run on the card (the CPU is too slow
+               at 4,352 tokens) step by step within 2e-2, and the ring's
+               slots after the last step.
 
 Phase 6 also holds the training shapes: pim_matmul w4 shift_add at (2048,
 2560) @ (2560, 9728) and (2048, 9728) @ (9728, 2560), and flash_attn at
 Qwen3-4B's heads over 8 x 256 tokens with the log-sum-exp
 (``flash_attn[prefill,lse]``, the log-sum-exp within FLASH_LSE_ABS of the
-plain version's). The front of phase 14 runs on the 64-slot device, where
+plain version's); and phases 25-27's: pim_matmul w4 shift_add at the
+dense configurations' FFN shapes (PIM_SHAPES_DENSE, M 4 on ``swap_ab``
+and 512 on ``tensor_core``), flash_attn at their heads (G 7, 5 and 9) at
+prefill and over 144 slots, and at starcoder2-7b's 4,352-token prefill
+under its window and its decode over the wrapped 4,096-slot ring. The front of phase 14 runs on the 64-slot device, where
 the step's energy sum follows XLA's order (``compile.xla_sum``), card
 against CPU bit for bit.
 
@@ -277,8 +304,9 @@ Then the kernel table as JSON (each pim_matmul row with the launches at
 its own (route, K, N) on its path, MLA's two flash rows with their
 launches on phase 16's deepseek path, recurrentgemma-2b's six rows with
 theirs on phase 18's path, the training rows with theirs over phase 20's
-measured steps), the card's name and power limit, and the
-result line. Nanoseconds and nanojoules of the DDR3 meter are outputs of
+measured steps, the dense configurations' rows with theirs on phases
+25 and 27's paths), the card's name and power limit, and the result
+line. Nanoseconds and nanojoules of the DDR3 meter are outputs of
 the simulated DRAM's model; milliseconds and microseconds are times of the
 card. Everything measured is also written to ``chiprun_out/chip_smoke.json``.
 """
@@ -387,6 +415,12 @@ PIM_SHAPES = ((4, 2560, 9728), (4, 9728, 2560), (512, 2560, 9728),
 # timed at its pim_w4 shift_add only
 PIM_SHAPES_RG = ((4, 2560, 7680), (4, 7680, 2560), (512, 2560, 7680),
                  (512, 7680, 2560))
+# the dense configurations' FFN linears, (d_model, d_ff) and back, at
+# decode and prefill, pim_w4 shift_add: yi-34b, qwen2.5-32b, starcoder2-7b
+PIM_SHAPES_DENSE = tuple((m, k, n) for d, f in ((7168, 20480),
+                                                (5120, 27648),
+                                                (4608, 18432))
+                         for m in (4, 512) for k, n in ((d, f), (f, d)))
 # Phase 20's training linears: (M, K, N) at M = batch 8 x 256 tokens, each
 # shape taken by a forward, its recompute, the dscales accumulator and the
 # other shape's dx on the transposed codes
@@ -406,7 +440,11 @@ WEIGHT_COPIES = 4
 # decode over phase 16's 144-slot cache (deepseek's serving shape); then
 # recurrentgemma-2b's at phase 18's serving shapes: decode over its
 # 144-slot ring (prompt 128 + 16 tokens, under the 2,048 window) and
-# prefill at 128 tokens, dk = dv = 256
+# prefill at 128 tokens, dk = dv = 256; then the dense configurations'
+# heads at phase 25's shapes (yi-34b G 7, qwen2.5-32b G 5, starcoder2-7b
+# G 9 under its 4,096 window): prefill at 128 tokens and decode over the
+# 144 slots, and starcoder2-7b's at phase 27's: prefill over 4,352 tokens,
+# decode over the wrapped 4,096-slot ring
 FLASH_SHAPES = {
     "prefill": (4, 8, 4, 128, 128, 128, 128, 127, None, False),
     "decode": (4, 8, 4, 128, 128, 1, 144, 135, None, False),
@@ -420,6 +458,15 @@ FLASH_SHAPES = {
                                   False),
     "prefill,recurrentgemma": (4, 1, 10, 256, 256, 128, 128, 127, 2048,
                                False),
+    "prefill,yi": (4, 8, 7, 128, 128, 128, 128, 127, None, False),
+    "prefill,qwen2.5": (4, 8, 5, 128, 128, 128, 128, 127, None, False),
+    "prefill,starcoder2": (4, 4, 9, 128, 128, 128, 128, 127, 4096, False),
+    "prefill,starcoder2,4352": (1, 4, 9, 128, 128, 4352, 4352, 4351, 4096,
+                                False),
+    "decode,yi,144": (4, 8, 7, 128, 128, 1, 144, 135, None, False),
+    "decode,qwen2.5,144": (4, 8, 5, 128, 128, 1, 144, 135, None, False),
+    "decode,starcoder2,144": (4, 4, 9, 128, 128, 1, 144, 135, 4096, False),
+    "decode,starcoder2,ring": (1, 4, 9, 128, 128, 1, 4096, 4366, 4096, True),
 }
 # phase 20's training attention: Qwen3-4B's heads over 8 x 256 causal
 # tokens, the forward asked for the log-sum-exp
@@ -465,6 +512,35 @@ RECURRENT = (
 # tests/test_decode_consistency.py's bound for both recurrent families:
 # their float32 state paths differ in op order between prefill and decode
 RECURRENT_DECODE_REL = 3e-2
+# Phases 25-26: the dense configurations at their published widths and
+# depths with phase 7's traffic, and Qwen3-4B in the quantizations phase 7
+# does not serve: (label, arch, overrides, the depth served, None for the
+# config's own). yi-34b and qwen2.5-32b take pim_w4: in bf16 their weights
+# and float32 head (~69-71 GB) leave no room on one 80 GB card. Qwen3-4B's
+# three runs repeat phase 7's shapes and are cut to QWEN3_DEPTH of its 36
+# layers, so that phases 25-27 stay near 250 s of the script's limit.
+QWEN3_DEPTH = 8
+PIM_W4 = {"quant": "pim_w4", "quant_mode": "shift_add"}
+DENSE = (
+    ("serve-yi", "yi-34b", PIM_W4, None),
+    ("serve-qwen2.5", "qwen2.5-32b", PIM_W4, None),
+    ("serve-starcoder2", "starcoder2-7b", PIM_W4, None),
+    ("serve-qwen3-w4-dequant", "qwen3-4b",
+     {"quant": "pim_w4", "quant_mode": "dequant"}, QWEN3_DEPTH),
+    ("serve-qwen3-w8", "qwen3-4b",
+     {"quant": "pim_w8", "quant_mode": "shift_add"}, QWEN3_DEPTH),
+    ("serve-qwen3-w8-dequant", "qwen3-4b",
+     {"quant": "pim_w8", "quant_mode": "dequant"}, QWEN3_DEPTH),
+)
+# the runs each of whose calls must take both routes of both LM kernels
+DENSE_BOTH_ROUTES = ("serve-yi", "serve-qwen2.5", "serve-starcoder2")
+# Phase 27: starcoder2-7b past its 4,096-token window (code completion
+# with more than 4k tokens of repository context): one request of
+# RING_PROMPT tokens at full depth, its cache a ring of 4,096 slots that
+# every decode step reads wrapped; then RING_CHECK_LAYERS layers, the
+# card's kernels against their plain versions run on the card
+RING = ("serve-starcoder2-ring", "starcoder2-7b", PIM_W4)
+RING_BATCH, RING_PROMPT, RING_CHECK_LAYERS = 1, 4352, 2
 SHIFT_KS = (1, -1, 31, 32, 33, -33, 999, -999, 65535, 65536, 70000)
 # phase 2b: the row entries on (B, 16, 2,048) states, B = 1 and 64 (one
 # subarray; the full device's slots); shift chains of these many hops (and
@@ -1607,7 +1683,8 @@ def phase_lm_kernels(torch, device):
     cases = [(shape, (4, 8), ("shift_add", "dequant"))
              for shape in PIM_SHAPES]
     cases += [(shape, (4,), ("shift_add",))
-              for shape in PIM_SHAPES_RG + PIM_SHAPES_TRAIN]
+              for shape in PIM_SHAPES_RG + PIM_SHAPES_TRAIN
+              + PIM_SHAPES_DENSE]
     for (m, k, n), bit_widths, modes in cases:
         x = torch.randn((m, k), generator=gen, device=device).to(
             torch.bfloat16)
@@ -2251,12 +2328,19 @@ def counted(torch, fn):
         routes=dict(pm.ROUTES), flash_routes=dict(fa.ROUTES),
         lse_routes=dict(fa.LSE_ROUTES),
         shapes={shape_key(*key): n for key, n in sorted(pm.SHAPES.items())},
+        kinds={kind_key(*key): n for key, n in sorted(pm.KINDS.items())},
         dispatches=engine.DECODE_STATS["dispatches"])
 
 
 def shape_key(route: str, k: int, n: int) -> str:
     """pim_matmul's launches at (K, N) on ``route``, as counts name them."""
     return f"{route} ({k},{n})"
+
+
+def kind_key(mode: str, bits: int) -> str:
+    """pim_matmul's launches given ``mode`` and ``bits``, as counts name
+    them."""
+    return f"{mode},w{bits}"
 
 
 def attention_layers(cfg) -> int:
@@ -2279,7 +2363,8 @@ def expected_counts(cfg, passes):
     (prefill's, hundreds of rows per pair in bf16, on the tensor cores; a
     decode step's split over the keys). Without MoE, pim_matmul's launches
     also by (route, K, N): each dense FFN's w1 (and w3) at (d_model, d_ff),
-    its w2 at (d_ff, d_model)."""
+    its w2 at (d_ff, d_model); all of them by (mode, bits), the config's
+    own."""
     n, L = pim_linears(cfg), attention_layers(cfg)
     shapes = None
     if cfg.moe is None:
@@ -2296,11 +2381,14 @@ def expected_counts(cfg, passes):
                 "cuda_core": 0},
         flash_routes={"tiled": 0, "split_kv": L * (passes - 1),
                       "tensor_core": L},
-        shapes=shapes)
+        shapes=shapes,
+        kinds={kind_key(cfg.quant_mode, cfg.quant_bits): n * passes}
+        if n else {})
 
 
 def check_counts(what, got, cfg, passes,
-                 keys=("launches", "routes", "flash_routes", "shapes")):
+                 keys=("launches", "routes", "flash_routes", "shapes",
+                       "kinds")):
     exp = expected_counts(cfg, passes)
     for k in keys:
         if exp[k] is not None and got[k] != exp[k]:
@@ -2335,7 +2423,7 @@ def replay_checks(torch, cfg, model, batch, label):
                 if id(g) not in before]
     again, _, counts = counted(torch, generate)
     V = cfg.vocab_size
-    if tuple(out.shape) != (SERVE_BATCH, SERVE_NEW) \
+    if tuple(out.shape) != (batch[input_key(cfg)].shape[0], SERVE_NEW) \
             or out.dtype != torch.int32 or int(out.min()) < 0 \
             or int(out.max()) >= V or not torch.equal(out, again):
         raise AssertionError(f"{label}: greedy_generate gave "
@@ -2361,14 +2449,20 @@ def replay_checks(torch, cfg, model, batch, label):
 
 
 def run_serve(torch, device, cfg=None, label="serve", *, variants=(),
-              notes=False, dvp_bound=LOGITS_REL):
+              notes=False, dvp_bound=LOGITS_REL,
+              dvp_note="phase 19 holds it at the cut depth to "
+                       f"{RECURRENT_DECODE_REL}",
+              batch_size=SERVE_BATCH, prompt=SERVE_PROMPT, eager_reps=3):
     """The serving path of ``cfg`` (phase 7: Qwen3-4B at full width and
-    depth): ``greedy_generate`` as one CUDA-graph replay per call, beside
-    the eager prefill and decode steps; each of ``variants`` (configs on
-    the same weights, e.g. another MoE dispatch) replayed and checked the
-    same way; decode against prefill held to ``dvp_bound`` (None: measured
-    only). Returns (record, launches, routes and flash routes of one
-    replayed call)."""
+    depth): ``greedy_generate`` as one CUDA-graph replay per call on
+    ``batch_size`` seeded prompts of ``prompt`` tokens, beside the eager
+    prefill and decode steps; each of ``variants`` (configs on the same
+    weights, e.g. another MoE dispatch) replayed and checked the same way;
+    decode against prefill held to ``dvp_bound`` (None: measured only,
+    ``dvp_note`` saying where it is held); the eager prefill and loop
+    timed ``eager_reps`` times (median), the decode steps ``eager_reps -
+    1`` times (at least once). Returns (record, launches, routes and flash
+    routes of one replayed call)."""
     import gc
 
     from repro_torch.models import decode_step, init_params, prefill
@@ -2383,7 +2477,7 @@ def run_serve(torch, device, cfg=None, label="serve", *, variants=(),
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t
     weights_gb = (torch.cuda.memory_allocated() - base) / 1e9
-    batch = prompt_batch(torch, cfg, 12, SERVE_BATCH, SERVE_PROMPT, device)
+    batch = prompt_batch(torch, cfg, 12, batch_size, prompt, device)
     torch.cuda.reset_peak_memory_stats()
     L, V = cfg.n_layers, cfg.vocab_size
     S = prompt_len(cfg, batch)
@@ -2398,7 +2492,7 @@ def run_serve(torch, device, cfg=None, label="serve", *, variants=(),
     flash_routes = counts["flash_routes"]
     engine.DECODE_STATS["dispatches"] = 0
     zero = greedy_generate(cfg, model, batch, max_new_tokens=0)
-    if zero.shape != (SERVE_BATCH, 0) or engine.DECODE_STATS["dispatches"]:
+    if zero.shape != (batch_size, 0) or engine.DECODE_STATS["dispatches"]:
         raise AssertionError(f"{label}: zero new tokens: a dispatch was "
                              "counted")
     other = {}
@@ -2423,10 +2517,10 @@ def run_serve(torch, device, cfg=None, label="serve", *, variants=(),
 
     prefill_ms = statistics.median(
         timed(torch, lambda: prefill(cfg, model, batch, max_len))
-        for _ in range(3))
+        for _ in range(eager_reps))
     key = input_key(cfg)
     per_token = []
-    for _ in range(2):
+    for _ in range(max(1, eager_reps - 1)):
         _, caches = prefill(cfg, model, batch, max_len)
 
         def steps(caches=caches):
@@ -2439,7 +2533,7 @@ def run_serve(torch, device, cfg=None, label="serve", *, variants=(),
     eager_ms = statistics.median(
         timed(torch, lambda: teacher_forced(cfg, model, batch, out[:, :-1],
                                             device))
-        for _ in range(3))
+        for _ in range(eager_reps))
     replay_ms = [timed(torch, generate) for _ in range(3)]
     generate_ms = statistics.median(replay_ms)
     # the graph alone on the card's clock (CUDA events around one replay)
@@ -2468,8 +2562,8 @@ def run_serve(torch, device, cfg=None, label="serve", *, variants=(),
     record = dict(
         config=dict(arch=cfg.arch_id, quant=cfg.quant,
                     quant_mode=cfg.quant_mode, n_layers=L,
-                    d_model=cfg.d_model, vocab=V, batch=SERVE_BATCH,
-                    prompt=SERVE_PROMPT, prompt_positions=S,
+                    d_model=cfg.d_model, vocab=V, batch=batch_size,
+                    prompt=prompt, prompt_positions=S,
                     new_tokens=SERVE_NEW,
                     moe_impl=cfg.moe.impl if cfg.moe else None),
         init_s=init_s, first_generate_ms=first_ms,
@@ -2482,15 +2576,15 @@ def run_serve(torch, device, cfg=None, label="serve", *, variants=(),
         decode_vs_prefill_rel=dvp, decode_vs_prefill_flips=dvp_flips,
         decode_vs_prefill_held=dvp_held, tokens=out.cpu().tolist(),
         profile=shares, routes=routes, flash_routes=flash_routes,
-        pim_shapes=counts["shapes"], variants=other)
+        pim_shapes=counts["shapes"], pim_kinds=counts["kinds"],
+        variants=other)
     dvp_note = (f"(bound {dvp_bound})" if dvp_held else
                 "(MoE: measured, not held; the last token's routing "
                 f"between the two: {say_flips(dvp_flips)})" if cfg.moe else
-                "(measured at full depth, not held; phase 19 holds it at "
-                f"the cut depth to {RECURRENT_DECODE_REL})")
+                f"(measured at full depth, not held; {dvp_note})")
     say(f"{label} {cfg_name(cfg)} ({L} layers, d_model {cfg.d_model}): "
-        f"batch {SERVE_BATCH}, prompt {SERVE_PROMPT}"
-        + (f" after {cfg.n_patches} patches" if S != SERVE_PROMPT else "")
+        f"batch {batch_size}, prompt {prompt}"
+        + (f" after {cfg.n_patches} patches" if S != prompt else "")
         + f", {SERVE_NEW} new tokens; eager: prefill "
         f"{prefill_ms:.2f} ms, decode {decode_ms:.2f} ms per token, the "
         f"loop (prefill + {SERVE_NEW - 1} steps) {eager_ms:.2f} ms; "
@@ -2516,7 +2610,7 @@ def run_serve(torch, device, cfg=None, label="serve", *, variants=(),
             + ", ".join(f"{t:.2f}" for t in v["generate_replays_ms"])
             + f"); graph pool {v['graph_pool_bytes']} bytes; DECODE_STATS 1 "
             f"per call; tokens == its eager loop's argmax chain, bit for "
-            f"bit ({v['tokens_equal_to']} of {SERVE_BATCH * SERVE_NEW} equal "
+            f"bit ({v['tokens_equal_to']} of {batch_size * SERVE_NEW} equal "
             f"to {cfg.moe.impl}'s); launches per call "
             + json.dumps(v["launches"]))
     for name, sh in shares.items():
@@ -2713,8 +2807,11 @@ def run_lm_parity(torch, device, cfg=None, label="lm parity",
     """Full width, PARITY_LAYERS layers (or ``cfg``'s): greedy_generate on
     the card (one graph replay), its tokens the card's eager argmax chain;
     then the same weights and tokens teacher-forced on the CPU, and the
-    CPU's eager greedy_generate, whose tokens must equal the card's
-    wherever the card's top-2 margin exceeds twice the bound. An audio
+    CPU's tokens, which must equal the card's wherever the card's top-2
+    margin exceeds twice the bound: the argmax of its teacher-forced
+    logits, which are its eager greedy_generate's tokens up to a request's
+    first token apart from the card's, the last one the check reads (so
+    the CPU makes one pass over the weights, not two). An audio
     model: seeded frames teacher-forced on both. A MoE model: both sides'
     router choices recorded; a request is held from the first position a
     routing flip (which must lie inside the rounding) reaches. With
@@ -2760,8 +2857,7 @@ def run_lm_parity(torch, device, cfg=None, label="lm parity",
     with RouterLog(torch) as cpu_log:
         cpu = teacher_forced(cfg, model, batch, feed.cpu(), "cpu")
     if not audio:
-        cpu_toks = greedy_generate(cfg, model, batch,
-                                   max_new_tokens=PARITY_NEW, device="cpu")
+        cpu_toks = argmax_chain(torch, cfg, cpu)
     if dvp_bound is not None:
         dvp["cpu"] = decode_vs_prefill(torch, cfg, model, batch,
                                        S + PARITY_NEW, dvp_bound,
@@ -2822,7 +2918,7 @@ def run_lm_parity(torch, device, cfg=None, label="lm parity",
         + f" (bound {LOGITS_REL})"
         + (f"; {say_flips(flips)}" if cfg.moe is not None else "")
         + ("" if audio else
-           f"; the CPU's greedy tokens: {equal} of {toks.numel()} equal to "
+           f"; the CPU's argmax tokens: {equal} of {toks.numel()} equal to "
            f"the card's, {checked} held to them (those before a card top-2 "
            f"margin within twice the bound)")
         + ("" if dvp_bound is None else
@@ -2853,6 +2949,166 @@ def say_share(name: str, sh: dict) -> None:
         f"{sh['busy_share']:.3f}; top: "
         + "; ".join(f"{k['name'][:80]} {k['ms']:.3f} ms x{k['count']}"
                     for k in sh["top"][:3]))
+
+
+# ---------------------------------------------------------------------------
+# Phases 25-27: the dense and quantized serving paths at published widths
+# ---------------------------------------------------------------------------
+
+def check_routes(label, routes, flash_routes):
+    """Both routes of both LM kernels ran in ``label``'s call."""
+    idle = [k for k, v in (("pim_matmul[tensor_core]", routes["tensor_core"]),
+                           ("pim_matmul[swap_ab]", routes["swap_ab"]),
+                           ("flash_attn[tensor_core]",
+                            flash_routes["tensor_core"]),
+                           ("flash_attn[split_kv]", flash_routes["split_kv"]))
+            if v == 0]
+    if idle:
+        raise AssertionError(f"routes never launched on the {label} path: "
+                             f"{idle}")
+
+
+def say_kernels(label, rec, launches, routes, flash_routes) -> None:
+    say(f"kernels {label} " + json.dumps(launches) + " routes "
+        + json.dumps(routes) + " flash routes " + json.dumps(flash_routes)
+        + " by (route, K, N) " + json.dumps(rec["pim_shapes"])
+        + " by (mode, bits) " + json.dumps(rec["pim_kinds"]))
+
+
+def run_dense(torch, device) -> dict:
+    """Phase 25: each DENSE run through ``run_serve`` with phase 7's
+    traffic, one model at a time (each freed with its graphs before the
+    next is built); decode against prefill measured at full depth, not
+    held. Returns label -> record, each with its launches."""
+    records = {}
+    for label, arch, overrides, depth in DENSE:
+        cut = {} if depth is None else {"n_layers": depth}
+        t = time.perf_counter()
+        rec, launches, routes, flash_routes = run_serve(
+            torch, device, family_config(arch, overrides, **cut), label,
+            dvp_bound=None, dvp_note="as phase 18's; phase 26 holds the card "
+            f"to the CPU at {PARITY_LAYERS} layers", eager_reps=1)
+        rec["launches"], rec["phase_s"] = launches, time.perf_counter() - t
+        records[label] = rec
+        say_kernels(label, rec, launches, routes, flash_routes)
+        if label in DENSE_BOTH_ROUTES:
+            check_routes(label, routes, flash_routes)
+    return records
+
+
+class PlainKernels:
+    """Inside the ``with`` block each launch of pim_matmul's and
+    flash_attn's kernels on the card runs the kernel's plain version on
+    the same tensors instead, into the same output, and counts nothing:
+    the plain reference at sizes the CPU would take too long for."""
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attn import ops as fa
+        from repro_torch.kernels.flash_attn import ref as fref
+        from repro_torch.kernels.pim_matmul import ops as pm
+        from repro_torch.kernels.pim_matmul import ref as pref
+        self._mods = (pm, fa)
+        self._saved = (pm._launch, fa._launch)
+
+        def pim(x, w_int, scales, out, mode, bits, which, splits=None):
+            return out.copy_(pref.ref_pim_matmul_raw(
+                x, w_int, mode=mode, bits=bits) * scales[None, :])
+
+        def flash(q, k, v, pos_q, pos_k, out, window, scale, which,
+                  splits=None, lse=None):
+            if lse is not None:
+                raise ValueError("PlainKernels: no log-sum-exp")
+            return out.copy_(fref.ref_flash_attention(
+                q, k, v, pos_q, pos_k, window=window, scale=scale))
+
+        pm._launch, fa._launch = pim, flash
+        return self
+
+    def __exit__(self, *exc):
+        pm, fa = self._mods
+        pm._launch, fa._launch = self._saved
+
+
+def run_ring(torch, device) -> dict:
+    """Phase 27: starcoder2-7b at full depth past its window (RING_BATCH x
+    RING_PROMPT tokens, SERVE_NEW new) through ``run_serve``; then at
+    RING_CHECK_LAYERS layers the same traffic, greedy_generate's tokens the
+    card's argmax chain, the card's kernels teacher-forced against their
+    plain versions on the card (``PlainKernels``) step by step within
+    LOGITS_REL, and the ring's slots after the last step: every one written,
+    positions S + n - 4,096 .. S + n - 1 (S the prompt, n the decode steps),
+    the decode steps' writes wrapped past slot 0."""
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.serve import engine
+    from repro_torch.serve.engine import greedy_generate
+
+    label, arch, overrides = RING
+    cfg = family_config(arch, overrides)
+    t = time.perf_counter()
+    rec, launches, routes, flash_routes = run_serve(
+        torch, device, cfg, label, dvp_bound=None,
+        dvp_note="its 2-layer model is held below, kernels against plain",
+        batch_size=RING_BATCH, prompt=RING_PROMPT, eager_reps=1)
+    rec["launches"], rec["phase_s"] = launches, time.perf_counter() - t
+    say_kernels(label, rec, launches, routes, flash_routes)
+    check_routes(label, routes, flash_routes)
+
+    t = time.perf_counter()
+    cfg = family_config(arch, overrides, n_layers=RING_CHECK_LAYERS)
+    model = init_params(cfg, 1, device=device)
+    batch = prompt_batch(torch, cfg, 13, RING_BATCH, RING_PROMPT, device)
+    S, n, W = RING_PROMPT, SERVE_NEW - 1, cfg.sliding_window
+    engine.DECODE_STATS["dispatches"] = 0
+    toks = greedy_generate(cfg, model, batch, max_new_tokens=SERVE_NEW)
+    if engine.DECODE_STATS["dispatches"] != 1:
+        raise AssertionError(f"{label}: not one dispatch on the card")
+
+    def forced():
+        lg, caches = prefill(cfg, model, batch, S + SERVE_NEW)
+        out = [lg.cpu()]
+        for i in range(n):
+            lg, caches = decode_step(cfg, model, {"tokens": toks[:, i:i + 1]},
+                                     S + i, caches)
+            out.append(lg.cpu())
+        return out, caches["stack"]["kpos"].cpu()
+
+    card, kpos = forced()
+    card_s = time.perf_counter() - t
+    t = time.perf_counter()
+    with PlainKernels():
+        plain, plain_kpos = forced()
+    plain_s = time.perf_counter() - t
+    if not torch.equal(toks.cpu(), argmax_chain(torch, cfg, card)):
+        raise AssertionError(f"{label}: the graph's tokens are not the card's "
+                             "argmax chain")
+    # slots: the last W positions, each at slot pos % W
+    want = torch.arange(S + n - W, S + n, dtype=torch.int32)
+    slots = torch.full((W,), -1, dtype=torch.int32)
+    slots[want % W] = want
+    if not (kpos.shape[-1] == W and torch.equal(kpos, plain_kpos)
+            and bool((kpos == slots).all())):
+        raise AssertionError(f"{label}: the ring's slots {tuple(kpos.shape)} "
+                             f"hold positions {int(kpos.min())} .. "
+                             f"{int(kpos.max())}, expected {S + n - W} .. "
+                             f"{S + n - 1} at slot pos % {W}")
+    rels = [rel_err(torch, a, b) for a, b in zip(card, plain)]
+    if not all(torch.isfinite(a).all() for a in card) \
+            or not all(r < LOGITS_REL for r in rels):
+        raise AssertionError(f"{label}: kernels vs plain logits rel {rels} "
+                             f"(bound {LOGITS_REL})")
+    say(f"{label} {cfg_name(cfg)} at full width, {cfg.n_layers} layers, "
+        f"batch {RING_BATCH}, prompt {S}, {SERVE_NEW} tokens: one graph "
+        f"replay, tokens == the card's argmax chain; the ring's {W} slots "
+        f"after the last step hold positions {S + n - W} .. {S + n - 1} "
+        f"(decode wrote slots {S % W} .. {(S + n - 1) % W}); card (kernels) "
+        "vs card (plain versions) logits rel per step " + ", ".join(
+            f"{r:.3e}" for r in rels) + f" (bound {LOGITS_REL}); kernels "
+        f"{card_s:.1f} s, plain {plain_s:.1f} s")
+    rec["check"] = {"layers": cfg.n_layers, "rel_per_step": rels,
+                    "tokens": toks.cpu().tolist(), "kernels_s": card_s,
+                    "plain_s": plain_s}
+    del model, batch, card, plain
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -4894,8 +5150,10 @@ def main() -> int:
     }
 
     # 6. the LM kernels against their plain versions
+    t = time.perf_counter()
     lm_rows = phase_lm_kernels(torch, device)
     record["lm_kernels"] = lm_rows
+    say(f"phase 6 rows: {time.perf_counter() - t:.1f} s")
     record["pim_routes"] = pim_routes_timed(torch, device)
     record["tc_ptxas"] = tc_ptxas()
     say("ptxas pim_matmul[tc]: " + (", ".join(
@@ -5104,16 +5362,7 @@ def main() -> int:
             + " flash routes " + json.dumps(f_flash))
     # the slice's main path: both routes of each LM kernel ran
     ds_launches, ds_routes, ds_flash = family_counts["serve-deepseek"]
-    idle = [k for k, v in (("pim_matmul[tensor_core]",
-                            ds_routes["tensor_core"]),
-                           ("pim_matmul[swap_ab]", ds_routes["swap_ab"]),
-                           ("flash_attn[tensor_core]",
-                            ds_flash["tensor_core"]),
-                           ("flash_attn[split_kv]", ds_flash["split_kv"]))
-            if v == 0]
-    if idle:
-        raise AssertionError(f"routes never launched on the deepseek "
-                             f"path: {idle}")
+    check_routes("deepseek", ds_routes, ds_flash)
 
     # 17. each family's card against the CPU at full width, 2 layers
     record["families_parity"] = {
@@ -5177,6 +5426,31 @@ def main() -> int:
     finally:
         shutil.rmtree(keep, ignore_errors=True)
 
+    # 25. the dense configurations and Qwen3-4B's other quantizations at
+    # published widths, with the launch counts reset just before a replayed
+    # call and read just after it (inside run_serve)
+    phase_s = record["phase_s"] = {}
+    t = time.perf_counter()
+    dense = record["dense"] = run_dense(torch, device)
+    phase_s["25 dense"] = time.perf_counter() - t
+
+    # 26. each of them card against CPU at full width, 2 layers
+    t = time.perf_counter()
+    record["dense_parity"] = {
+        label: run_lm_parity(torch, device, family_config(
+            arch, overrides, n_layers=PARITY_LAYERS))
+        for label, arch, overrides, _ in DENSE}
+    phase_s["26 dense parity"] = time.perf_counter() - t
+
+    # 27. starcoder2-7b past its window, the launch counts reset just
+    # before a replayed call and read just after it (inside run_serve); its
+    # 2-layer model's kernels against their plain versions on the card
+    t = time.perf_counter()
+    ring = record["ring"] = run_ring(torch, device)
+    phase_s["27 ring"] = time.perf_counter() - t
+    say("phases 25-27: " + ", ".join(f"{k} {v:.1f} s"
+                                     for k, v in phase_s.items()))
+
     # the row entries at the full device's 64 slots, in place (as most of
     # the main path's segments run); every shape is in chip_smoke.json
     table = []
@@ -5219,51 +5493,28 @@ def main() -> int:
                    f"pim_matmul[shift_add,w4] ({m},{k})@({k},{n})",
                    launches_by_shape.get(shape_key(route, k, n), 0))
 
-    for kernel, row, launched in (
-            *pim_rows(PIM_SHAPES, record["serve"]["pim_shapes"]),
+    rows = [*pim_rows(PIM_SHAPES, record["serve"]["pim_shapes"]),
             ("flash_attn", "flash_attn[decode]", flash_routes["split_kv"]),
             ("flash_attn", "flash_attn[prefill]",
-             flash_routes["tensor_core"])):
-        r = lm_rows[row]
-        table.append({
-            "name": row, "route": "cuda", "source": SOURCES[kernel],
-            "replaces": REPLACES[kernel], "launches": launched,
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+             flash_routes["tensor_core"])]
     # MLA's flash rows at the deepseek path's shapes (decode over its
     # 144-slot latent cache, prefill at 128 tokens), launched on phase 16's
     # deepseek path
-    for row, launched in (("flash_attn[decode,mla,144]",
-                           ds_flash["split_kv"]),
-                          ("flash_attn[prefill,mla]",
-                           ds_flash["tensor_core"])):
-        r = lm_rows[row]
-        table.append({
-            "name": row, "route": "cuda", "source": SOURCES["flash_attn"],
-            "replaces": REPLACES["flash_attn"], "launches": launched,
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    rows += [("flash_attn", "flash_attn[decode,mla,144]",
+              ds_flash["split_kv"]),
+             ("flash_attn", "flash_attn[prefill,mla]",
+              ds_flash["tensor_core"])]
     # recurrentgemma-2b's rows at phase 18's serving shapes, each with the
     # launches at its own shape on its path: pim_matmul at its two decode
     # and two prefill shapes, flash_attn at decode over its 144-slot ring
     # and at prefill
     _, _, rg_flash = recurrent_counts["serve-recurrentgemma"]
-    for kernel, row, launched in (
-            *pim_rows(PIM_SHAPES_RG,
-                      recurrent["serve-recurrentgemma"]["pim_shapes"]),
-            ("flash_attn", "flash_attn[decode,recurrentgemma,144]",
-             rg_flash["split_kv"]),
-            ("flash_attn", "flash_attn[prefill,recurrentgemma]",
-             rg_flash["tensor_core"])):
-        r = lm_rows[row]
-        table.append({
-            "name": row, "route": "cuda", "source": SOURCES[kernel],
-            "replaces": REPLACES[kernel], "launches": launched,
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+    rows += [*pim_rows(PIM_SHAPES_RG,
+                       recurrent["serve-recurrentgemma"]["pim_shapes"]),
+             ("flash_attn", "flash_attn[decode,recurrentgemma,144]",
+              rg_flash["split_kv"]),
+             ("flash_attn", "flash_attn[prefill,recurrentgemma]",
+              rg_flash["tensor_core"])]
     # training's rows at phase 20's shapes, each with the launches of the
     # measured steps (TRAIN_STEPS of them) at its own (route, K, N): each
     # pim_matmul shape is a forward, its recompute, the dscales
@@ -5271,9 +5522,36 @@ def main() -> int:
     # with the log-sum-exp, forward and recompute
     train_flash = sum(h["launches"]["flash_lse"]
                       for h in record["train"]["steps"])
-    for kernel, row, launched in (
-            *pim_rows(PIM_SHAPES_TRAIN, train_shapes),
-            ("flash_attn", "flash_attn[prefill,lse]", train_flash)):
+    rows += [*pim_rows(PIM_SHAPES_TRAIN, train_shapes),
+             ("flash_attn", "flash_attn[prefill,lse]", train_flash)]
+    # the dense configurations' rows at phase 25's and 27's shapes, each
+    # with the launches at its own shape on its path: pim_matmul w4
+    # shift_add at the three configs' FFN shapes (phase 25's M 4 and 512),
+    # Qwen3-4B's four shapes in its other quantizations, flash_attn at
+    # each config's prefill and decode over 144 slots, starcoder2-7b's at
+    # 4,352 tokens and over the wrapped ring
+    dense_shapes = {}
+    for label in DENSE_BOTH_ROUTES:
+        dense_shapes.update(dense[label]["pim_shapes"])
+    rows += pim_rows(PIM_SHAPES_DENSE, dense_shapes)
+    for label, _, overrides, _ in DENSE[len(DENSE_BOTH_ROUTES):]:
+        kind = (f"{overrides['quant_mode']},"
+                f"w{overrides['quant'].removeprefix('pim_w')}")
+        rows += [("pim_matmul", name.replace("shift_add,w4", kind), n)
+                 for _, name, n in pim_rows(PIM_SHAPES,
+                                            dense[label]["pim_shapes"])]
+    for label, name in (("serve-yi", "yi"), ("serve-qwen2.5", "qwen2.5"),
+                        ("serve-starcoder2", "starcoder2")):
+        flash = dense[label]["flash_routes"]
+        rows += [("flash_attn", f"flash_attn[prefill,{name}]",
+                  flash["tensor_core"]),
+                 ("flash_attn", f"flash_attn[decode,{name},144]",
+                  flash["split_kv"])]
+    rows += [("flash_attn", "flash_attn[prefill,starcoder2,4352]",
+              ring["flash_routes"]["tensor_core"]),
+             ("flash_attn", "flash_attn[decode,starcoder2,ring]",
+              ring["flash_routes"]["split_kv"])]
+    for kernel, row, launched in rows:
         r = lm_rows[row]
         table.append({
             "name": row, "route": "cuda", "source": SOURCES[kernel],

@@ -25,9 +25,10 @@ Each picks its own tiles and K splits, so the reference's block sizes and
 ``interpret`` have no counterpart.
 
 ``LAUNCHES["pim_matmul"]`` counts kernel launches, ``ROUTES`` splits
-them by route and ``SHAPES`` by (route, K, N); a plain-version call counts
-nothing. A call made while the current stream captures a CUDA graph runs
-nothing then: it counts in ``CAPTURED`` and ``CAPTURED_SHAPES`` instead,
+them by route, ``SHAPES`` by (route, K, N) and ``KINDS`` by the (mode,
+bits) the kernel was given; a plain-version call counts nothing. A call
+made while the current stream captures a CUDA graph runs nothing then: it
+counts in ``CAPTURED``, ``CAPTURED_SHAPES`` and ``CAPTURED_KINDS`` instead,
 and whoever replays the graph adds what it captured at each replay
 (``count_replay``; ``serve.engine`` does), so that the counts stay
 launches that ran.
@@ -44,6 +45,8 @@ ROUTES = {"tensor_core": 0, "swap_ab": 0, "cuda_core": 0}
 CAPTURED = dict.fromkeys(ROUTES, 0)
 SHAPES: dict[tuple[str, int, int], int] = {}
 CAPTURED_SHAPES: dict[tuple[str, int, int], int] = {}
+KINDS: dict[tuple[str, int], int] = {}
+CAPTURED_KINDS: dict[tuple[str, int], int] = {}
 # The least M that takes the tensor-core kernel: prefill takes it, decode
 # (M = batch) the swapped-operand kernel, which holds the batch in at most
 # two n8 fragments, so TC_MIN_M must stay <= 17. On one H100 the swapped
@@ -57,20 +60,24 @@ def reset_launches() -> None:
     for r in ROUTES:
         ROUTES[r] = 0
     SHAPES.clear()
+    KINDS.clear()
 
 
 def _add(counts: dict, key, n: int = 1) -> None:
     counts[key] = counts.get(key, 0) + n
 
 
-def _count(which: str, shape: tuple[int, int] | None = None) -> None:
-    """Count one launch of route ``which`` (at ``shape``, (K, N)), or one
-    captured launch (a build of torch without CUDA has no capture to ask
-    about)."""
+def _count(which: str, shape: tuple[int, int] | None = None,
+           kind: tuple[str, int] | None = None) -> None:
+    """Count one launch of route ``which`` (at ``shape``, (K, N), of
+    ``kind``, (mode, bits)), or one captured launch (a build of torch
+    without CUDA has no capture to ask about)."""
     capturing = torch.cuda.is_available() \
         and torch.cuda.is_current_stream_capturing()
     if shape is not None:
         _add(CAPTURED_SHAPES if capturing else SHAPES, (which, *shape))
+    if kind is not None:
+        _add(CAPTURED_KINDS if capturing else KINDS, kind)
     if capturing:
         CAPTURED[which] += 1
         return
@@ -78,15 +85,19 @@ def _count(which: str, shape: tuple[int, int] | None = None) -> None:
     ROUTES[which] += 1
 
 
-def count_replay(routes: dict, shapes: dict | None = None) -> None:
-    """Count one replay of a graph that captured ``routes`` and
-    ``shapes``, launches by route and by (route, K, N) (``CAPTURED`` and
-    ``CAPTURED_SHAPES`` after its capture less before)."""
+def count_replay(routes: dict, shapes: dict | None = None,
+                 kinds: dict | None = None) -> None:
+    """Count one replay of a graph that captured ``routes``, ``shapes``
+    and ``kinds``, launches by route, by (route, K, N) and by (mode, bits)
+    (``CAPTURED``, ``CAPTURED_SHAPES`` and ``CAPTURED_KINDS`` after its
+    capture less before)."""
     for which, n in routes.items():
         LAUNCHES["pim_matmul"] += n
         ROUTES[which] += n
     for key, n in (shapes or {}).items():
         _add(SHAPES, key, n)
+    for key, n in (kinds or {}).items():
+        _add(KINDS, key, n)
 
 
 def route(m: int, k: int, n: int, dtype: torch.dtype) -> str:
@@ -203,7 +214,7 @@ def _launch(x, w_int, scales, out, mode, bits, which, splits=None):
     if rc != 0:
         raise RuntimeError(f"pim_matmul kernel launch failed ({which}): "
                            f"CUDA error {rc}")
-    _count(which, (k, n))
+    _count(which, (k, n), (mode, bits))
     return out
 
 

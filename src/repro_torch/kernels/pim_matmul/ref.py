@@ -20,9 +20,11 @@ def plane_coeffs(bits: int):
 
 
 def ref_planes(w_int: torch.Tensor, bits: int):
-    """Decompose signed int8 weights into 0/1 bit planes (list of tensors)."""
-    wu = w_int.to(torch.int32) & ((1 << bits) - 1)
-    return [((wu >> i) & 1).to(torch.float32) for i in range(bits)]
+    """Decompose signed int8 weights into 0/1 bit planes (list of float32
+    tensors): plane i is bit i of each code's two's complement, shifted
+    out in the codes' own type (an arithmetic shift by i < 8 leaves bit i
+    lowest), which moves a quarter of the bytes an int32 copy would."""
+    return [((w_int >> i) & 1).to(torch.float32) for i in range(bits)]
 
 
 def ref_dequant(w_int: torch.Tensor, scales: torch.Tensor,

@@ -98,12 +98,20 @@ def _generate(cfg, model, batch, max_new_tokens, max_cache_len, temperature,
     return torch.cat(out, dim=1)
 
 
+def _since(counts: dict, before: dict) -> dict:
+    """The entries of ``counts`` that grew since its copy ``before``, by how
+    much."""
+    return {k: v - before.get(k, 0) for k, v in counts.items()
+            if v != before.get(k, 0)}
+
+
 class _Graph:
     """One captured signature: the CUDA graph, its static prompt (tokens
     int32, and patches float32 for a vision-patch model), noise,
     temperature and output tensors, the seconds its warm-up and capture
     took, the bytes its memory pool holds, and the kernel launches (by
-    route) that each replay makes."""
+    route; pim_matmul's also by (route, K, N) and by (mode, bits)) that
+    each replay makes."""
 
     def __init__(self, cfg, model, inputs, max_new_tokens, max_cache_len,
                  sampled):
@@ -132,6 +140,7 @@ class _Graph:
         t = time.perf_counter()
         pim0, flash0 = dict(_pim.CAPTURED), dict(_flash.CAPTURED)
         shapes0 = dict(_pim.CAPTURED_SHAPES)
+        kinds0 = dict(_pim.CAPTURED_KINDS)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
         self.graph = torch.cuda.CUDAGraph()
@@ -140,9 +149,8 @@ class _Graph:
                                  max_cache_len, self.temperature, self.u)
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.pim_routes = {k: v - pim0[k] for k, v in _pim.CAPTURED.items()}
-        self.pim_shapes = {k: v - shapes0.get(k, 0)
-                           for k, v in _pim.CAPTURED_SHAPES.items()
-                           if v != shapes0.get(k, 0)}
+        self.pim_shapes = _since(_pim.CAPTURED_SHAPES, shapes0)
+        self.pim_kinds = _since(_pim.CAPTURED_KINDS, kinds0)
         self.flash_routes = {k: v - flash0[k]
                              for k, v in _flash.CAPTURED.items()}
         self.capture_s = time.perf_counter() - t
@@ -155,7 +163,7 @@ class _Graph:
             self.temperature.fill_(temperature)
         self.graph.replay()
         DECODE_STATS["dispatches"] += 1
-        _pim.count_replay(self.pim_routes, self.pim_shapes)
+        _pim.count_replay(self.pim_routes, self.pim_shapes, self.pim_kinds)
         _flash.count_replay(self.flash_routes)
         return self.out.clone()
 

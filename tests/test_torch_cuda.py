@@ -402,6 +402,67 @@ def test_flash_tensor_core_skips_and_second_pass(card, shape):
                               atol=1e-2)
 
 
+@pytest.mark.parametrize("mkn", [(17, 72, 48), (40, 264, 144),
+                                 (130, 1032, 272)])
+@pytest.mark.parametrize("splits", [1, 2, 3])
+@pytest.mark.parametrize("mode,bits", [("shift_add", 8), ("dequant", 4),
+                                       ("dequant", 8)])
+def test_pim_matmul_tensor_core_w8_and_dequant(card, mkn, splits, mode,
+                                               bits):
+    """The tensor-core route in the modes the serving path reaches only
+    through Qwen3-4B's pim_w8 and dequant configs, at small shapes ragged
+    against its tiles, with its K split forced 1-3 ways, against the plain
+    version; twice on the same inputs, the same bits."""
+    m, k, n = mkn
+    gen = torch.Generator(device=card).manual_seed(m + k + n + splits)
+    x = torch.randn((m, k), generator=gen, device=card).to(torch.bfloat16)
+    w_int, scales = pm.quantize(
+        torch.randn((k, n), generator=gen, device=card), bits)
+    exp = pref.ref_pim_matmul_raw(x, w_int, mode=mode, bits=bits) \
+        * scales[None, :]
+    pm.reset_launches()
+    outs = [pm._launch(x, w_int, scales, torch.empty((m, n), device=card),
+                       mode, bits, "tensor_core", splits) for _ in range(2)]
+    assert pm.ROUTES["tensor_core"] == 2
+    assert pm.KINDS == {(mode, bits): 2}
+    rel = rel_err(outs[0], exp)
+    assert rel <= PIM_REL, f"rel {rel:.3e} (bound {PIM_REL})"
+    assert torch.equal(outs[0], outs[1])
+
+
+# (B, Sq, Sk, KV, window, last query position, ring): odd query groups
+# (G 5, 7, 9: yi-34b's 7, qwen2.5-32b's 5, starcoder2-7b's 9) on a causal
+# prefill under a window, several decode rows over a wrapped ring (slot j
+# holds the latest position p <= last with p = j mod Sk, unsorted), and
+# one decode row over the ring at the window's edge
+ODD_G_SHAPES = [(2, 150, 150, 2, 40, 149, False),
+                (2, 3, 100, 2, 100, 250, True),
+                (1, 1, 96, 2, 96, 300, True)]
+
+
+@pytest.mark.parametrize("shape", ODD_G_SHAPES)
+@pytest.mark.parametrize("which", ["split_kv", "tensor_core"])
+@pytest.mark.parametrize("g", [5, 7, 9])
+def test_flash_odd_groups_window_and_ring(card, shape, which, g):
+    """Both bf16 routes at odd G, whose row blocks (row s·G + g) straddle
+    query positions, at the causal skip and the window's lower edge,
+    against the plain version."""
+    B, Sq, Sk, KV, window, last, ring = shape
+    gen = torch.Generator(device=card).manual_seed(g * 100 + Sq)
+    q, k, v = (torch.randn(sh, generator=gen, device=card).to(torch.bfloat16)
+               for sh in ((B, Sq, KV, g, 128), (B, Sk, KV, 128),
+                          (B, Sk, KV, 128)))
+    pos_q = torch.arange(last - Sq + 1, last + 1, dtype=torch.int32,
+                         device=card)
+    slots = torch.arange(Sk, dtype=torch.int32, device=card)
+    pos_k = (last - torch.remainder(last - slots, Sk) if ring
+             else slots).repeat(B, 1)
+    got = launch_route(q, k, v, pos_q, pos_k, window, which)
+    exp = fref.ref_flash_attention(q, k, v, pos_q, pos_k, window=window)
+    err = float((got.float() - exp.float()).abs().max())
+    assert err < flash_bound(exp), f"max abs err {err}"
+
+
 @pytest.mark.parametrize("m", [5, 64])
 def test_pim_matmul_casts_scales_and_strides(card, m):
     """bf16 scales, float32 scales that do not start on 16 bytes and
@@ -450,11 +511,18 @@ def test_launch_counts_and_refusals(card):
     ("starcoder2-7b", {}),
     ("qwen3-4b", {"quant": "pim_w4", "quant_mode": "shift_add"}),
     ("qwen3-4b", {"quant": "pim_w8", "quant_mode": "dequant"}),
+    ("starcoder2-7b", {"quant": "pim_w4", "quant_mode": "shift_add"}),
+    ("yi-34b", {"n_heads": 14, "n_kv_heads": 2}),
+    ("qwen2.5-32b", {"n_heads": 10, "n_kv_heads": 2}),
+    ("starcoder2-7b", {"n_heads": 18, "n_kv_heads": 2}),
 ])
 def test_smoke_lm_card_matches_cpu(card, arch, overrides):
     """greedy_generate on the card; the same weights and tokens
     teacher-forced on the card and on the CPU (starcoder2's prompt is past
-    its window, so its cache is a ring)."""
+    its window, so its cache is a ring; starcoder2 pim_w4 runs its GELU
+    MLP's biases after the bit-plane products; 14, 10 and 18 query heads
+    on 2 kv heads are the odd groups G = 7, 5 and 9 of yi-34b,
+    qwen2.5-32b and starcoder2-7b)."""
     cfg = get_config(arch, smoke=True, **overrides)
     model = init_params(cfg, 5)
     prompt = torch.as_tensor(np.random.default_rng(1).integers(

@@ -54,6 +54,15 @@ CASES = {
                                                  quant_mode="dequant")),
     "qwen3-4b-pim_w8-shift_add": ("qwen3-4b", dict(quant="pim_w8",
                                                    quant_mode="shift_add")),
+    "qwen3-4b-pim_w8-dequant": ("qwen3-4b", dict(quant="pim_w8",
+                                                 quant_mode="dequant")),
+    # LayerNorm, the GELU MLP and its biases under pim_linear; the ring
+    "starcoder2-7b-pim_w4-shift_add": ("starcoder2-7b", dict(
+        quant="pim_w4", quant_mode="shift_add")),
+    # odd query groups: G = 7, 5 (with the QKV bias) and 9 (with the ring)
+    "yi-34b-g7": ("yi-34b", dict(n_heads=14, n_kv_heads=2)),
+    "qwen2.5-32b-g5": ("qwen2.5-32b", dict(n_heads=10, n_kv_heads=2)),
+    "starcoder2-7b-g9": ("starcoder2-7b", dict(n_heads=18, n_kv_heads=2)),
     "qwen3-4b-f32": ("qwen3-4b", dict(dtype="float32")),
     "starcoder2-7b-f32": ("starcoder2-7b", dict(dtype="float32")),
 }
@@ -405,6 +414,50 @@ def test_pim_matmul_counts_launches_by_shape(monkeypatch):
     assert pm.ROUTES["tensor_core"] == 6
     pm.reset_launches()
     assert pm.SHAPES == {}
+
+
+def test_pim_matmul_counts_launches_by_kind(monkeypatch):
+    """pim_matmul also counts each launch by the (mode, bits) its kernel
+    was given: a launch at once in KINDS, a captured one in CAPTURED_KINDS,
+    which each replay adds; reset_launches clears KINDS."""
+    pm.reset_launches()
+    captured = dict(pm.CAPTURED_KINDS)
+    pm._count("swap_ab", (64, 192), ("dequant", 8))
+    assert pm.KINDS == {("dequant", 8): 1}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: True)
+    pm._count("tensor_core", (192, 64), ("shift_add", 8))
+    pm._count("tensor_core", (64, 192), ("shift_add", 8))
+    assert pm.KINDS == {("dequant", 8): 1}
+    kinds = {k: v - captured.get(k, 0)
+             for k, v in pm.CAPTURED_KINDS.items()
+             if v != captured.get(k, 0)}
+    assert kinds == {("shift_add", 8): 2}
+    for _ in range(3):
+        pm.count_replay({"tensor_core": 2}, None, kinds)
+    assert pm.KINDS == {("dequant", 8): 1, ("shift_add", 8): 6}
+    pm.reset_launches()
+    assert pm.KINDS == {}
+
+
+@pytest.mark.parametrize("overrides", [
+    dict(quant="pim_w8", quant_mode="dequant"),
+    dict(quant="pim_w4", quant_mode="shift_add")])
+def test_pim_matmul_kernel_gets_the_config_kind(monkeypatch, overrides):
+    """What reaches the kernel is the config's mode and bits: the model's
+    quantized linears, taken to the launch on the CPU with the launch
+    watched, give one launch per linear, each of the config's (mode,
+    bits)."""
+    cfg = pconfigs.get_config("starcoder2-7b", smoke=True, **overrides)
+    model = init_params(cfg, 0, device=CPU)
+    seen = []
+    monkeypatch.setattr(pm, "_on_card", lambda x: True)
+    monkeypatch.setattr(pm, "_launch", lambda x, w, s, out, mode, bits,
+                        which, splits=None: seen.append((mode, bits))
+                        or out.zero_())
+    prefill(cfg, model, prompts(cfg, 1, 8), 8, device=CPU)
+    assert seen == [(cfg.quant_mode, cfg.quant_bits)] * (2 * cfg.n_layers)
 
 
 def test_moving_the_model_drops_its_graphs(served):
