@@ -32,7 +32,12 @@ each, every mismatch fatal:
                slots, 256 MiB of rows on the card): heterogeneous programs,
                host writes and reads, a cross-bank COPY drain, two async
                steps (the second also refreshed), held exactly against the
-               CPU run;
+               CPU run; then (4b) ``refresh_events`` on the card at refresh
+               cycles of 0.6, 0.78 and 0.95 of the interval (once refused
+               there), eagerly and replayed from a CUDA graph, against the
+               CPU's loop, three refreshed ``schedule()`` steps at 0.6
+               (eager, capture, replay) against the CPU, and tRFC = tREFI
+               refused;
 5. launches  — kernel launches over the PIM path of phases 3-4 (counts
                reset just before, read just after); each kernel must run,
                the old out-of-place entries not at all; then the card's
@@ -162,7 +167,7 @@ each, every mismatch fatal:
 15. tables   — ``shift_failure_rate`` on the card at 0, 5, 10 and 20 %
                variation, 100,000 trials, within the reference test's bounds
                of the paper's Table 4; the area model's Table 5;
-16. families — the MoE, MLA and frontend families at their published
+16. families — the MLA and frontend families at their published
                widths with phase 7's traffic, weights from a seed, each
                ``greedy_generate`` call one CUDA-graph replay with phase
                7's checks (launches by route from the config, reset just
@@ -177,17 +182,13 @@ each, every mismatch fatal:
                ``tensor_core`` route at prefill, ``split_kv`` at decode;
                the dense layer's and the shared experts' linears on
                ``pim_matmul``'s ``tensor_core`` and ``swap_ab`` routes,
-               every one of the four routes must run), qwen3-moe-30b-a3b at
-               8 of 48 layers, its einsum and gather dispatches each
-               replayed on the same weights, llava-next-mistral-7b pim_w4
-               at 4 of 32 layers behind 576 seeded patch embeddings (a
-               static input of the graph); musicgen-medium at 4 of 48
-               layers through ``prefill`` and 15 teacher-forced
-               ``decode_step`` calls on seeded frames (its
-               ``greedy_generate`` raises, as the reference's does), the
-               loop's launches by route, its logits finite and repeated bit
-               for bit;
-17. families parity — each family at full width, 2 layers, as phase 8
+               every one of the four routes must run) and
+               llava-next-mistral-7b pim_w4 at 4 of 32 layers behind 576
+               seeded patch embeddings (a static input of the graph);
+               qwen3-moe-30b-a3b and musicgen-medium serve their defaults
+               at full depth in phase 28;
+17. families parity — deepseek, llava, qwen3-moe-30b-a3b and
+               musicgen-medium at full width, 2 layers, as phase 8
                (musicgen: seeded frames teacher-forced on both sides); a
                MoE model's router choices recorded on both sides, a request
                held until the first routing flip that reaches it, each
@@ -286,7 +287,38 @@ each, every mismatch fatal:
                at 2 layers the same traffic, the card's kernels against
                their plain versions run on the card (the CPU is too slow
                at 4,352 tokens) step by step within 2e-2, and the ring's
-               slots after the last step.
+               slots after the last step;
+28. defaults — each configuration's own default (bf16, ``quant=None``)
+               at published width and full depth, one model on the card at
+               a time: first the serving CLI
+               (``repro_torch.launch.serve.main(["--arch", id])``) in
+               this process at its defaults (4 x 32 tokens, 32 new; its
+               ``req`` lines, one greedy_generate replay); then the same
+               weights built again, with phase 7's traffic and checks (no
+               eager timing): Qwen3-4B (36 layers), starcoder2-7b (32,
+               under its 4,096 window), deepseek-v2-lite-16b (27, MLA and
+               MoE, einsum), llava-next-mistral-7b (32, behind 576 seeded
+               patches), recurrentgemma-2b (26), qwen3-moe-30b-a3b (48,
+               einsum, then gather on the same weights), each call one
+               replay with no ``pim_matmul`` launch and both flash routes,
+               decode against prefill measured (a MoE model's flips
+               reported), and the CLI's tokens the eager argmax chain
+               teacher-forced on its prompts, bit for bit;
+               musicgen-medium at 48 layers through ``prefill`` and 15
+               teacher-forced ``decode_step`` calls on seeded frames, its
+               ``greedy_generate`` and the CLI raising, as the
+               reference's do;
+29. defaults parity — the five that had never run bf16 at width
+               (Qwen3-4B, starcoder2-7b, deepseek, llava at 2 layers;
+               recurrentgemma-2b at 3, one (rec, rec, attn) block) card
+               against CPU as phase 8;
+30. long     — Qwen3-4B bf16 at 36 layers on one request of 32,752
+               tokens and 16 new (32,768 positions: prefill_32k's
+               sequence, decode_32k's cache, batch 1) with phase 7's
+               checks; then at 2 layers the same traffic, the card's
+               kernels against their plain versions on the card (the
+               attention over 1,024 queries a call) step by step within
+               2e-2.
 
 Phase 6 also holds the training shapes: pim_matmul w4 shift_add at (2048,
 2560) @ (2560, 9728) and (2048, 9728) @ (9728, 2560), and flash_attn at
@@ -296,7 +328,12 @@ plain version's); and phases 25-27's: pim_matmul w4 shift_add at the
 dense configurations' FFN shapes (PIM_SHAPES_DENSE, M 4 on ``swap_ab``
 and 512 on ``tensor_core``), flash_attn at their heads (G 7, 5 and 9) at
 prefill and over 144 slots, and at starcoder2-7b's 4,352-token prefill
-under its window and its decode over the wrapped 4,096-slot ring. The front of phase 14 runs on the 64-slot device, where
+under its window and its decode over the wrapped 4,096-slot ring; and
+phase 30's: flash_attn at Qwen3-4B's heads over 32,752 causal tokens and
+at decode over a 32,768-slot cache, the prefill's plain version on its
+first and last 1,024 query rows (every flash row's bf16 output held to
+1e-2 of max |plain| over each query row). The front of phase 14 runs on the 64-slot device,
+where
 the step's energy sum follows XLA's order (``compile.xla_sum``), card
 against CPU bit for bit.
 
@@ -305,7 +342,8 @@ its own (route, K, N) on its path, MLA's two flash rows with their
 launches on phase 16's deepseek path, recurrentgemma-2b's six rows with
 theirs on phase 18's path, the training rows with theirs over phase 20's
 measured steps, the dense configurations' rows with theirs on phases
-25 and 27's paths), the card's name and power limit, and the result
+25 and 27's paths, the 32k rows with theirs on phase 30's), the card's
+name and power limit, and the result
 line. Nanoseconds and nanojoules of the DDR3 meter are outputs of
 the simulated DRAM's model; milliseconds and microseconds are times of the
 card. Everything measured is also written to ``chiprun_out/chip_smoke.json``.
@@ -351,13 +389,17 @@ REPLACES = {
 # in another order), so max |kernel - plain| <= 1e-4 of max |plain|.
 # flash_attn: abs 2e-5 for float32 (the reference tests' bound; float32
 # stays on the CUDA cores' float32 products, the tiled and split routes);
-# for bf16 tensors 1e-2 of max |plain|: both sides take the same bf16
-# inputs, sum in float32 and round the output to bf16, so they differ by
-# at most about one bf16 ulp of the largest output, which is at most 2^-7
-# of it; the tensor-core route also rounds each softmax weight p to bf16
-# before P V, a relative error of at most 2^-9 per weight, so an output
-# moves by at most 2^-9 times max |v| (sum p |v| / sum p), and by far less
-# as the weights' rounding errors differ in sign. The model's logits, card
+# for bf16 tensors 1e-2 of max |plain| (phase 6's flash rows and the 32k
+# card tests: of max |plain| over each query row, its heads and widths,
+# since a causal row over 32k keys averages outputs ~sqrt(e / 32k) ~ 0.009
+# against row 0's ~3): both sides take the same bf16 inputs, sum in float32
+# and round the output to bf16, so they differ by at most about one bf16
+# ulp of the largest output, which is at most 2^-7 of it; the tensor-core
+# route also rounds each softmax weight p to bf16 before P V, a relative
+# error of at most 2^-9 per weight whose signs differ, so an output moves
+# by about 2^-9 sqrt(sum p^2 v^2) / sum p, 2^-9 of the size of its row's
+# outputs (at most 2^-9 max |v|, which random weights do not reach). The
+# model's logits, card
 # against CPU and decode against prefill: 2e-2 of max |logit|, the bound
 # the port's CPU tests hold the bf16 model to against the reference (bf16
 # rounds in other places on either side).
@@ -467,7 +509,18 @@ FLASH_SHAPES = {
     "decode,qwen2.5,144": (4, 8, 5, 128, 128, 1, 144, 135, None, False),
     "decode,starcoder2,144": (4, 4, 9, 128, 128, 1, 144, 135, 4096, False),
     "decode,starcoder2,ring": (1, 4, 9, 128, 128, 1, 4096, 4366, 4096, True),
+    # Qwen3-4B's heads at phase 30's 32,768 positions: prefill over 32,752
+    # causal tokens, decode over the 32,768-slot cache at the last step's
+    # position
+    "prefill,32k": (1, 8, 4, 128, 128, 32752, 32752, 32751, None, False),
+    "decode,32k": (1, 8, 4, 128, 128, 1, 32768, 32766, None, False),
 }
+# A shape whose plain version would take more than FLASH_PLAIN_BYTES of
+# float32 scores (prefill,32k: 137 GB) is long: the plain version runs on
+# its first and last FLASH_LONG_ROWS query rows alone, SDPA on the whole
+# shape (causal, kv heads repeated)
+FLASH_PLAIN_BYTES = 2 ** 32
+FLASH_LONG_ROWS = 1024
 # phase 20's training attention: Qwen3-4B's heads over 8 x 256 causal
 # tokens, the forward asked for the log-sum-exp
 FLASH_TRAIN = (8, 8, 4, 128, 128, 256, 256, 255, None, False)
@@ -487,18 +540,24 @@ PIM_ROUTES = ("tensor_core", "swap_ab", "cuda_core")
 TC_SPLITS = (1, 2, 3)
 SWAP_SPLITS = (1, 2, 3, 4, 6, 8, 13, 16, 24, 32)
 PARITY_LAYERS, PARITY_BATCH, PARITY_PROMPT, PARITY_NEW = 2, 2, 32, 4
+PIM_W4 = {"quant": "pim_w4", "quant_mode": "shift_add"}
 # Phases 16-17: the MoE, MLA and frontend families at their published
-# widths, served with phase 7's traffic: (label, arch, overrides, depth,
-# more MoE dispatches replayed on the same weights). deepseek-v2-lite-16b
-# at its full 27 layers (about 31.5 GB on the card with pim_w4), the others
-# cut to these depths so that the run stays well within its time limit.
+# widths, served with phase 7's traffic: (label, arch, overrides, depth).
+# deepseek-v2-lite-16b pim_w4 at its full 27 layers (about 31.5 GB on the
+# card), llava pim_w4 cut to 4 of 32 layers (phase 28 serves its default
+# at all 32), so that the run stays well within its time limit;
+# qwen3-moe-30b-a3b and musicgen-medium serve their defaults at full depth
+# in phase 28 alone.
 FAMILIES = (
-    ("serve-deepseek", "deepseek-v2-lite-16b",
-     {"quant": "pim_w4", "quant_mode": "shift_add"}, None, ()),
-    ("serve-qwen3-moe", "qwen3-moe-30b-a3b", {}, 8, ("gather",)),
-    ("serve-llava", "llava-next-mistral-7b",
-     {"quant": "pim_w4", "quant_mode": "shift_add"}, 4, ()),
-    ("serve-musicgen", "musicgen-medium", {}, 4, ()),
+    ("serve-deepseek", "deepseek-v2-lite-16b", PIM_W4, None),
+    ("serve-llava", "llava-next-mistral-7b", PIM_W4, 4),
+)
+# phase 17's families, card against CPU at 2 layers: (label, arch,
+# overrides)
+FAMILIES_PARITY = (
+    *((label, arch, overrides) for label, arch, overrides, _ in FAMILIES),
+    ("serve-qwen3-moe", "qwen3-moe-30b-a3b", {}),
+    ("serve-musicgen", "musicgen-medium", {}),
 )
 # Phases 18-19: the recurrent families at their published widths and full
 # depths with phase 7's traffic: (label, arch, overrides, the depth phase
@@ -520,7 +579,6 @@ RECURRENT_DECODE_REL = 3e-2
 # three runs repeat phase 7's shapes and are cut to QWEN3_DEPTH of its 36
 # layers, so that phases 25-27 stay near 250 s of the script's limit.
 QWEN3_DEPTH = 8
-PIM_W4 = {"quant": "pim_w4", "quant_mode": "shift_add"}
 DENSE = (
     ("serve-yi", "yi-34b", PIM_W4, None),
     ("serve-qwen2.5", "qwen2.5-32b", PIM_W4, None),
@@ -541,6 +599,35 @@ DENSE_BOTH_ROUTES = ("serve-yi", "serve-qwen2.5", "serve-starcoder2")
 # card's kernels against their plain versions run on the card
 RING = ("serve-starcoder2-ring", "starcoder2-7b", PIM_W4)
 RING_BATCH, RING_PROMPT, RING_CHECK_LAYERS = 1, 4352, 2
+# Phases 28-29: each configuration's own default (bf16, quant None) at
+# published width and full depth, one model on the card at a time,
+# through the serving CLI at its own defaults (CLI_BATCH x CLI_PROMPT,
+# CLI_NEW new), then with phase 7's traffic and checks (lean: no eager
+# timing): (arch, MoE dispatches replayed on the same weights). yi-34b and
+# qwen2.5-32b do not fit one card in bf16 beside their float32 heads
+# (phase 25 serves them pim_w4); falcon-mamba-7b's default is phase 18's.
+DEFAULTS = (
+    ("qwen3-4b", ()), ("starcoder2-7b", ()), ("deepseek-v2-lite-16b", ()),
+    ("llava-next-mistral-7b", ()), ("recurrentgemma-2b", ()),
+    ("qwen3-moe-30b-a3b", ("gather",)), ("musicgen-medium", ()))
+CLI_BATCH, CLI_PROMPT, CLI_NEW = 4, 32, 32
+# phase 29: the five that had never run bf16 at width, card against CPU at
+# these depths (recurrentgemma-2b's first two layers are recurrent: three
+# are one (rec, rec, attn) block)
+DEFAULTS_PARITY = {"qwen3-4b": 2, "starcoder2-7b": 2,
+                   "deepseek-v2-lite-16b": 2, "llava-next-mistral-7b": 2,
+                   "recurrentgemma-2b": 3}
+# Phase 30: Qwen3-4B bf16 at 32,768 positions, prefill_32k's sequence and
+# decode_32k's cache (configs/shapes.py) at batch 1 (long-document
+# question answering at Qwen3's native context): one request of
+# LONG_PROMPT tokens and SERVE_NEW new at full depth, then LONG_CHECK_LAYERS
+# layers, the card's kernels against their plain versions on the card
+LONG_ARCH = "qwen3-4b"
+LONG_BATCH, LONG_PROMPT, LONG_CHECK_LAYERS = 1, 32752, 2
+# the plain attention's queries per call at long prompts: its float32
+# scores (B, KV, G, queries, Sk) take 4.3 GB at 1,024 x 32,752 for
+# Qwen3-4B's 32 heads (137 GB for all 32,752 queries at once)
+PLAIN_CHUNK = 1024
 SHIFT_KS = (1, -1, 31, 32, 33, -33, 999, -999, 65535, 65536, 70000)
 # phase 2b: the row entries on (B, 16, 2,048) states, B = 1 and 64 (one
 # subarray; the full device's slots); shift chains of these many hops (and
@@ -577,6 +664,9 @@ OPS = ("not", "and", "or", "xor", "maj")
 # paper's Tables 4 and 5.
 LINT_FIXTURE = ROOT / "tests" / "fixtures" / "lint" / "pim104.trace"
 LINT_100K = 100_000
+# Phase 4b: refresh cycles of these fractions of the refresh interval
+# (once refused on the card; the reference counts them)
+REFRESH_FRACS = (0.6, 0.78, 0.95)
 # Phases 3-4's graphs: the pipeline's steps, the workload's steps per phase
 # (phase 4's three layouts) and its interleaved order, warm calls timed
 GRAPH_PIPE_STEPS = 16
@@ -1348,6 +1438,83 @@ def check_device(torch, gpu_results, cpu_results):
 
 
 # ---------------------------------------------------------------------------
+# Phase 4b: refresh cycles past half the interval (ROADMAP C9, repaired)
+# ---------------------------------------------------------------------------
+
+def phase_refresh(torch, device) -> dict:
+    """``refresh_events`` on the card at tRFC = REFRESH_FRACS·tREFI over
+    seeded busy times (counts below 2^30), eagerly and captured in a CUDA
+    graph replayed on other busy times, each equal to the CPU's loop (which
+    the CPU tests hold to the reference's ``while_loop``); phase 4's three
+    steps on a small device at the first of them, refreshed, each run
+    (eager, capture, replay) equal to the CPU's bit for bit; tRFC =
+    tREFI refused on the card."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.core import pim
+    from repro_torch.core.pim import timing
+
+    def busy_times(cfg, seed):
+        rng = np.random.default_rng(seed)
+        b = (rng.random(20000) * 10.0 ** rng.integers(0, 12, 20000)
+             ).astype(np.float32)
+        return torch.from_numpy(b[b / (cfg.tREFI - cfg.tRFC) < 2.0 ** 30][
+            :15000])
+
+    out = {}
+    for frac in REFRESH_FRACS:
+        cfg = dataclasses.replace(pim.DEFAULT_TIMING,
+                                  tRFC=frac * pim.DEFAULT_TIMING.tREFI)
+        a, b = busy_times(cfg, 20), busy_times(cfg, 21)
+        eager = pim.refresh_events(a.to(device), cfg).cpu()
+        static = a.to(device)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            pim.refresh_events(static, cfg)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            counted = pim.refresh_events(static, cfg)
+        static.copy_(b)
+        graph.replay()
+        replayed = counted.cpu()
+        if not (torch.equal(eager, pim.refresh_events(a, cfg))
+                and torch.equal(replayed, pim.refresh_events(b, cfg))):
+            raise AssertionError(f"refresh_events at tRFC {cfg.tRFC}: the "
+                                 "card differs from the CPU's loop")
+        rounds = timing._refresh_plan(cfg.tRFC, cfg.tREFI)[3]
+        out[str(frac)] = {"busy": len(a), "rounds": rounds,
+                          "largest": int(eager.max())}
+        del graph, static, counted
+    long = dataclasses.replace(pim.DEFAULT_TIMING, tRFC=REFRESH_FRACS[0]
+                               * pim.DEFAULT_TIMING.tREFI)
+    cfg = pim.paper_device(16, subarrays=2, num_rows=64, words=64,
+                           timing=long)
+    steps = [(programs, {"async_host": True, "refresh": True})
+             for programs, _ in device_steps(cfg)]
+    cpu = run_device(torch, "cpu", cfg, steps)
+    for _ in range(3):          # eager, capture, replay
+        check_device(torch, run_device(torch, device, cfg, steps), cpu)
+    try:
+        pim.refresh_events(torch.ones(4, device=device), dataclasses.replace(
+            pim.DEFAULT_TIMING, tRFC=pim.DEFAULT_TIMING.tREFI))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("refresh_events counted tRFC = tREFI")
+    say("refresh (C9): refresh_events on the card at tRFC = "
+        + ", ".join(f"{f} ({v['rounds']} re-counts, counts to "
+                    f"{v['largest']})" for f, v in out.items())
+        + " x tREFI, eager and replayed from a CUDA graph == the CPU's loop "
+        f"over {sum(v['busy'] for v in out.values())} busy times; 3 "
+        f"refreshed schedule() steps at {REFRESH_FRACS[0]} x tREFI, eager, "
+        "captured and replayed == CPU bit for bit; tRFC = tREFI refused")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phases 3-4, graphs: each PIM entry's warm call one CUDA-graph replay
 # ---------------------------------------------------------------------------
 
@@ -1595,7 +1762,10 @@ def device_share(torch, fn) -> dict:
     busy share; one stream, so kernels do not overlap), every kernel, the
     longest first, the host's kernel-launch calls to the CUDA runtime
     (``launch_calls``) and to the driver (``driver_launch_calls``), and its
-    CUDA-graph launches (``graph_launches``)."""
+    CUDA-graph launches (``graph_launches``). The profiler's raw events are
+    summed by name here (what ``key_averages`` reports for them, without
+    building its event tree, which takes seconds for a replayed graph of
+    10^5 kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1605,23 +1775,22 @@ def device_share(torch, fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    kernels, launch_calls, driver_calls, graph_launches = [], 0, 0, 0
-    for e in prof.key_averages():
-        if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"):
-            launch_calls += e.count
-        elif e.key.startswith("cuLaunchKernel"):
-            driver_calls += e.count
-        elif e.key.startswith("cudaGraphLaunch"):
-            graph_launches += e.count
-        # device-side entries only (kernels, copies): an operator's own
-        # entry repeats the time of the kernels it launched
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-        if us > 0:
-            kernels.append((us / 1e3, e.key, e.count))
-    kernels.sort(reverse=True)
+    by_name, launch_calls, driver_calls, graph_launches = {}, 0, 0, 0
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        # device-side entries only (kernels, copies)
+        if e.device_type() == DeviceType.CUDA:
+            entry = by_name.setdefault(name, [0.0, 0])
+            entry[0] += e.duration_ns() / 1e6
+            entry[1] += 1
+        elif name in ("cudaLaunchKernel", "cudaLaunchKernelExC"):
+            launch_calls += 1
+        elif name.startswith("cuLaunchKernel"):
+            driver_calls += 1
+        elif name.startswith("cudaGraphLaunch"):
+            graph_launches += 1
+    kernels = sorted(((ms, name, n) for name, (ms, n) in by_name.items()
+                      if ms > 0), reverse=True)
     busy_ms = sum(k[0] for k in kernels)
     return {"wall_ms": wall_ms, "device_ms": busy_ms,
             "busy_share": busy_ms / wall_ms if wall_ms else 0.0,
@@ -1660,7 +1829,11 @@ def _say_row(name, r):
         f"({r['call_ms'] * 1e3:.2f} us per call with the host's launch), "
         f"plain {r['plain_ms'] * 1e3:.2f} us, library "
         f"{r['library_ms'] * 1e3:.2f} us, bound {r['bound_ms'] * 1e3:.3f} us "
-        f"({r['bound_by']}){beside}, max_abs_err {r['max_abs_err']:.3e}")
+        f"({r['bound_by']}){beside}, max_abs_err {r['max_abs_err']:.3e}"
+        + ("" if "of_bound" not in r else
+           f" ({r['of_bound']['bfloat16']:.3f} of the bound per query row; "
+           f"float32 on the {r['route_f32']} route {r['max_abs_err_f32']:.3e}"
+           f", {r['of_bound']['float32']:.3f} of its bound)"))
 
 
 def cycled(copies):
@@ -1772,55 +1945,94 @@ def flash_operands(torch, device, gen, shape):
     return q, k, v, pos_q, pos_k, seen
 
 
+def flash_row_bound(exp):
+    """FLASH_BF16_REL of max |exp| over each query row of a (B, Sq, KV, G,
+    dv) output, broadcast to its shape."""
+    return FLASH_BF16_REL * exp.float().abs().amax(dim=(2, 3, 4),
+                                                   keepdim=True)
+
+
 def flash_row(torch, device, gen, shape):
     """One flash_attn shape: the kernel of the route ops.route gives it
-    against its plain version in float32 and bf16, then timed in bf16
-    beside the plain version and SDPA (timed only; the port never calls
-    it); a tensor-core row also times the tiled route on the same
-    tensors."""
+    against its plain version in float32 and bf16 (bf16 per query row,
+    ``flash_row_bound``), then timed in bf16 beside the plain version and
+    SDPA (timed only; the port never calls it); a tensor-core row also
+    times the tiled route on the same tensors. The route takes float32 to
+    the CUDA cores (tiled or split), so a tensor-core row's float32 error
+    is theirs. A long shape (FLASH_PLAIN_BYTES): the plain version on the
+    first and last FLASH_LONG_ROWS query rows alone, SDPA causal on
+    repeated kv heads, fewer timed calls and no tiled route."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attn import ops as fa
     from repro_torch.kernels.flash_attn import ref as fref
 
     B, KV, G, dk, dv, sq, sk, last, window, ring = shape
+    long = 4 * B * KV * G * sq * sk > FLASH_PLAIN_BYTES
     q, k, v, pos_q, pos_k, seen = flash_operands(torch, device, gen, shape)
+    held = torch.arange(sq, device=device)
+    if long:
+        held = torch.cat([held[:FLASH_LONG_ROWS], held[-FLASH_LONG_ROWS:]])
+
+    def plain(q, k, v):
+        if len(held) == sq:
+            return fref.ref_flash_attention(q, k, v, pos_q, pos_k,
+                                            window=window)
+        return fref.ref_flash_attention(q[:, held], k, v, pos_q[held],
+                                        pos_k, window=window)
+
     errs = {}
     for dt in (torch.float32, torch.bfloat16):
         args = (q.to(dt), k.to(dt), v.to(dt), pos_q, pos_k)
         got = fa.flash_attention(*args, window=window)
-        exp = fref.ref_flash_attention(*args, window=window)
+        got = got if len(held) == sq else got[:, held]
+        exp = plain(*args[:3])
         torch.cuda.synchronize()
-        err = max_abs_err(got.float(), exp.float())
+        diff = (got.float() - exp.float()).abs()
         bound = (FLASH_F32_ABS if dt == torch.float32 else
-                 FLASH_BF16_REL * float(exp.float().abs().max()))
+                 flash_row_bound(exp))
+        share = float((diff / bound).max())
         if not (got.shape == exp.shape and torch.isfinite(got.float()).all()
-                and err < bound):
+                and share < 1):
             raise AssertionError(f"flash_attn {shape} {dt}: max abs err "
-                                 f"{err} >= {bound:.3e}")
-        errs[str(dt).split(".")[-1]] = err
-        del got, exp
+                                 f"{float(diff.max())}, {share:.3f} of the "
+                                 "bound")
+        errs[str(dt).split(".")[-1]] = float(diff.max()), share
+        del got, exp, diff
     qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
     qt = qb.reshape(B, sq, KV * G, dk).transpose(1, 2).contiguous()
     kt, vt = (t.transpose(1, 2).contiguous() for t in (kb, vb))
     mask = seen[:, None]
     pairs = int(seen.sum())
+    if long and sq > 1:      # causal from position 0: no mask to build
+        kt, vt = (t.repeat_interleave(G, dim=1) for t in (kt, vt))
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    else:
+        def library():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    rows_held = ("" if len(held) == sq else
+                 f"; plain on query rows 0-{FLASH_LONG_ROWS - 1} and "
+                 f"{sq - FLASH_LONG_ROWS}-{sq - 1}")
     row = _kernel_row(
         torch,
         lambda: fa.flash_attention(qb, kb, vb, pos_q, pos_k, window=window),
-        lambda: fref.ref_flash_attention(qb, kb, vb, pos_q, pos_k,
-                                         window=window),
-        lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=True),
+        lambda: plain(qb, kb, vb), library,
         2 * (qb.numel() + kb.numel() + vb.numel() + B * sq * KV * G * dv)
         + 4 * (pos_q.numel() + pos_k.numel()),
         2 * (dk + dv) * KV * G * pairs,
         f"q ({B}, {sq}, {KV}, {G}, {dk}), k ({B}, {sk}, {KV}, {dk}), v "
         f"(.., {dv}) bf16{'' if window is None else f', window {window}'}"
-        f"{', ring' if ring else ''}, {pairs} seen (query, key) pairs",
-        errs["bfloat16"], per_graph=10, reps=10)
+        f"{', ring' if ring else ''}, {pairs} seen (query, key) pairs"
+        + rows_held, errs["bfloat16"][0], per_graph=1 if long else 10,
+        reps=3 if long else 10)
     row["route"] = fa.route(sq, G, torch.bfloat16, dk, dv)
-    row["max_abs_err_f32"] = errs["float32"]
-    if row["route"] == "tensor_core":
+    row["route_f32"] = fa.route(sq, G, torch.float32, dk, dv)
+    row["max_abs_err_f32"] = errs["float32"][0]
+    row["of_bound"] = {dt: share for dt, (_, share) in errs.items()}
+    row["plain_rows"] = len(held)
+    if row["route"] == "tensor_core" and not long:
         out = torch.empty(qb.shape[:-1] + (dv,), dtype=qb.dtype,
                           device=device)
         row["tiled_ms"] = device_us(lambda: fa._launch(
@@ -2256,6 +2468,42 @@ def router_flips(torch, cfg, ref, got, where):
     return flips
 
 
+def capacity_kept(torch, cfg, probs):
+    """(tokens, E) bool: the experts each token of one ``moe_ffn`` call
+    reaches after the capacity drops, from its router table ``probs``:
+    top-k, slot-major priority over chunks of ``dispatch_chunk`` tokens,
+    ``ffn._capacity`` slots per expert (as both MoE forms dispatch)."""
+    from repro_torch.models.ffn import _capacity
+    T, E, K = probs.shape[0], cfg.moe.n_experts, cfg.moe.top_k
+    chunk = min(cfg.moe.dispatch_chunk, T)
+    C = _capacity(chunk, cfg)
+    idx = probs.topk(K, dim=-1).indices
+    kept = torch.zeros((T, E), dtype=torch.bool)
+    for lo in range(0, T, chunk):
+        e = idx[lo:lo + chunk].T.reshape(-1)             # slot-major
+        tok = torch.arange(lo, lo + chunk).repeat(K)
+        oh = torch.nn.functional.one_hot(e, E)
+        keep = (oh.cumsum(0) - 1).gather(1, e[:, None])[:, 0] < C
+        kept[tok[keep], e[keep]] = True
+    return kept
+
+
+def router_moved(torch, cfg, ref, got, where):
+    """The tokens whose experts after the capacity drops differ between
+    the router tables ``ref`` and ``got`` (as ``router_flips``): each
+    flip, and each token a flip pushed past an expert's capacity or let
+    in; dicts of request, position and MoE layer."""
+    moved = []
+    for i, (a, b) in enumerate(zip(ref, got)):
+        diff = (capacity_kept(torch, cfg, a)
+                != capacity_kept(torch, cfg, b)).any(-1)
+        for row in diff.nonzero().flatten().tolist():
+            request, position, layer = where(i, row)
+            moved.append(dict(request=request, position=position,
+                              layer=layer))
+    return moved
+
+
 def check_flips(flips, what):
     """A flip that follows no earlier one must lie inside the rounding: a
     reference margin within LOGITS_REL of the k-th probability."""
@@ -2452,7 +2700,8 @@ def run_serve(torch, device, cfg=None, label="serve", *, variants=(),
               notes=False, dvp_bound=LOGITS_REL,
               dvp_note="phase 19 holds it at the cut depth to "
                        f"{RECURRENT_DECODE_REL}",
-              batch_size=SERVE_BATCH, prompt=SERVE_PROMPT, eager_reps=3):
+              batch_size=SERVE_BATCH, prompt=SERVE_PROMPT, eager_reps=3,
+              lean=False, chain=None):
     """The serving path of ``cfg`` (phase 7: Qwen3-4B at full width and
     depth): ``greedy_generate`` as one CUDA-graph replay per call on
     ``batch_size`` seeded prompts of ``prompt`` tokens, beside the eager
@@ -2461,8 +2710,14 @@ def run_serve(torch, device, cfg=None, label="serve", *, variants=(),
     decode against prefill held to ``dvp_bound`` (None: measured only,
     ``dvp_note`` saying where it is held); the eager prefill and loop
     timed ``eager_reps`` times (median), the decode steps ``eager_reps -
-    1`` times (at least once). Returns (record, launches, routes and flash
-    routes of one replayed call)."""
+    1`` times (at least once). ``lean``: every check, the replayed call's
+    times and its profile, but no eager timing, no graph-alone timing and
+    no eager profiles (the deep runs of phases 28-30). ``chain``:
+    (prompts, tokens) that another greedy_generate made on the same seed's
+    weights (the serving CLI's), held bit for bit to the eager argmax
+    chain teacher-forced on those prompts before this model is freed (so a
+    model of up to 62 GB is not built a third time). Returns (record,
+    launches, routes and flash routes of one replayed call)."""
     import gc
 
     from repro_torch.models import decode_step, init_params, prefill
@@ -2485,8 +2740,11 @@ def run_serve(torch, device, cfg=None, label="serve", *, variants=(),
     def generate():
         return greedy_generate(cfg, model, batch, max_new_tokens=SERVE_NEW)
 
+    stages = {"init": init_s}
+    t = time.perf_counter()
     out, first_ms, first, counts, graph, forced = replay_checks(
         torch, cfg, model, batch, label)
+    stages["checks"] = time.perf_counter() - t
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches, routes = counts["launches"], counts["routes"]
     flash_routes = counts["flash_routes"]
@@ -2508,45 +2766,57 @@ def run_serve(torch, device, cfg=None, label="serve", *, variants=(),
             launches=v_counts["launches"], tokens=v_out.cpu().tolist(),
             tokens_equal_to=int((v_out == out).sum()))
     del forced
+    stages["variants"] = time.perf_counter() - t - stages["checks"]
 
     # the graph's tokens are the eager loop's argmax chain (checked); decode
     # against prefill on the prompt's last position
     max_len = S + SERVE_NEW
+    t = time.perf_counter()
     dvp, dvp_flips, dvp_held = decode_vs_prefill(torch, cfg, model, batch,
                                                  max_len, dvp_bound)
+    stages["decode vs prefill"] = time.perf_counter() - t
+    t = time.perf_counter()
 
-    prefill_ms = statistics.median(
-        timed(torch, lambda: prefill(cfg, model, batch, max_len))
-        for _ in range(eager_reps))
     key = input_key(cfg)
-    per_token = []
-    for _ in range(max(1, eager_reps - 1)):
-        _, caches = prefill(cfg, model, batch, max_len)
+    prefill_ms = decode_ms = eager_ms = graph_ms = caches = None
+    if not lean:
+        prefill_ms = statistics.median(
+            timed(torch, lambda: prefill(cfg, model, batch, max_len))
+            for _ in range(eager_reps))
+        per_token = []
+        for _ in range(max(1, eager_reps - 1)):
+            _, caches = prefill(cfg, model, batch, max_len)
 
-        def steps(caches=caches):
-            for t in range(SERVE_NEW - 1):
-                decode_step(cfg, model, {key: out[:, t:t + 1]}, S + t,
-                            caches)
+            def steps(caches=caches):
+                for t in range(SERVE_NEW - 1):
+                    decode_step(cfg, model, {key: out[:, t:t + 1]}, S + t,
+                                caches)
 
-        per_token.append(timed(torch, steps) / (SERVE_NEW - 1))
-    decode_ms = statistics.median(per_token)
-    eager_ms = statistics.median(
-        timed(torch, lambda: teacher_forced(cfg, model, batch, out[:, :-1],
-                                            device))
-        for _ in range(eager_reps))
+            per_token.append(timed(torch, steps) / (SERVE_NEW - 1))
+        decode_ms = statistics.median(per_token)
+        eager_ms = statistics.median(
+            timed(torch, lambda: teacher_forced(cfg, model, batch,
+                                                out[:, :-1], device))
+            for _ in range(eager_reps))
     replay_ms = [timed(torch, generate) for _ in range(3)]
     generate_ms = statistics.median(replay_ms)
-    # the graph alone on the card's clock (CUDA events around one replay)
-    graph_ms = event_us(graph.graph.replay, torch, reps=3, warmup=1) / 1e3
-
-    _, caches = prefill(cfg, model, batch, max_len)
-    shares = {
-        "prefill": device_share(torch, lambda: prefill(cfg, model, batch,
-                                                       max_len)),
-        "decode step": device_share(torch, lambda: decode_step(
-            cfg, model, {key: out[:, :1]}, S, caches)),
-        "greedy_generate (replayed)": device_share(torch, generate),
-    }
+    shares = {}
+    if not lean:
+        # the graph alone on the card's clock (CUDA events around one
+        # replay)
+        graph_ms = event_us(graph.graph.replay, torch, reps=3,
+                            warmup=1) / 1e3
+        _, caches = prefill(cfg, model, batch, max_len)
+        shares = {
+            "prefill": device_share(torch, lambda: prefill(
+                cfg, model, batch, max_len)),
+            "decode step": device_share(torch, lambda: decode_step(
+                cfg, model, {key: out[:, :1]}, S, caches)),
+        }
+    stages["timings"] = time.perf_counter() - t
+    t = time.perf_counter()
+    shares["greedy_generate (replayed)"] = device_share(torch, generate)
+    stages["profile"] = time.perf_counter() - t
     replayed = shares["greedy_generate (replayed)"]
     if replayed["graph_launches"] != 1 or replayed["launch_calls"] \
             or replayed["driver_launch_calls"]:
@@ -2556,8 +2826,9 @@ def run_serve(torch, device, cfg=None, label="serve", *, variants=(),
             f"{replayed['driver_launch_calls']} kernel launches; expected "
             "1 and 0")
     # the kernels the graph holds: prefill's and SERVE_NEW - 1 decode
-    # steps', from the eager profiles
-    kernels_ms = (shares["prefill"]["device_ms"]
+    # steps', from the eager profiles (lean: the replayed call's profile)
+    kernels_ms = (replayed["device_ms"] if lean else
+                  shares["prefill"]["device_ms"]
                   + (SERVE_NEW - 1) * shares["decode step"]["device_ms"])
     record = dict(
         config=dict(arch=cfg.arch_id, quant=cfg.quant,
@@ -2582,12 +2853,14 @@ def run_serve(torch, device, cfg=None, label="serve", *, variants=(),
                 "(MoE: measured, not held; the last token's routing "
                 f"between the two: {say_flips(dvp_flips)})" if cfg.moe else
                 f"(measured at full depth, not held; {dvp_note})")
+    eager = ("eager: not timed (lean)" if lean else
+             f"eager: prefill {prefill_ms:.2f} ms, decode {decode_ms:.2f} "
+             f"ms per token, the loop (prefill + {SERVE_NEW - 1} steps) "
+             f"{eager_ms:.2f} ms")
     say(f"{label} {cfg_name(cfg)} ({L} layers, d_model {cfg.d_model}): "
         f"batch {batch_size}, prompt {prompt}"
         + (f" after {cfg.n_patches} patches" if S != prompt else "")
-        + f", {SERVE_NEW} new tokens; eager: prefill "
-        f"{prefill_ms:.2f} ms, decode {decode_ms:.2f} ms per token, the "
-        f"loop (prefill + {SERVE_NEW - 1} steps) {eager_ms:.2f} ms; "
+        + f", {SERVE_NEW} new tokens; {eager}; "
         f"{weights_gb:.2f} GB of weights on the card, peak {peak_gb:.2f} "
         f"GB; decode vs prefill logits rel {dvp:.3e} {dvp_note}; "
         f"launches per call {json.dumps(launches)}")
@@ -2595,9 +2868,11 @@ def run_serve(torch, device, cfg=None, label="serve", *, variants=(),
         f"{first_ms:.2f} ms (warm-up {graph.warmup_s * 1e3:.2f} ms, capture "
         f"{graph.capture_s * 1e3:.2f} ms, then one replay; launches "
         f"{json.dumps(first['launches'])}); replayed call {generate_ms:.2f} "
-        f"ms (median of " + ", ".join(f"{t:.2f}" for t in replay_ms)
-        + f"), the graph alone {graph_ms:.2f} ms on the card's clock, "
-        f"{kernels_ms:.3f} ms of kernels in it (eager profiles); graph pool "
+        f"ms (median of " + ", ".join(f"{t:.2f}" for t in replay_ms) + ")"
+        + ("" if graph_ms is None else
+           f", the graph alone {graph_ms:.2f} ms on the card's clock")
+        + f", {kernels_ms:.3f} ms of kernels in it ("
+        + ("its profile" if lean else "eager profiles") + "); graph pool "
         f"{graph.pool_bytes} bytes; DECODE_STATS 1 per call, 0 for zero "
         f"tokens; tokens == the eager loop's argmax chain, bit for bit; "
         f"{replayed['graph_launches']} cudaGraphLaunch and "
@@ -2626,26 +2901,49 @@ def run_serve(torch, device, cfg=None, label="serve", *, variants=(),
     # Mamba's decays, exp(dt * A) over the scan's (B, chunk, I, N)
     scan_ms = {name: sum(k["ms"] for k in sh["top"] if "addcmul" in k["name"])
                for name, sh in shares.items()}
-    exp_ms = sum(k["ms"] for k in shares["prefill"]["top"]
+    exp_ms = sum(k["ms"] for k in shares.get("prefill", replayed)["top"]
                  if "exp_kernel" in k["name"])
     record["flash_ms"], record["pim_matmul_ms"] = flash_ms, pim_ms
     record["scan_ms"], record["scan_exp_ms"] = scan_ms, exp_ms
     scan = ""
-    if cfg.ssm is not None or cfg.rglru is not None:
+    if not lean and (cfg.ssm is not None or cfg.rglru is not None):
         record["scan_bound_ms"] = bound = scan_bound_ms(cfg, S)
         scan = (f", the scan's loop (addcmul) {scan_ms['prefill']:.3f} ms "
                 f"(bound {bound:.3f} ms, bytes: its decays and inputs read "
                 f"once, its states written once), exp {exp_ms:.3f} ms")
-    say(f"{label} prefill: {shares['prefill']['device_ms']:.3f} ms of "
-        f"kernels, pim_matmul {pim_ms['prefill']:.3f} ms and flash_attn "
-        f"{flash_ms['prefill']:.3f} ms of it{scan}"
-        + (" (with the tiled kernel at prefill, one H100 took 44.793 ms, "
-           "flash 3.619 ms of it)" if notes else ""))
-    say(f"{label} decode step: {shares['decode step']['device_ms']:.3f} ms "
-        f"of kernels, pim_matmul {pim_ms['decode step']:.3f} ms and "
-        f"flash_attn {flash_ms['decode step']:.3f} ms of it"
-        + (" (with the CUDA-core pim_matmul at decode, one H100 took "
-           "17.05-17.19 ms, pim_matmul 10.048 ms of it)" if notes else ""))
+    if lean:
+        name = "greedy_generate (replayed)"
+        say(f"{label} replayed call: {replayed['device_ms']:.3f} ms of "
+            f"kernels, pim_matmul {pim_ms[name]:.3f} ms and flash_attn "
+            f"{flash_ms[name]:.3f} ms of it; by name: " + "; ".join(
+                f"{k['name'][:60]} {k['ms']:.3f} ms x{k['count']}"
+                for k in replayed["top"][:8]))
+    else:
+        say(f"{label} prefill: {shares['prefill']['device_ms']:.3f} ms of "
+            f"kernels, pim_matmul {pim_ms['prefill']:.3f} ms and flash_attn "
+            f"{flash_ms['prefill']:.3f} ms of it{scan}"
+            + (" (with the tiled kernel at prefill, one H100 took 44.793 ms, "
+               "flash 3.619 ms of it)" if notes else ""))
+        say(f"{label} decode step: "
+            f"{shares['decode step']['device_ms']:.3f} ms of kernels, "
+            f"pim_matmul {pim_ms['decode step']:.3f} ms and "
+            f"flash_attn {flash_ms['decode step']:.3f} ms of it"
+            + (" (with the CUDA-core pim_matmul at decode, one H100 took "
+               "17.05-17.19 ms, pim_matmul 10.048 ms of it)" if notes else ""))
+    if chain is not None:
+        t = time.perf_counter()
+        prompts, toks = chain
+        got = argmax_chain(torch, cfg, teacher_forced(
+            cfg, model, prompts, toks[:, :-1], device))
+        if not torch.equal(got, toks):
+            raise AssertionError(
+                f"{label}: the other call's tokens are not the eager argmax "
+                f"chain of the same weights and prompts: "
+                f"{int((got != toks).sum())} of {toks.numel()} differ")
+        stages["chain"] = time.perf_counter() - t
+    record["stages_s"] = stages
+    say(f"{label} stages: " + ", ".join(f"{k} {v:.1f} s"
+                                        for k, v in stages.items()))
     del model, caches, graph
     gc.collect()
     torch.cuda.empty_cache()
@@ -2813,8 +3111,11 @@ def run_lm_parity(torch, device, cfg=None, label="lm parity",
     first token apart from the card's, the last one the check reads (so
     the CPU makes one pass over the weights, not two). An audio
     model: seeded frames teacher-forced on both. A MoE model: both sides'
-    router choices recorded; a request is held from the first position a
-    routing flip (which must lie inside the rounding) reaches. With
+    router choices recorded; a request's step is not held where a token
+    whose experts differ after the capacity drops (a routing flip, which
+    must lie inside the rounding, or a token it pushed past an expert's
+    capacity or let in) reaches it: its own position from the last layer,
+    every later one from an earlier layer. With
     ``dvp_bound``, decode against prefill held to it on the card and on
     the CPU."""
     from repro_torch.models import init_params
@@ -2863,7 +3164,7 @@ def run_lm_parity(torch, device, cfg=None, label="lm parity",
                                        S + PARITY_NEW, dvp_bound,
                                        device="cpu")[0]
     cpu_s = time.perf_counter() - t
-    flips = []
+    flips = moved = []
     if cfg.moe is not None:
         moe = moe(model)
         n_moe = cfg.n_layers - cfg.moe.first_k_dense
@@ -2876,10 +3177,22 @@ def run_lm_parity(torch, device, cfg=None, label="lm parity",
         flips = router_flips(torch, cfg, cpu_log.calls, card_log.calls,
                              where)
         check_flips(flips, label)
+        moved = router_moved(torch, cfg, cpu_log.calls, card_log.calls,
+                             where)
+    dropped = [m for m in moved if not any(
+        (f["request"], f["position"], f["layer"])
+        == (m["request"], m["position"], m["layer"]) for f in flips)]
+
+    def reaches(m, step):
+        """A token moved in the last layer moves its own logits alone; one
+        moved in an earlier layer, through the attention after it, every
+        later position of its request too."""
+        pos = S - 1 + step
+        last = m["layer"] == n_moe - 1
+        return m["position"] == pos if last else m["position"] <= pos
 
     def held(step):
-        reached = {f["request"] for f in flips
-                   if f["position"] <= S - 1 + step}
+        reached = {m["request"] for m in moved if reaches(m, step)}
         return [b for b in range(PARITY_BATCH) if b not in reached]
 
     rels = [rel_err(torch, a[held(t)], b[held(t)]) if held(t) else None
@@ -2887,14 +3200,15 @@ def run_lm_parity(torch, device, cfg=None, label="lm parity",
     if not all(torch.isfinite(a).all() for a in card) \
             or any(r is not None and not r < LOGITS_REL for r in rels):
         raise AssertionError(f"{label}: card vs CPU logits rel {rels} "
-                             f"(bound {LOGITS_REL}); {say_flips(flips)}")
+                             f"(bound {LOGITS_REL}); {say_flips(flips)}; "
+                             f"moved by the capacity drops {dropped}")
     checked = equal = 0
     if not audio:
         equal = int((cpu_toks == toks).sum())
         for b in range(PARITY_BATCH):
             for t, lg in enumerate(card):
                 if b not in held(t):
-                    break
+                    continue
                 row = lg[b, 0, :cfg.vocab_size].double()
                 top2 = row.topk(2).values
                 if top2[0] - top2[1] <= 2 * LOGITS_REL * row.abs().max():
@@ -2917,6 +3231,9 @@ def run_lm_parity(torch, device, cfg=None, label="lm parity",
         + ", ".join("not held" if r is None else f"{r:.3e}" for r in rels)
         + f" (bound {LOGITS_REL})"
         + (f"; {say_flips(flips)}" if cfg.moe is not None else "")
+        + ("" if not dropped else "; capacity drops moved by them: "
+           + ", ".join(f"request {m['request']} position {m['position']} "
+                       f"MoE layer {m['layer']}" for m in dropped))
         + ("" if audio else
            f"; the CPU's argmax tokens: {equal} of {toks.numel()} equal to "
            f"the card's, {checked} held to them (those before a card top-2 "
@@ -2926,6 +3243,7 @@ def run_lm_parity(torch, device, cfg=None, label="lm parity",
            f"CPU {dvp['cpu']:.3e} (bound {dvp_bound})")
         + f"; CPU run {cpu_s:.1f} s")
     out = {"rel_per_step": rels, "cpu_s": cpu_s, "flips": flips,
+           "capacity_moved": dropped,
            "tokens_checked": checked, "moe_layer": moe,
            "decode_vs_prefill": dvp}
     if moe is not None:
@@ -3000,7 +3318,9 @@ class PlainKernels:
     """Inside the ``with`` block each launch of pim_matmul's and
     flash_attn's kernels on the card runs the kernel's plain version on
     the same tensors instead, into the same output, and counts nothing:
-    the plain reference at sizes the CPU would take too long for."""
+    the plain reference at sizes the CPU would take too long for. The
+    plain attention takes at most PLAIN_CHUNK queries a call (each query
+    row is computed alone)."""
 
     def __enter__(self):
         from repro_torch.kernels.flash_attn import ops as fa
@@ -3018,8 +3338,12 @@ class PlainKernels:
                   splits=None, lse=None):
             if lse is not None:
                 raise ValueError("PlainKernels: no log-sum-exp")
-            return out.copy_(fref.ref_flash_attention(
-                q, k, v, pos_q, pos_k, window=window, scale=scale))
+            for i in range(0, q.shape[1], PLAIN_CHUNK):
+                j = i + PLAIN_CHUNK
+                out[:, i:j] = fref.ref_flash_attention(
+                    q[:, i:j], k, v, pos_q[i:j], pos_k, window=window,
+                    scale=scale)
+            return out
 
         pm._launch, fa._launch = pim, flash
         return self
@@ -3038,10 +3362,6 @@ def run_ring(torch, device) -> dict:
     LOGITS_REL, and the ring's slots after the last step: every one written,
     positions S + n - 4,096 .. S + n - 1 (S the prompt, n the decode steps),
     the decode steps' writes wrapped past slot 0."""
-    from repro_torch.models import decode_step, init_params, prefill
-    from repro_torch.serve import engine
-    from repro_torch.serve.engine import greedy_generate
-
     label, arch, overrides = RING
     cfg = family_config(arch, overrides)
     t = time.perf_counter()
@@ -3053,22 +3373,62 @@ def run_ring(torch, device) -> dict:
     say_kernels(label, rec, launches, routes, flash_routes)
     check_routes(label, routes, flash_routes)
 
-    t = time.perf_counter()
     cfg = family_config(arch, overrides, n_layers=RING_CHECK_LAYERS)
-    model = init_params(cfg, 1, device=device)
-    batch = prompt_batch(torch, cfg, 13, RING_BATCH, RING_PROMPT, device)
     S, n, W = RING_PROMPT, SERVE_NEW - 1, cfg.sliding_window
+    card, plain, toks, kpos, plain_kpos, card_s, plain_s = plain_check(
+        torch, device, cfg, label, RING_BATCH, RING_PROMPT)
+    # slots: the last W positions, each at slot pos % W
+    want = torch.arange(S + n - W, S + n, dtype=torch.int32)
+    slots = torch.full((W,), -1, dtype=torch.int32)
+    slots[want % W] = want
+    if not (kpos.shape[-1] == W and torch.equal(kpos, plain_kpos)
+            and bool((kpos == slots).all())):
+        raise AssertionError(f"{label}: the ring's slots {tuple(kpos.shape)} "
+                             f"hold positions {int(kpos.min())} .. "
+                             f"{int(kpos.max())}, expected {S + n - W} .. "
+                             f"{S + n - 1} at slot pos % {W}")
+    rels = kernels_vs_plain(torch, label, card, plain)
+    say(f"{label} {cfg_name(cfg)} at full width, {cfg.n_layers} layers, "
+        f"batch {RING_BATCH}, prompt {S}, {SERVE_NEW} tokens: one graph "
+        f"replay, tokens == the card's argmax chain; the ring's {W} slots "
+        f"after the last step hold positions {S + n - W} .. {S + n - 1} "
+        f"(decode wrote slots {S % W} .. {(S + n - 1) % W}); card (kernels) "
+        "vs card (plain versions) logits rel per step " + ", ".join(
+            f"{r:.3e}" for r in rels) + f" (bound {LOGITS_REL}); kernels "
+        f"{card_s:.1f} s, plain {plain_s:.1f} s")
+    rec["check"] = {"layers": cfg.n_layers, "rel_per_step": rels,
+                    "tokens": toks.cpu().tolist(), "kernels_s": card_s,
+                    "plain_s": plain_s}
+    del card, plain
+    return rec
+
+
+def plain_check(torch, device, cfg, label, batch_size, prompt):
+    """``cfg`` (a cut depth) on ``batch_size`` seeded prompts of ``prompt``
+    tokens: greedy_generate's SERVE_NEW tokens in one dispatch, the card's
+    argmax chain of its kernels teacher-forced on them, and the same
+    teacher-forced with the kernels' plain versions on the card
+    (``PlainKernels``). Returns (the kernels' logits per step, the plain
+    versions', the tokens, both runs' cache positions (the stack's kpos),
+    the two runs' s)."""
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.serve import engine
+    from repro_torch.serve.engine import greedy_generate
+
+    t = time.perf_counter()
+    model = init_params(cfg, 1, device=device)
+    batch = prompt_batch(torch, cfg, 13, batch_size, prompt, device)
     engine.DECODE_STATS["dispatches"] = 0
     toks = greedy_generate(cfg, model, batch, max_new_tokens=SERVE_NEW)
     if engine.DECODE_STATS["dispatches"] != 1:
         raise AssertionError(f"{label}: not one dispatch on the card")
 
     def forced():
-        lg, caches = prefill(cfg, model, batch, S + SERVE_NEW)
+        lg, caches = prefill(cfg, model, batch, prompt + SERVE_NEW)
         out = [lg.cpu()]
-        for i in range(n):
+        for i in range(SERVE_NEW - 1):
             lg, caches = decode_step(cfg, model, {"tokens": toks[:, i:i + 1]},
-                                     S + i, caches)
+                                     prompt + i, caches)
             out.append(lg.cpu())
         return out, caches["stack"]["kpos"].cpu()
 
@@ -3081,33 +3441,149 @@ def run_ring(torch, device) -> dict:
     if not torch.equal(toks.cpu(), argmax_chain(torch, cfg, card)):
         raise AssertionError(f"{label}: the graph's tokens are not the card's "
                              "argmax chain")
-    # slots: the last W positions, each at slot pos % W
-    want = torch.arange(S + n - W, S + n, dtype=torch.int32)
-    slots = torch.full((W,), -1, dtype=torch.int32)
-    slots[want % W] = want
-    if not (kpos.shape[-1] == W and torch.equal(kpos, plain_kpos)
-            and bool((kpos == slots).all())):
-        raise AssertionError(f"{label}: the ring's slots {tuple(kpos.shape)} "
-                             f"hold positions {int(kpos.min())} .. "
-                             f"{int(kpos.max())}, expected {S + n - W} .. "
-                             f"{S + n - 1} at slot pos % {W}")
+    del model, batch
+    return card, plain, toks, kpos, plain_kpos, card_s, plain_s
+
+
+def kernels_vs_plain(torch, label, card, plain):
+    """Each step's logits rel, the card's kernels against their plain
+    versions, held to LOGITS_REL."""
     rels = [rel_err(torch, a, b) for a, b in zip(card, plain)]
     if not all(torch.isfinite(a).all() for a in card) \
             or not all(r < LOGITS_REL for r in rels):
         raise AssertionError(f"{label}: kernels vs plain logits rel {rels} "
                              f"(bound {LOGITS_REL})")
+    return rels
+
+
+def check_default_counts(label, launches, flash_routes):
+    """A bf16 default's call: no pim_matmul launch (its linears are ``x @
+    w``, as the reference's ``models/common.py``), both flash routes."""
+    if launches["pim_matmul"] or not (flash_routes["tensor_core"]
+                                      and flash_routes["split_kv"]):
+        raise AssertionError(f"{label}: launches {launches}, flash routes "
+                             f"{flash_routes}: expected no pim_matmul and "
+                             "both flash routes")
+
+
+def run_cli(torch, arch):
+    """``repro_torch.launch.serve.main(["--arch", arch])`` in this process
+    at the CLI's defaults: (its req lines' tokens, (CLI_BATCH, CLI_NEW)
+    int32 on the host, its s); its greedy_generate must be one dispatch
+    (on the card one graph replay); its model is freed before this
+    returns."""
+    import contextlib
+    import gc
+    import io
+    import re
+
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.serve import engine
+    out = io.StringIO()
+    engine.DECODE_STATS["dispatches"] = 0
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        serve_cli.main(["--arch", arch])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t
+    gc.collect()
+    torch.cuda.empty_cache()
+    reqs = re.findall(r"req(\d+): \[([^\]]*)\]", out.getvalue())
+    if [int(i) for i, _ in reqs] != list(range(CLI_BATCH)) \
+            or engine.DECODE_STATS["dispatches"] != 1:
+        raise AssertionError(f"serve CLI {arch}: printed {out.getvalue()!r} "
+                             f"in {engine.DECODE_STATS['dispatches']} "
+                             "dispatches")
+    return torch.tensor([[int(x) for x in body.split()] for _, body in reqs],
+                        dtype=torch.int32), cli_s
+
+
+def run_defaults(torch, device) -> dict:
+    """Phase 28: each DEFAULTS configuration at its own default, published
+    width and full depth, one model on the card at a time: first the
+    serving CLI, in process, at its defaults (its ``req`` lines, one
+    greedy_generate replay on its own ``init_params(cfg, 0)``); then the
+    same weights built again for ``run_serve`` (lean) with phase 7's
+    traffic and checks, no pim_matmul launch and both flash routes in each
+    call, decode against prefill measured, and on them the CLI's tokens
+    the eager argmax chain teacher-forced on the CLI's prompts bit for
+    bit. musicgen-medium: ``run_audio`` at full depth, and the CLI raising
+    where the reference's does. Returns arch -> record."""
+    from repro_torch.launch import serve as serve_cli
+    records = {}
+    for arch, impls in DEFAULTS:
+        label = f"default-{arch}"
+        cfg = family_config(arch, {})
+        t = time.perf_counter()
+        if cfg.frontend == "audio_frames":
+            rec, launches, flash_routes = run_audio(torch, device, cfg,
+                                                    label)
+            try:
+                run_cli(torch, arch)
+            except ValueError as e:
+                rec["cli"] = f"ValueError: {e}"
+            else:
+                raise AssertionError(f"{label}: the serve CLI served an "
+                                     "audio model")
+            say(f"{label} serve CLI: ValueError, as the reference CLI's "
+                "KeyError (frame_embeds)")
+        else:
+            cli, cli_s = run_cli(torch, arch)
+            variants = [family_config(arch, {}, impl=impl) for impl in impls]
+            rec, launches, routes, flash_routes = run_serve(
+                torch, device, cfg, label, variants=variants,
+                dvp_bound=None, dvp_note="phase 29 holds the card to the "
+                "CPU at a cut depth", lean=True,
+                chain=(serve_cli.prompts(cfg, CLI_BATCH, CLI_PROMPT, device),
+                       cli.to(device)))
+            rec["cli"] = {"tokens": cli.tolist(), "s": cli_s}
+            say(f"{label} serve CLI (python -m repro_torch.launch.serve "
+                f"--arch {arch}): req0-req{CLI_BATCH - 1}, {CLI_BATCH} x "
+                f"{CLI_PROMPT} tokens, {CLI_NEW} new, one greedy_generate "
+                f"replay on its init_params(cfg, 0), in {cli_s:.1f} s with "
+                "its build and capture; its tokens == the eager argmax "
+                "chain of the same weights built again, teacher-forced on "
+                "its prompts, bit for bit")
+        check_default_counts(label, launches, flash_routes)
+        rec["launches"], rec["flash_routes"] = launches, flash_routes
+        rec["phase_s"] = time.perf_counter() - t
+        say(f"kernels {label} " + json.dumps(launches) + " flash routes "
+            + json.dumps(flash_routes) + f"; {rec['phase_s']:.1f} s")
+        records[arch] = rec
+    return records
+
+
+def run_long(torch, device) -> dict:
+    """Phase 30: LONG_ARCH at its default, full depth, one request of
+    LONG_PROMPT tokens and SERVE_NEW new (32,768 positions) through
+    ``run_serve`` (lean) with phase 7's checks; then LONG_CHECK_LAYERS
+    layers, the same traffic, the card's kernels against their plain
+    versions on the card step by step."""
+    label = f"long-{LONG_ARCH}"
+    t = time.perf_counter()
+    rec, launches, _, flash_routes = run_serve(
+        torch, device, family_config(LONG_ARCH, {}), label, dvp_bound=None,
+        dvp_note="its 2-layer model is held below, kernels against plain",
+        batch_size=LONG_BATCH, prompt=LONG_PROMPT, lean=True)
+    check_default_counts(label, launches, flash_routes)
+    rec["launches"], rec["flash_routes"] = launches, flash_routes
+    rec["phase_s"] = time.perf_counter() - t
+    say(f"kernels {label} " + json.dumps(launches) + " flash routes "
+        + json.dumps(flash_routes))
+    cfg = family_config(LONG_ARCH, {}, n_layers=LONG_CHECK_LAYERS)
+    card, plain, toks, _, _, card_s, plain_s = plain_check(
+        torch, device, cfg, label, LONG_BATCH, LONG_PROMPT)
+    rels = kernels_vs_plain(torch, label, card, plain)
     say(f"{label} {cfg_name(cfg)} at full width, {cfg.n_layers} layers, "
-        f"batch {RING_BATCH}, prompt {S}, {SERVE_NEW} tokens: one graph "
-        f"replay, tokens == the card's argmax chain; the ring's {W} slots "
-        f"after the last step hold positions {S + n - W} .. {S + n - 1} "
-        f"(decode wrote slots {S % W} .. {(S + n - 1) % W}); card (kernels) "
-        "vs card (plain versions) logits rel per step " + ", ".join(
-            f"{r:.3e}" for r in rels) + f" (bound {LOGITS_REL}); kernels "
-        f"{card_s:.1f} s, plain {plain_s:.1f} s")
+        f"batch {LONG_BATCH}, prompt {LONG_PROMPT}, {SERVE_NEW} tokens: one "
+        "graph replay, tokens == the card's argmax chain; card (kernels) vs "
+        "card (plain versions, the attention over "
+        f"{PLAIN_CHUNK} queries a call) logits rel per step "
+        + ", ".join(f"{r:.3e}" for r in rels) + f" (bound {LOGITS_REL}); "
+        f"kernels {card_s:.1f} s, plain {plain_s:.1f} s")
     rec["check"] = {"layers": cfg.n_layers, "rel_per_step": rels,
                     "tokens": toks.cpu().tolist(), "kernels_s": card_s,
                     "plain_s": plain_s}
-    del model, batch, card, plain
     return rec
 
 
@@ -5019,6 +5495,15 @@ def main() -> int:
     # the build
     dry = start_dryrun()
 
+    # each phase's seconds, printed before the kernel table
+    marks = record["phase_marks_s"] = {}
+    last = [time.perf_counter()]
+
+    def mark(name):
+        now = time.perf_counter()
+        marks[name] = now - last[0]
+        last[0] = now
+
     # 1. build: one nvcc per source, all started together
     from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
@@ -5035,6 +5520,7 @@ def main() -> int:
             f"{len(SOURCES)} in parallel (nvcc "
             f"{_build.BUILD_SECONDS.get(name, 0.0):.2f} s)")
 
+    mark("1 build")
     # 2. the add latency; kernels against their plain versions
     fadd = record["fadd"] = fadd_latency(torch, device)
     kernel_rows = phase_kernels(torch, device, fadd)
@@ -5103,6 +5589,10 @@ def main() -> int:
     # each PIM entry's warm call one CUDA-graph replay
     record["graphs"] = phase_graphs(torch, device, cfg, steps)
 
+    mark("2-4 kernels, subarray, device, graphs")
+    # 4b. refresh cycles past half the interval, card against CPU
+    record["refresh"] = phase_refresh(torch, device)
+
     # where the time goes: one warm execute and one warm schedule step
     start = device_start(torch, device, cfg)
     prog1000 = pim.shift_workload_program(1000)
@@ -5120,6 +5610,7 @@ def main() -> int:
     for name, sh in shares.items():
         say_share(name, sh)
 
+    mark("4b refresh")
     # 5. launches over the main path: each fused segment and residual
     # SHIFT/TRA/NOT row one launch of a row entry, the old out-of-place
     # entries not at all
@@ -5149,6 +5640,7 @@ def main() -> int:
             lambda: pim.schedule(start, steps[0][0], **steps[0][1])),
     }
 
+    mark("5 launches")
     # 6. the LM kernels against their plain versions
     t = time.perf_counter()
     lm_rows = phase_lm_kernels(torch, device)
@@ -5222,6 +5714,7 @@ def main() -> int:
         raise AssertionError(f"flash tensor-core kernel without HMMA: "
                              f"{record['flash_tc_sass']}")
 
+    mark("6 LM kernels")
     # 7. the serving path, one CUDA-graph replay per greedy_generate call,
     # with the launch counts reset just before a replayed call and read
     # just after it (inside run_serve)
@@ -5231,9 +5724,11 @@ def main() -> int:
         + json.dumps(lm_routes) + " flash routes "
         + json.dumps(flash_routes))
 
+    mark("7 serve")
     # 8. card against CPU at full width, 2 layers
     record["lm_parity"] = run_lm_parity(torch, device)
 
+    mark("8 lm parity")
     # 9. ripple_add against its plain version; fused against composed
     ripple_rows, record["fused_vs_composed"] = phase_ripple(torch, device)
     record["ripple"] = ripple_rows
@@ -5245,6 +5740,7 @@ def main() -> int:
         else ", ".join(f"{v:g} {k}"
                        for k, v in record["ripple_sass"].items())))
 
+    mark("9 ripple")
     # 10. the bit-plane path, with the launch counts reset just before it
     # and read just after it
     ops.reset_launches()
@@ -5283,6 +5779,7 @@ def main() -> int:
     if over:
         raise AssertionError(f"launches not halved: {over}")
 
+    mark("10 bitplane")
     # 11. the same path on the CPU: reads, counts and meters identical
     t = time.perf_counter()
     cpu_values, _ = run_bitplane(torch, "cpu")
@@ -5292,6 +5789,7 @@ def main() -> int:
     say(f"bitplane parity: card == CPU for {len(bp_values)} runs (reads, "
         f"counts, float32 meters); CPU run {cpu_s:.1f} s")
 
+    mark("11 bitplane parity")
     # 12. meter_fold over table sizes, up to the largest the paths folded
     largest = max((f.largest for f in (folds, bp_folds)),
                   key=lambda t: t[0].shape[0])
@@ -5300,9 +5798,11 @@ def main() -> int:
         f"bit-plane path, largest {bp_folds.largest[0].shape[0]} rows")
     record["fold_sweep"] = phase_fold_sweep(torch, device, fadd, largest)
 
+    mark("12 fold")
     # 13. the verify=True gates at full width
     record["gates"] = phase_gates(torch, device, cfg, steps)
 
+    mark("13 gates")
     # 14. the serving front end at full width, with the launch counts reset
     # just before its measured run and read just after it
     record["front"], front_launches = phase_front(torch, device, cfg)
@@ -5336,40 +5836,36 @@ def main() -> int:
     say(f"pim graphs dropped: {pinned} bytes of static inputs and outputs "
         f"pinned, {record['pim_graphs_freed']['freed_bytes']} bytes freed")
 
+    mark("14 front")
     # 15. Tables 4 and 5
     record["tables"] = phase_tables(torch, device)
 
-    # 16. the MoE, MLA and frontend families' serving paths at their
+    mark("15 tables")
+    # 16. the MLA and frontend families' pim_w4 serving paths at their
     # published widths, with the launch counts reset just before a
-    # replayed call (an audio model: its loop) and read just after it
+    # replayed call and read just after it
     families = record["families"] = {}
     family_counts = {}
-    for label, arch, overrides, depth, impls in FAMILIES:
+    for label, arch, overrides, depth in FAMILIES:
         cut = {} if depth is None else {"n_layers": depth}
-        cfg = family_config(arch, overrides, **cut)
-        if cfg.frontend == "audio_frames":
-            families[label], f_launches, f_flash = run_audio(
-                torch, device, cfg, label)
-            f_routes = None
-        else:
-            variants = [family_config(arch, overrides, impl=impl, **cut)
-                        for impl in impls]
-            families[label], f_launches, f_routes, f_flash = run_serve(
-                torch, device, cfg, label, variants=variants)
+        families[label], f_launches, f_routes, f_flash = run_serve(
+            torch, device, family_config(arch, overrides, **cut), label,
+            eager_reps=1)
         family_counts[label] = (f_launches, f_routes, f_flash)
-        say(f"kernels {label} " + json.dumps(f_launches)
-            + ("" if f_routes is None else " routes " + json.dumps(f_routes))
-            + " flash routes " + json.dumps(f_flash))
+        say(f"kernels {label} " + json.dumps(f_launches) + " routes "
+            + json.dumps(f_routes) + " flash routes " + json.dumps(f_flash))
     # the slice's main path: both routes of each LM kernel ran
     ds_launches, ds_routes, ds_flash = family_counts["serve-deepseek"]
     check_routes("deepseek", ds_routes, ds_flash)
 
+    mark("16 families")
     # 17. each family's card against the CPU at full width, 2 layers
     record["families_parity"] = {
         label: run_lm_parity(torch, device, family_config(
             arch, overrides, n_layers=PARITY_LAYERS))
-        for label, arch, overrides, _, _ in FAMILIES}
+        for label, arch, overrides in FAMILIES_PARITY}
 
+    mark("17 families parity")
     # 18. the recurrent families at their published widths and full
     # depths, with the launch counts reset just before a replayed call and
     # read just after it (inside run_serve); decode against prefill
@@ -5379,7 +5875,7 @@ def main() -> int:
     for label, arch, overrides, _ in RECURRENT:
         cfg = family_config(arch, overrides)
         recurrent[label], r_launches, r_routes, r_flash = run_serve(
-            torch, device, cfg, label, dvp_bound=None)
+            torch, device, cfg, label, dvp_bound=None, eager_reps=1)
         recurrent_counts[label] = (r_launches, r_routes, r_flash)
         say(f"kernels {label} " + json.dumps(r_launches) + " routes "
             + json.dumps(r_routes) + " flash routes " + json.dumps(r_flash)
@@ -5388,6 +5884,7 @@ def main() -> int:
                "does: its Mamba block computes every product with plain "
                "matmuls and it has no attention)"))
 
+    mark("18 recurrent")
     # 19. each recurrent family's card against the CPU at full width and
     # the cut depth, and decode against prefill held on both
     record["recurrent_parity"] = {
@@ -5395,15 +5892,18 @@ def main() -> int:
             arch, overrides, n_layers=depth), dvp_bound=RECURRENT_DECODE_REL)
         for label, arch, overrides, depth in RECURRENT}
 
+    mark("19 recurrent parity")
     # 20. training's gradient path: Qwen3-4B pim_w4 at full width and
     # depth takes AdamW steps, the launch counts reset just before each
     # step and read just after it (inside run_train), then serves
     record["train"], train_shapes = run_train(torch, device)
 
+    mark("20 train")
     # 21. one training pass's loss and gradients, card against CPU, at
     # full width with 2 layers
     record["train_parity"] = run_train_parity(torch, device)
 
+    mark("21 train parity")
     # 22. training's CLI at full width and depth, the launch counts reset
     # just before it and read just after it; the loop's resume, bit for
     # bit, at full width with RESUME_LAYERS layers
@@ -5426,6 +5926,7 @@ def main() -> int:
     finally:
         shutil.rmtree(keep, ignore_errors=True)
 
+    mark("22-24 train loop, examples, sharded")
     # 25. the dense configurations and Qwen3-4B's other quantizations at
     # published widths, with the launch counts reset just before a replayed
     # call and read just after it (inside run_serve)
@@ -5451,6 +5952,33 @@ def main() -> int:
     say("phases 25-27: " + ", ".join(f"{k} {v:.1f} s"
                                      for k, v in phase_s.items()))
 
+    # 28. each configuration's own default at published width and full
+    # depth, the launch counts reset just before a replayed call and read
+    # just after it (inside run_serve), and through the serving CLI
+    new_s = record["phase_s_28_30"] = {}
+    t = time.perf_counter()
+    defaults = record["defaults"] = run_defaults(torch, device)
+    new_s["28 defaults"] = time.perf_counter() - t
+
+    # 29. the five that had never run bf16 at width, card against CPU
+    t = time.perf_counter()
+    record["defaults_parity"] = {
+        arch: run_lm_parity(torch, device, family_config(
+            arch, {}, n_layers=depth), label="lm parity default")
+        for arch, depth in DEFAULTS_PARITY.items()}
+    new_s["29 defaults parity"] = time.perf_counter() - t
+
+    # 30. Qwen3-4B at 32,768 positions, the launch counts reset just before
+    # a replayed call and read just after it (inside run_serve); its
+    # 2-layer model's kernels against their plain versions on the card
+    t = time.perf_counter()
+    long_rec = record["long"] = run_long(torch, device)
+    new_s["30 long"] = time.perf_counter() - t
+    say("phases 28-30: " + ", ".join(f"{k} {v:.1f} s"
+                                     for k, v in new_s.items())
+        + f"; {sum(new_s.values()):.1f} s in all")
+
+    mark("25-30")
     # the row entries at the full device's 64 slots, in place (as most of
     # the main path's segments run); every shape is in chip_smoke.json
     table = []
@@ -5551,6 +6079,11 @@ def main() -> int:
               ring["flash_routes"]["tensor_core"]),
              ("flash_attn", "flash_attn[decode,starcoder2,ring]",
               ring["flash_routes"]["split_kv"])]
+    # Qwen3-4B's heads at 32,768 positions, launched on phase 30's path
+    rows += [("flash_attn", "flash_attn[prefill,32k]",
+              long_rec["flash_routes"]["tensor_core"]),
+             ("flash_attn", "flash_attn[decode,32k]",
+              long_rec["flash_routes"]["split_kv"])]
     for kernel, row, launched in rows:
         r = lm_rows[row]
         table.append({
@@ -5571,6 +6104,8 @@ def main() -> int:
         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     record["table"] = table
     record["elapsed_s"] = time.perf_counter() - run_start
+    say("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                      marks.items()))
     say(f"chip_smoke: {record['elapsed_s']:.1f} s from the start to the "
         "kernel table")
     out = ROOT / "chiprun_out"

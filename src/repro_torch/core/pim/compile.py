@@ -263,7 +263,7 @@ def _lane_tree(x: torch.Tensor, lanes: int, chunks: int) -> torch.Tensor:
                      device=x.device)
     v = torch.cat([x[:head], pad]).reshape(chunks, lanes)
     init = torch.full((lanes,), -0.0, dtype=torch.float32, device=x.device)
-    init[0] = 0.0
+    init[:1].fill_(0.0)       # a fill: a graph's capture takes no host copy
     acc = v[0] + init
     for c in range(1, chunks):
         acc = acc + v[c]

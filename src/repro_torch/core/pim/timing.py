@@ -19,6 +19,8 @@ contracted or reassociated and the meter is bit-identical on any device.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 
 import numpy as np
 import torch
@@ -139,42 +141,120 @@ def charge_issue(meter: CostMeter,
     return _bump(meter, dt=cfg.t_issue, cfg=cfg)
 
 
-# Re-counts of the least fixed point on the card (see refresh_events).
-_REFRESH_ROUNDS = 8
+# The card's refresh count is proved for least fixed points below this
+# many events (see _refresh_plan): about 63 s of DDR3 time at the default
+# timing.
+_REFRESH_COUNT_CAP = 2 ** 23
 
 
-def _recount(busy, k, cfg: DDR3Timing) -> torch.Tensor:
-    """``floor((busy + k·tRFC) / tREFI)`` in float32, as int32."""
-    return torch.floor((busy + k.to(torch.float32) * cfg.tRFC)
-                       / cfg.tREFI).to(torch.int32)
+def _inverse(tREFI: float) -> float:
+    """The float32 reciprocal of tREFI, by which the reference's compiled
+    re-count multiplies where its code divides by the constant."""
+    return float(np.float32(1.0) / np.float32(tREFI))
+
+
+def _recount(busy64, k, cfg: DDR3Timing) -> torch.Tensor:
+    """``floor((busy + k·tRFC) / tREFI)`` as the reference's XLA rounds
+    it, as float32: the sum rounded once to float32 (XLA fuses the product
+    and the sum into one multiply-add; float64 holds the sum exactly, as
+    the span of a float32 busy time and k·tRFC, k below 2^29, stays under
+    53 bits for the counts the re-count meets), the quotient as the
+    float32 product by the reciprocal of tREFI (``_inverse``). ``busy64``
+    is the float64 busy time, ``k`` the counts."""
+    s = torch.add(busy64, k.to(torch.float64), alpha=float(_f32(cfg.tRFC)))
+    return torch.floor(s.to(torch.float32) * _inverse(cfg.tREFI))
+
+
+def _start(busy, cfg: DDR3Timing) -> torch.Tensor:
+    """``floor(busy / tREFI)``, the loop's start, as a quotient: divided by
+    a tensor, since the card takes a quotient by a host scalar as the
+    product by its reciprocal (which rounds some quotients the other
+    way)."""
+    return torch.floor(busy / torch.full((), cfg.tREFI, dtype=torch.float32,
+                                         device=busy.device))
+
+
+@functools.lru_cache(maxsize=None)
+def _refresh_plan(tRFC: float, tREFI: float) -> tuple[float, float, int, int]:
+    """(tREFI - tRFC, the start's slope, its lowering, the re-counts) of
+    the card's refresh count for a timing, in float32's tRFC = R and
+    tREFI = T; ``ValueError`` where it has none.
+
+    The proof. Let d = T - R > 0, r = T / d, m = busy / d, x(n) = (busy +
+    n·R) / T = n + (m - n) / r, and f(n) = floor(q(n)) the float32
+    re-count (``_recount``): three rounded operations (the reciprocal of T,
+    the multiply-add, the product by the reciprocal), so ``|q / x - 1| <=
+    ε``, ``ε = (1 + |fl(1/T)·T - 1|)·(1 + 2^-24)^2 - 1``.
+
+    1. The loop starts at n0 = floor(busy / T) (``_start``: a quotient,
+       as the reference's eager call takes it) and re-counts while a count
+       grows. f never decreases, and f(n0) >= n0 for tRFC >= 2^-20·tREFI,
+       so the loop climbs to n*, the least fixed point >= n0, and f(n) >=
+       n + 1 for n0 <= n < n* (at tRFC = 0 every re-count is f(n0), which
+       the loop, the reference and the card return). From any s with n0
+       <= s <= n* the re-counts climb to n* and never past it (f(s) <=
+       f(n*) = n*), at least one count a round.
+    2. The start lies below n*. q(n*) < n* + 1 with q >= x·(1 - ε) gives
+       n* > m·(1 - ε'r) - r·(1 + ε'), ε' = ε / (1 - ε), as for every
+       fixed point; so ``lo = floor(m·(1 - σ·r)) - ceil(r) - 1`` < n* for
+       σ = ε' + 2^-40 (the 2^-40 covers the float64 rounding of m), and s
+       = max(n0, lo) <= n*.
+    3. The re-counts. q(n*) >= n* gives n* <= m·(1 + ε) / (1 - ε(r - 1)),
+       so n* - s <= e0 = floor(M·((1 + ε) / (1 - ε(r - 1)) - 1 + σ·r)) +
+       ceil(r) + 2 for n* < M = ``_REFRESH_COUNT_CAP``. A round from n <
+       n* at gap e = n* - n leaves e' < (R / T)·e + 1 + 2ε·n*, as f(n) >
+       x(n)·(1 - ε) - 1 and x(n) = x(n*) - e·R / T >= n* / (1 + ε) - e·R /
+       T; and e' <= e - 1 (1.). The rounds are the steps of that recursion
+       from e0 to 0: 4 for the default timing, 11, 18 and 74 at tRFC =
+       0.6, 0.78 and 0.95·tREFI (tREFI 7,800 ns).
+
+    A timing with tRFC >= tREFI has no fixed point (the reference's loop
+    never ends); one within about 2^-21·tREFI of it breaks the bound of
+    3.; both are refused."""
+    R, T = float(_f32(tRFC)), float(_f32(tREFI))
+    if not 0.0 <= R < T:
+        raise ValueError(
+            f"refresh_events on the card needs 0 <= tRFC < tREFI, got tRFC "
+            f"{tRFC} and tREFI {tREFI}")
+    d = T - R
+    r = T / d
+    eps = (1 + abs(_inverse(tREFI) * T - 1)) * (1 + 2.0 ** -24) ** 2 - 1
+    if eps * (r - 1) >= 0.5:
+        raise ValueError(
+            f"refresh_events on the card needs tREFI - tRFC above "
+            f"{2 * eps:.3g} of tREFI, got tRFC {tRFC} and tREFI {tREFI}")
+    sigma = eps / (1 - eps) + 2.0 ** -40
+    top = (1 + eps) / (1 - eps * (r - 1))
+    gap = (math.floor(_REFRESH_COUNT_CAP * (top - 1 + sigma * r))
+           + math.ceil(r) + 2)
+    climb = 1 + 2 * eps * _REFRESH_COUNT_CAP * top
+    rounds = 0
+    while gap > 0:
+        gap = min(gap - 1, math.ceil(R / T * gap + climb) - 1)
+        rounds += 1
+    return d, 1.0 - sigma * r, math.ceil(r) + 1, rounds
 
 
 def _refresh_events_sync_free(busy, cfg: DDR3Timing) -> torch.Tensor:
     """The card's ``refresh_events``: no host sync (the step can be
-    captured in a CUDA graph). The count starts at ``floor(busy / (tREFI -
-    tRFC) · (1 - 2^-20)) - 3``, below which every n has ``f(n) > n`` in
-    float32 (the four rounded operations move ``f`` by less than 2^-22 of
-    it), so from there it climbs to the same least fixed point as from
-    ``floor(busy / tREFI)``; ``_REFRESH_ROUNDS`` re-counts reach it for any
-    count below 2^24 (about 130 s of DDR3 time), and a device-side assert
-    fails the run if an element still grows. The start lies below the
-    least fixed point only while ``tREFI / (tREFI - tRFC)`` stays under
-    4 (every fixed point lies within that many counts of ``busy / (tREFI -
-    tRFC)``); a timing with ``tRFC`` above ``tREFI / 2`` is refused, where
-    a larger fixed point could pass the assert unseen."""
-    if not 0.0 <= cfg.tRFC <= cfg.tREFI / 2:
-        raise ValueError(
-            f"refresh_events on the card needs 0 <= tRFC <= tREFI / 2, got "
-            f"tRFC {cfg.tRFC} and tREFI {cfg.tREFI}")
-    n = torch.floor(busy / cfg.tREFI).to(torch.int32)
-    lo = torch.floor(busy.to(torch.float64) / (cfg.tREFI - cfg.tRFC)
-                     * (1.0 - 2.0 ** -20)) - 3.0
-    n = torch.maximum(n, lo.clamp(0.0, 2.0 ** 31 - 1).to(torch.int32))
-    for _ in range(_REFRESH_ROUNDS):
-        n = _recount(busy, n, cfg)
-    torch._assert_async(torch.all(_recount(busy, n, cfg) <= n),
+    captured in a CUDA graph). The count starts at ``max(floor(busy /
+    tREFI), floor(busy / (tREFI - tRFC)·(1 - σ·r)) - ceil(r) - 1)``, r =
+    tREFI / (tREFI - tRFC) and σ about 2^-22, at or below the least fixed
+    point, and re-counts as the CPU's loop does, a number of rounds taken
+    from the timing that reaches the fixed point for any count below
+    ``_REFRESH_COUNT_CAP`` (``_refresh_plan`` holds the proof); a
+    device-side assert fails the run if an element still grows. The count
+    is carried in float32, which holds each integer it takes exactly."""
+    d, slope, lowering, rounds = _refresh_plan(cfg.tRFC, cfg.tREFI)
+    busy64 = busy.to(torch.float64)
+    n = _start(busy, cfg)
+    lo = torch.floor(busy64 / d * slope) - lowering
+    n = torch.maximum(n, lo.clamp(0.0, 2.0 ** 31 - 1).to(torch.float32))
+    for _ in range(rounds):
+        n = _recount(busy64, n, cfg)
+    torch._assert_async(torch.all(_recount(busy64, n, cfg) <= n),
                         "refresh_events: the count still grows")
-    return n
+    return n.to(torch.int32)
 
 
 def refresh_events(busy, cfg: DDR3Timing = DEFAULT_TIMING) -> torch.Tensor:
@@ -188,12 +268,11 @@ def refresh_events(busy, cfg: DDR3Timing = DEFAULT_TIMING) -> torch.Tensor:
     busy = torch.as_tensor(busy, dtype=torch.float32)
     if busy.device.type == "cuda":
         return _refresh_events_sync_free(busy, cfg)
-    n = torch.floor(busy / cfg.tREFI).to(torch.int32)
-    while True:
-        nxt = _recount(busy, n, cfg)
-        if not bool((nxt > n).any()):
-            return n
-        n = nxt
+    busy64 = busy.to(torch.float64)
+    prev, n = None, _start(busy, cfg)
+    while prev is None or bool((n > prev).any()):
+        prev, n = n, _recount(busy64, n, cfg)
+    return n.to(torch.int32)
 
 
 def refresh_events_scalar(busy_ns: float,

@@ -16,7 +16,9 @@ against CPU at the smoke size and at Qwen3-4B's full width with 1 layer, a
 training step card against CPU, serving unchanged after training; and
 training's loop (``-k train_loop``): a resumed run bit for bit against an
 uninterrupted one, checkpoints of CUDA bf16 and int8 tensors, a restore
-under a captured ``greedy_generate`` graph.
+under a captured ``greedy_generate`` graph; the refresh count at refresh
+cycles past half the interval (``-k "refresh_count or long_refresh"``)
+and flash at 32,768 positions (``-k flash_32k``).
 
 Needs a CUDA card and ``nvcc`` (the kernels build at first use); every test
 here skips elsewhere. It imports nothing of JAX, so on the card machine it
@@ -461,6 +463,40 @@ def test_flash_odd_groups_window_and_ring(card, shape, which, g):
     exp = fref.ref_flash_attention(q, k, v, pos_q, pos_k, window=window)
     err = float((got.float() - exp.float()).abs().max())
     assert err < flash_bound(exp), f"max abs err {err}"
+
+
+@pytest.mark.parametrize("phase", ["prefill", "decode"])
+def test_flash_32k_against_chunked_plain(card, phase):
+    """Qwen3-4B's heads at 32,768 positions (batch 1): prefill over 32,752
+    causal tokens on the tensor-core route, decode at position 32,766 over
+    a 32,768-slot cache (the last slot unwritten) on the split route, each
+    against the plain version taken over 1,024 queries at a time (all at
+    once its float32 scores would take 137 GB), each query row within 1e-2
+    of its own max |plain| (a late row's outputs, ~sqrt(e / 32k), are
+    hundreds of times smaller than row 0's)."""
+    prefill = phase == "prefill"
+    sq, sk = (32752, 32752) if prefill else (1, 32768)
+    last = sq - 1 if prefill else 32766
+    gen = torch.Generator(device=card).manual_seed(sq)
+    q, k, v = (torch.randn(sh, generator=gen, device=card).to(torch.bfloat16)
+               for sh in ((1, sq, 8, 4, 128), (1, sk, 8, 128),
+                          (1, sk, 8, 128)))
+    pos_q = torch.arange(last - sq + 1, last + 1, dtype=torch.int32,
+                         device=card)
+    pos_k = torch.arange(sk, dtype=torch.int32, device=card)
+    pos_k[last + 1:] = -1
+    fa.reset_launches()
+    got = fa.flash_attention(q, k, v, pos_q, pos_k)
+    assert fa.ROUTES["tensor_core" if prefill else "split_kv"] == 1
+    exp = torch.cat([fref.ref_flash_attention(q[:, i:i + 1024], k, v,
+                                              pos_q[i:i + 1024], pos_k)
+                     for i in range(0, sq, 1024)], dim=1)
+    diff = (got.float() - exp.float()).abs()
+    row_max = exp.float().abs().amax(dim=(2, 3, 4), keepdim=True)
+    share = float((diff / (FLASH_BF16_REL * row_max)).max())
+    assert torch.isfinite(got.float()).all()
+    assert share < 1, (f"max abs err {float(diff.max())}, {share:.3f} of "
+                       "the per-row bound")
 
 
 @pytest.mark.parametrize("m", [5, 64])
@@ -2291,6 +2327,76 @@ def test_pim_graph_schedule_replays(card, fresh_graphs, flags):
         lambda rs: [_sched_obs(r) for r in rs], card)
     assert (graphs, kernels) == (3, 0)
     assert tsched.SCHED_STATS["dispatches"] == 3
+
+
+def _long_refresh(frac):
+    """The default timing with tRFC = ``frac``·tREFI."""
+    t = tpim.DEFAULT_TIMING
+    return dataclasses.replace(t, tRFC=frac * t.tREFI)
+
+
+def _refresh_busy(cfg, seed):
+    """Seeded busy times from 0 to 10^12 ns, each count below 2^30."""
+    rng = np.random.default_rng(seed)
+    busy = (rng.random(20000) * 10.0 ** rng.integers(0, 12, 20000)
+            ).astype(np.float32)
+    return torch.from_numpy(busy[busy / (cfg.tREFI - cfg.tRFC) < 2.0 ** 30])
+
+
+@pytest.mark.parametrize("frac", [0.6, 0.78, 0.95])
+def test_refresh_count_long_cycles_eager_and_captured(card, frac):
+    """``refresh_events`` on the card at a refresh cycle past half its
+    interval (once refused there): eagerly, and captured in a CUDA graph
+    and replayed on other busy times, equal to the CPU's loop."""
+    cfg = _long_refresh(frac)
+    a, b = _refresh_busy(cfg, 20), _refresh_busy(cfg, 21)
+    n = min(len(a), len(b))
+    a, b = a[:n], b[:n]
+    assert torch.equal(tpim.refresh_events(a.to(card), cfg).cpu(),
+                       tpim.refresh_events(a, cfg))
+    static = a.to(card)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tpim.refresh_events(static, cfg)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tpim.refresh_events(static, cfg)
+    static.copy_(b)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), tpim.refresh_events(b, cfg))
+
+
+@pytest.mark.parametrize("frac", [1.0, 1.2])
+def test_refresh_count_without_fixed_point_refused_on_card(card, frac):
+    with pytest.raises(ValueError, match="tRFC < tREFI"):
+        tpim.refresh_events(torch.ones(4, device=card), _long_refresh(frac))
+
+
+@pytest.mark.parametrize("banks", [4, 16])
+def test_pim_graph_schedule_long_refresh_cycle(card, fresh_graphs, banks):
+    """Refreshed ``schedule()`` steps at tRFC = 0.6·tREFI: eager, captured
+    and replayed on the card, each equal to the CPU bit for bit; on 8
+    slots and on 32, where the step's energy sum takes XLA's fused lanes
+    (``xla_sum(..., fused=True)`` at 15-32 slots), which once copied a
+    host scalar inside the capture."""
+    cfg = tpim.paper_device(banks, subarrays=2, timing=_long_refresh(0.6),
+                            **GRAPH_CFG)
+    layouts = _graph_layouts(cfg, 7)
+
+    def call(dev):
+        out = []
+        for lay in layouts:
+            r = tpim.schedule(dev, lay, async_host=True, refresh=True)
+            dev = r.state
+            out.append(r)
+        return out
+
+    assert _three_calls(lambda where: _graph_device(cfg, where), call,
+                        lambda rs: [_sched_obs(r) for r in rs], card) \
+        == (3, 0)
 
 
 @pytest.mark.parametrize("flags", [{}, {"async_host": True, "refresh": True}],

@@ -22,6 +22,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax.numpy as jnp  # noqa: E402
 from repro.core import pim as ref  # noqa: E402
 from repro_torch import convert  # noqa: E402
 from repro_torch.core import pim as port  # noqa: E402
@@ -373,15 +374,26 @@ def test_meters_come_as_stacks():
                                  for k in FLOAT_FIELDS]) is not None
 
 
+def long_refresh(frac):
+    """The default timing with tRFC = ``frac``·tREFI."""
+    return dataclasses.replace(port_timing.DEFAULT_TIMING,
+                               tRFC=frac * port_timing.DEFAULT_TIMING.tREFI)
+
+
 @pytest.mark.parametrize("cfg", [
     port_timing.DEFAULT_TIMING,
     dataclasses.replace(port_timing.DEFAULT_TIMING, tREFI=3_900.0,
-                        tRFC=1_950.0)], ids=["default", "tRFC-half-tREFI"])
+                        tRFC=1_950.0),
+    long_refresh(0.6), long_refresh(0.78), long_refresh(0.95)],
+    ids=["default", "tRFC-half-tREFI", "tRFC-0.6-tREFI", "tRFC-0.78-tREFI",
+         "tRFC-0.95-tREFI"])
 def test_sync_free_refresh_count_is_the_loop(cfg):
-    """The card's refresh count (a lower bound, fixed re-counts, no host
-    sync) against the CPU's loop to convergence, over busy times from 0 to
-    2^24 refresh intervals and at the interval edges: for the default
-    timing and at the edge of the timings it accepts."""
+    """The card's refresh count (a lower bound, re-counts as many as the
+    timing needs, no host sync) against the CPU's loop to convergence, and
+    that against the reference's ``while_loop``, over busy times from 0 to
+    10^12 ns and at the interval edges, each count below 2^30 (an int32
+    holds the loop's counts): for the default timing, and for refresh
+    cycles of a half to 0.95 of the interval."""
     rng = np.random.default_rng(10)
     edges = np.array([k * cfg.tREFI + d for k in (0, 1, 2, 29, 30, 31, 1000)
                       for d in (-1.0, -0.5, 0.0, 0.5)])
@@ -389,18 +401,69 @@ def test_sync_free_refresh_count_is_the_loop(cfg):
         rng.random(20000) * 10.0 ** rng.integers(0, 12, 20000),
         edges[edges >= 0],
         [0.0, 2.0 ** 24 * (cfg.tREFI - cfg.tRFC)]]).astype(np.float32)
+    busy = busy[busy / (cfg.tREFI - cfg.tRFC) < 2.0 ** 30]
     t = torch.from_numpy(busy)
-    assert torch.equal(port_timing._refresh_events_sync_free(t, cfg),
-                       port_timing.refresh_events(t, cfg))
+    loop = port_timing.refresh_events(t, cfg)
+    assert torch.equal(port_timing._refresh_events_sync_free(t, cfg), loop)
+    ref_cfg = dataclasses.replace(ref.DEFAULT_TIMING, tRFC=cfg.tRFC,
+                                  tREFI=cfg.tREFI)
+    assert np.array_equal(np.asarray(ref.refresh_events(jnp.asarray(busy),
+                                                        ref_cfg)),
+                          loop.numpy())
 
 
-def test_sync_free_refresh_count_refuses_long_refresh_cycles():
-    """A timing whose refresh cycle passes half its interval is refused:
-    the card's start could lie above the least fixed point."""
-    cfg = dataclasses.replace(port_timing.DEFAULT_TIMING, tRFC=0.78 * 7_800.0)
-    with pytest.raises(ValueError, match="tREFI / 2"):
+def test_sync_free_refresh_count_rounds():
+    """The re-counts the card runs: the default timing's 4 (8 before the
+    bound came from the timing), more as the refresh cycle nears the
+    interval."""
+    rounds = [port_timing._refresh_plan(c.tRFC, c.tREFI)[3]
+              for c in (port_timing.DEFAULT_TIMING, long_refresh(0.6),
+                        long_refresh(0.78), long_refresh(0.95))]
+    assert rounds == [4, 11, 18, 74]
+
+
+@pytest.mark.parametrize("frac", [1.0, 1.2])
+def test_sync_free_refresh_count_refuses_no_fixed_point(frac):
+    """A refresh cycle as long as its interval has no fixed point (the
+    reference's loop never ends): the card's count refuses it."""
+    with pytest.raises(ValueError, match="tRFC < tREFI"):
         port_timing._refresh_events_sync_free(
-            torch.tensor([1.0e6], dtype=torch.float32), cfg)
+            torch.tensor([1.0e6], dtype=torch.float32), long_refresh(frac))
+
+
+@pytest.mark.parametrize("count", ["loop", "sync_free"])
+def test_apply_refresh_long_refresh_cycle_is_the_reference(monkeypatch,
+                                                           count):
+    """``apply_refresh`` at tRFC = 0.6·tREFI against the reference's on
+    the same seeded meters, applied twice (the second charges only what
+    the first left), bit for bit: with the CPU's loop and with the card's
+    sync-free count."""
+    cfg = long_refresh(0.6)
+    ref_cfg = dataclasses.replace(ref.DEFAULT_TIMING, tRFC=cfg.tRFC)
+    if count == "sync_free":
+        monkeypatch.setattr(port_timing, "refresh_events",
+                            port_timing._refresh_events_sync_free)
+    rng = np.random.default_rng(11)
+    n = 256
+    prior = rng.integers(0, 50, n).astype(np.int32)
+    busy = rng.random(n) * 10.0 ** rng.integers(2, 10, n)
+    meter = {"time_ns": (busy + prior * cfg.tRFC).astype(np.float32)}
+    meter.update({f: (rng.random(n) * 1e6).astype(np.float32)
+                  for f in ("e_act", "e_pre", "e_refresh", "e_burst",
+                            "e_background")})
+    meter.update({f: rng.integers(0, 50, n).astype(np.int32)
+                  for f in ("n_act", "n_pre", "n_aap", "n_shift", "n_tra")})
+    meter["n_refresh"] = prior
+    r = ref.CostMeter(**{k: jnp.asarray(v) for k, v in meter.items()})
+    p = convert.meter_from_numpy(meter, device="cpu")
+    for _ in range(2):
+        r, p = ref.apply_refresh(r, ref_cfg), port_timing.apply_refresh(p,
+                                                                        cfg)
+        for f in r.__dataclass_fields__:
+            got = getattr(p, f).numpy()
+            want = np.asarray(getattr(r, f))
+            assert np.array_equal(want.view(np.int32), got.view(np.int32)), f
+    assert int(np.asarray(r.n_refresh).sum()) > int(prior.sum())
 
 
 def test_recorded_launches_leave_the_counts():
